@@ -8,7 +8,9 @@ Label propagation (Zhou et al., 2003) on a transition-matrix backend:
 * :func:`lp_scan_leaforder` — the VDT walk, entirely in leaf order, with a
   scalar or per-column ``alpha``;
 * :func:`lp_scan_fused` — the same walk against the EXACT transition matrix
-  (eq. 3), one K1 kernel launch per iteration (``kernels/fused_lp``).
+  (eq. 3), one K1 kernel launch per iteration (``kernels/fused_lp``);
+* :func:`route_backend` — the ``"auto"`` routing rule between the ``vdt``,
+  ``exact`` and ``grf`` backends.
 
 Each scan has a ``*_resume`` twin that enters from a mid-walk carry and a
 ``*_segmented`` driver that splits ``n_iters`` into checkpointed segments.
@@ -26,10 +28,60 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.matvec import mpt_matvec_leaforder
 
-__all__ = ["ccr", "label_propagate", "lp_scan_fused", "lp_scan_fused_resume",
+__all__ = ["AUTO_EXACT_MAX_N", "AUTO_GRF_MAX_DENSITY", "AUTO_GRF_MIN_RTOL",
+           "CONCRETE_BACKENDS", "ccr", "label_propagate", "lp_scan_fused", "lp_scan_fused_resume",
            "lp_scan_fused_segmented", "lp_scan_leaforder",
            "lp_scan_leaforder_resume", "lp_scan_leaforder_segmented",
-           "one_hot_labels"]
+           "one_hot_labels", "route_backend"]
+
+# backend="auto" routes to the exact eq.-3 scan at or below this many points
+# (inclusive: n == 1024 is exact, n == 1025 is vdt); callers with another
+# exact-kernel budget override it per call (route_backend(auto_exact_max_n=))
+AUTO_EXACT_MAX_N = 1024
+
+# backend="auto" considers the GRF walker estimator only when both hold
+# (boundaries inclusive): the graph's edge fraction nnz/N^2 is at most
+# AUTO_GRF_MAX_DENSITY, and the request's relative tolerance is at least
+# AUTO_GRF_MIN_RTOL (an m-walker mean's relative error is ~1/sqrt(m), and
+# rtol below 5% would need m > 400).  No stated density or rtol, no grf.
+AUTO_GRF_MAX_DENSITY = 0.05
+AUTO_GRF_MIN_RTOL = 0.05
+
+# the concrete scans every routing tag resolves to
+CONCRETE_BACKENDS = ("vdt", "exact", "grf")
+
+
+def route_backend(requested, default: str = "vdt", *, n=None,
+                  density=None, rtol=None,
+                  auto_exact_max_n: int = AUTO_EXACT_MAX_N) -> str:
+    """Resolve a backend tag to a concrete scan implementation.
+
+    ``requested`` is ``None`` (use ``default``), a concrete tag (``"vdt"``,
+    ``"exact"``, ``"grf"``) or ``"auto"``, which resolves in order:
+
+    1. ``"grf"`` iff ``density <= AUTO_GRF_MAX_DENSITY`` and
+       ``rtol >= AUTO_GRF_MIN_RTOL`` (a ``None`` for either disqualifies it);
+    2. else ``"exact"`` iff ``n <= auto_exact_max_n``;
+    3. else ``"vdt"``.
+
+    Returns a member of :data:`CONCRETE_BACKENDS`; raises ``ValueError`` on
+    anything else.
+    """
+    if requested is None:
+        requested = default
+    if requested == "auto":
+        if (density is not None and rtol is not None
+                and float(density) <= AUTO_GRF_MAX_DENSITY
+                and float(rtol) >= AUTO_GRF_MIN_RTOL):
+            return "grf"
+        if n is None:
+            raise ValueError("backend='auto' routing needs the problem size n")
+        return "exact" if int(n) <= int(auto_exact_max_n) else "vdt"
+    if requested not in CONCRETE_BACKENDS:
+        raise ValueError(
+            f"backend must be one of {CONCRETE_BACKENDS}, 'auto' or None, "
+            f"got {requested!r}")
+    return requested
 
 
 def one_hot_labels(labels: np.ndarray, labeled_mask: np.ndarray,

@@ -6,6 +6,7 @@ Public API: the Variational Dual-Tree transition-matrix approximation.
     y_hat = vdt.matvec(y)                   # O(|B|) Q @ y
     y_lp  = vdt.label_propagate(y0)         # label propagation (eq. 15)
     y_ex  = vdt.label_propagate(y0, backend="exact")   # the exact eq.-3 walk
+    y_mc  = vdt.label_propagate(y0, backend="grf")     # random-walk estimate
 
 Pipeline (paper §3-§4): build the shared partition tree -> coarsest block
 partition (|B| = 2(Np-1)) -> alternate q-optimization (eq. 7) with bandwidth
@@ -68,6 +69,9 @@ class VariationalDualTree:
         default=None, init=False, repr=False, compare=False)
     # points in original row order (the exact backend reads them)
     _x_rows_cache: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    # the dense eq.-3 graph the grf backend walks, built at first use
+    _grf_cache: Optional[object] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
     # ------------------------------------------------------------------ fit
@@ -197,28 +201,57 @@ class VariationalDualTree:
 
     @staticmethod
     def _check_backend(backend: str, batched, y0: torch.Tensor) -> None:
-        if backend == "grf":
-            raise NotImplementedError(
-                "backend='grf' is not ported to repro_torch yet "
-                "(ROADMAP Queue 1 item 9)")
-        if backend not in ("vdt", "exact"):
+        if backend not in ("vdt", "exact", "grf"):
             raise ValueError(
                 f"backend must be 'vdt', 'exact' or 'grf', got {backend!r}")
         if batched and y0.ndim != 3:
             raise ValueError("batched label_propagate wants (batch, N, C), "
                              f"got {tuple(y0.shape)}")
 
+    def grf_graph(self):
+        """The CSR transition graph the GRF backend walks, cached.
+
+        Bridged from the fitted points through the dense eq.-3 matrix
+        (``core.grf.CSRGraph.from_points``, O(N^2): validation sizes), on the
+        model's device, so GRF estimates are unbiased for exactly the matrix
+        the ``"exact"`` backend walks.
+        """
+        from repro_torch.core import grf as grf_mod
+
+        if self._grf_cache is None:
+            self._grf_cache = grf_mod.CSRGraph.from_points(
+                self.x_rows, float(self.sigma), divergence=self.stats.divergence,
+                device=self.device)
+        return self._grf_cache
+
     def label_propagate(self, y0, alpha=0.01, n_iters: int = 500,
                         batched: Optional[bool] = None,
-                        backend: str = "vdt") -> torch.Tensor:
+                        backend: str = "vdt",
+                        n_walkers: Optional[int] = None,
+                        seed: int = 0) -> torch.Tensor:
         """Label propagation (eq. 15) from seed labels ``y0``.
 
         ``y0`` is (N,), (N, C) or a stacked (batch, N, C); ``alpha`` a
         scalar, per-column ``(C,)`` (2-D ``y0``) or per-request ``(batch,)``
         (3-D ``y0``).  ``backend="vdt"`` walks the fitted O(|B|)
         approximation Q in leaf order; ``backend="exact"`` walks the exact
-        eq.-3 matrix P through the fused K1 kernel, never materializing P.
+        eq.-3 matrix P through the fused K1 kernel, never materializing P;
+        ``backend="grf"`` estimates the exact walk without bias from
+        ``n_walkers`` random walks per point over :meth:`grf_graph`
+        (default ``core.grf.DEFAULT_N_WALKERS``; relative error
+        ~ ``1/sqrt(n_walkers)``), one K5 launch per iteration, deterministic
+        per ``seed`` on a given device.  ``n_walkers`` and ``seed`` are read
+        by ``grf`` only.
         """
+        if backend == "grf":
+            from repro_torch.core import grf as grf_mod
+
+            y0 = self._as_labels(y0)
+            self._check_backend(backend, batched, y0)
+            return grf_mod.grf_label_propagate(
+                self.grf_graph(), y0, alpha=alpha, n_iters=int(n_iters),
+                n_walkers=int(n_walkers or grf_mod.DEFAULT_N_WALKERS),
+                seed=int(seed))
         return self.label_propagate_resume(y0, y0, alpha, n_iters, batched,
                                            backend)
 
@@ -236,6 +269,12 @@ class VariationalDualTree:
         if y.shape != y0.shape:
             raise ValueError(f"carry shape {tuple(y.shape)} must match seed "
                              f"shape {tuple(y0.shape)}")
+        if backend == "grf":
+            # the estimate is a weighted sum over walk prefixes, not a
+            # fixed-point iteration: a carry is not its whole state
+            raise ValueError(
+                "backend='grf' does not support segmented resume; "
+                "grf scans dispatch monolithically")
         self._check_backend(backend, batched, y0)
         if backend == "exact":
             return lp_scan_fused_resume(self.x_rows, y, y0, float(self.sigma),

@@ -5,7 +5,15 @@ Each ``csrc/*.cu`` source has a plain C interface.  It is compiled with
 the root of the checkout (listed in ``.gitignore``) at first use, and loaded
 with ``ctypes``.  The library's name carries a digest of the source and the
 flags, so an edited source builds anew and an unchanged one is reused.
-Nothing here runs at import time.
+Sources build concurrently: each holds only its own lock.  Nothing here runs
+at import time.
+
+Every source exports ``const char* cuda_error_string(int)`` beside its entry
+points, each of which returns ``cudaGetLastError()`` after its launch;
+:func:`launch` turns a non-zero code into an exception.  :func:`check_operand`
+and :func:`on_card` are the wrappers' shared operand checks and dispatch rule:
+a CUDA tensor launches the kernel, a CPU tensor runs the plain version, and
+any other device raises.
 """
 from __future__ import annotations
 
@@ -19,7 +27,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "BuiltLibrary", "load_library"]
+import torch
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "BuiltLibrary", "check_operand",
+           "launch", "load_library", "on_card"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,8 +45,9 @@ class BuiltLibrary:
     log: str               # nvcc's output, ``-Xptxas -v`` lines included
 
 
-_LOCK = threading.Lock()
-_LOADED: dict[Path, BuiltLibrary] = {}
+_LOCK = threading.Lock()          # guards _SOURCE_LOCKS
+_SOURCE_LOCKS: dict[Path, threading.Lock] = {}
+_LOADED: dict[Path, BuiltLibrary] = {}   # written under the source's lock
 
 
 def _nvcc() -> str:
@@ -47,27 +59,75 @@ def _nvcc() -> str:
 
 
 def load_library(source: Path) -> BuiltLibrary:
-    """Compile ``source`` (once per content digest) and load it."""
-    source = Path(source).resolve()
-    with _LOCK:
-        if source in _LOADED:
-            return _LOADED[source]
-        digest = hashlib.sha256(source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"{source.stem}-{digest}.so"
-        seconds, log = 0.0, ""
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                   str(source)], capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {source.name}:\n{log}")
-            os.replace(tmp, out)
-        built = BuiltLibrary(lib=ctypes.CDLL(str(out)), path=out,
-                             build_seconds=seconds, log=log)
-        _LOADED[source] = built
+    """Compile ``source`` (once per content digest) and load it.
+
+    Every launch calls this, so a loaded library is found by a dict lookup
+    on ``source`` as given, with no file-system call.
+    """
+    built = _LOADED.get(source)
+    if built is not None:
         return built
+    with _LOCK:
+        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with lock:
+        if source not in _LOADED:
+            _LOADED[source] = _build(Path(source).resolve())
+        return _LOADED[source]
+
+
+def _build(source: Path) -> BuiltLibrary:
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{source.stem}-{digest}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(source)], capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source.name}:\n{log}")
+        os.replace(tmp, out)
+    built = BuiltLibrary(lib=ctypes.CDLL(str(out)), path=out,
+                         build_seconds=seconds, log=log)
+    built.lib.cuda_error_string.argtypes = [ctypes.c_int]
+    built.lib.cuda_error_string.restype = ctypes.c_char_p
+    return built
+
+
+def on_card(what: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one."""
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return False
+
+
+def check_operand(name: str, t: torch.Tensor, shape: tuple, device,
+                  dtypes=(torch.float32,)) -> None:
+    """Raise ``ValueError`` unless ``t`` is what a kernel takes."""
+    if t.device != device or t.dtype not in dtypes:
+        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))} on "
+                         f"{device}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name} is too large for int32 indexing")
+
+
+def launch(built: BuiltLibrary, fn_name: str, device: torch.device,
+           *args) -> None:
+    """Call entry point ``fn_name`` with ``args`` and the current stream of ``device``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(built.lib, fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           + built.lib.cuda_error_string(err).decode())

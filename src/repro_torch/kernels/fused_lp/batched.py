@@ -12,21 +12,22 @@ folded column ``k < K = B*C``:
 computed with the online softmax of :func:`stream_tile_update` over column
 tiles, so P is never whole.  The reference pads rows and columns to tile
 multiples; here ragged tiles are sliced instead, and the output covers
-exactly the given rows.  ``ops.folded_step`` runs this on CPU tensors and
-the CUDA kernel on card tensors.
+exactly the given rows.  A row whose every column is masked (only N = 1 has
+one) divides by the reference's padded column count, as the reference does
+(``fused_lp.softmax_average``).  ``ops.folded_step`` runs this on CPU tensors
+and the CUDA kernel K1 on card tensors.
+
+:func:`step_batched_perbatch_plain` is the plain version of K3, the
+reference's per-batch-recompute ``fused_lp_step_batched_kernel``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fused_lp.fused_lp import NEG_BIG, stream_tile_update
+from repro_torch.kernels.fused_lp.fused_lp import (PLAIN_BLOCK_M,
+                                                   PLAIN_BLOCK_N, stream_rows)
 
-__all__ = ["alpha_row", "folded_step_plain"]
-
-# tile sizes of the plain version: large, so that on the card a full-size
-# step is a few hundred matrix products rather than a million tiny ones
-PLAIN_BLOCK_M = 4096
-PLAIN_BLOCK_N = 8192
+__all__ = ["alpha_row", "folded_step_plain", "step_batched_perbatch_plain"]
 
 
 def alpha_row(alpha, k: int, device) -> torch.Tensor:
@@ -47,22 +48,28 @@ def folded_step_plain(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
     points and their current labels; ``y0`` (M, K) the seed rows and
     ``alpha`` (K,) the per-column restart weight.  Returns (M, K).
     """
-    n_rows, n = rows.shape[0], cols.shape[0]
-    k = y.shape[1]
-    dev = rows.device
-    out = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
-    col_ids = torch.arange(n, device=dev)
-    for i0 in range(0, n_rows, block_m):
-        i1 = min(i0 + block_m, n_rows)
-        row_ids = row_base + torch.arange(i0, i1, device=dev)
-        m = torch.full((i1 - i0,), NEG_BIG, dtype=torch.float32, device=dev)
-        s = torch.zeros((i1 - i0,), dtype=torch.float32, device=dev)
-        acc = torch.zeros((i1 - i0, k), dtype=torch.float32, device=dev)
-        for j0 in range(0, n, block_n):
-            j1 = min(j0 + block_n, n)
-            m, s, acc = stream_tile_update(
-                rows[i0:i1], cols[j0:j1], y[j0:j1], m, s, acc, row_ids,
-                col_ids[j0:j1], inv_two_sigma_sq=inv_two_sigma_sq, n_valid=n)
-        py = acc / s.clamp_min(1e-38)[:, None]
+    out = torch.empty((rows.shape[0], y.shape[1]), dtype=torch.float32,
+                      device=rows.device)
+    for i0, i1, py in stream_rows(rows, cols, y, inv_two_sigma_sq, row_base,
+                                  block_m, block_n):
         out[i0:i1] = alpha * py + (1.0 - alpha) * y0[i0:i1]
+    return out
+
+
+def step_batched_perbatch_plain(x: torch.Tensor, y: torch.Tensor,
+                                y0: torch.Tensor, alpha: float,
+                                inv_two_sigma_sq: float, *,
+                                block_m: int = PLAIN_BLOCK_M,
+                                block_n: int = PLAIN_BLOCK_N) -> torch.Tensor:
+    """The per-batch-recompute eq.-15 step over a (B, N, C) stack (plain torch).
+
+    The plain version of K3 (the reference's ``fused_lp_step_batched_kernel``):
+    each batch element streams the distance tiles anew; ``alpha`` is one
+    float for the whole stack.
+    """
+    out = torch.empty(y.shape, dtype=torch.float32, device=x.device)
+    for b in range(y.shape[0]):
+        for i0, i1, py in stream_rows(x, x, y[b], inv_two_sigma_sq, 0,
+                                      block_m, block_n):
+            out[b, i0:i1] = alpha * py + (1.0 - alpha) * y0[b, i0:i1]
     return out

@@ -1,20 +1,38 @@
-// K1: one eq.-15 label-propagation step against the exact transition matrix,
-// in the folded (N, K = B*C) layout, with P never materialized.
+// K1, K2 and K3: the exact transition matrix of eq. 3 applied by one fused
+// pass, with P never materialized.  One kernel template serves all three; the
+// epilogue and the grid's third dimension tell them apart.
 //
-// Replaces the TPU kernel repro/kernels/fused_lp/batched.py::_folded_call
-// (pl.pallas_call at batched.py:231; body _folded_body + fused_lp.py
-// stream_tile_update).  For every row i < M and folded column k < K:
+//   K1 (MODE_FOLDED) replaces repro/kernels/fused_lp/batched.py::_folded_call
+//      (pl.pallas_call at batched.py:231; body _folded_body + fused_lp.py
+//      stream_tile_update): one eq.-15 step in the folded (N, K = B*C) layout,
+//      per-column alpha.
+//   K2 (MODE_MATVEC) replaces repro/kernels/fused_lp/fused_lp.py::
+//      fused_lp_matvec_kernel (pl.pallas_call at fused_lp.py:168): P @ Y.
+//   K3 (MODE_PERBATCH) replaces repro/kernels/fused_lp/batched.py::
+//      fused_lp_step_batched_kernel (pl.pallas_call at batched.py:138): the
+//      per-batch-recompute eq.-15 step over a (B, N, C) stack with one static
+//      alpha.  Batch element b is grid dimension z, so every element derives
+//      the distance tile anew: this is the A/B baseline of K1's reuse and
+//      must not fold.
+//
+// For every row i < M and column k < K (of batch element b for K3):
 //
 //   logit[i, j] = -max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0) * inv_two_sigma_sq
 //                 (NEG_BIG = -1e30 where j == row_base + i or j >= N)
-//   out[i, k]   = alpha[k] * (sum_j softmax_j(logit[i, :]) y[j, k]) / max(s, 1e-38)
-//                 + (1 - alpha[k]) * y0[i, k]
+//   py[i, k]    = (sum_j exp(logit[i, j] - m_i) y[j, k]) / max(s_i, 1e-38)
+//   out[i, k]   = K1: alpha[k] * py + (1 - alpha[k]) * y0[i, k]
+//                 K2: py
+//                 K3: alpha * py + (1 - alpha) * y0[b, i, k]
 //
 // with the softmax computed online (running max m, normalizer s, accumulator
-// acc) over column tiles, exactly the reference's recurrence and masks.
+// acc) over column tiles, exactly the reference's recurrence and masks.  A row
+// whose every column is masked (only N = 1 has one) keeps m = NEG_BIG, so every
+// column counts at weight 1, as in the reference; the reference then divides
+// by its padded column count, round_up(N, 256) at its default tiles, which the
+// wrapper passes as n_pad and the epilogue uses for such a row.
 //
 // Design.  One thread block owns a BM = 64 row tile and a KC-wide chunk of the
-// K folded columns (grid = (ceil(M/64), ceil(K/KC))).  A loop inside the block
+// K columns (grid = (ceil(M/64), ceil(K/KC), B)).  A loop inside the block
 // walks the column tiles of BN = 64 points, which takes the place of the
 // TPU's sequential grid axis; blocks share nothing, so there are no atomics
 // and a step is bitwise reproducible.  Per column tile:
@@ -35,6 +53,7 @@
 // Bound on an H100 SXM: 2*N^2*d FLOP of distance work (plus 2*N^2*K for
 // p @ Y) at the 67 TFLOP/s float32 peak outside the tensor cores; for
 // d >> K the kernel is compute-bound (N = 83,679, d = 315: about 66 ms).
+// K3 does that distance work once per batch element, B times over.
 // What this simple design leaves on the table: the inner product reads two
 // shared-memory words per FMA pair (no float4 fragments, no 8x8 register
 // tiles), the row tile is restaged for every column tile, there is no
@@ -50,12 +69,18 @@ constexpr int DK = 16;
 constexpr int NT = 256;
 constexpr float NEG_BIG = -1e30f;
 
-template <int KC>
+enum Mode { MODE_FOLDED = 0, MODE_MATVEC = 1, MODE_PERBATCH = 2 };
+
+// y is (B, N, K), y0 and out (B, M, K); B = gridDim.z (1 for K1 and K2).
+// alpha is the (K,) per-column row for K1, alpha_s the one scalar for K3;
+// K2 reads neither, nor y0.
+template <int KC, int MODE>
 __global__ void __launch_bounds__(NT)
 folded_lp_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
                  const float* __restrict__ y, const float* __restrict__ y0,
-                 const float* __restrict__ alpha, float* __restrict__ out,
-                 int M, int N, int d, int K, int row_base, float inv_tss) {
+                 const float* __restrict__ alpha, float alpha_s,
+                 float* __restrict__ out, int M, int N, int d, int K,
+                 int row_base, float inv_tss, int n_pad) {
   constexpr int CPT = KC / 16;  // accumulator columns per thread
   __shared__ float s_xr[DK][BM + 1];
   __shared__ float s_xc[DK][BN + 1];
@@ -74,6 +99,9 @@ folded_lp_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   const int warp = t / 32;
   const int row0 = blockIdx.x * BM;
   const int k0 = blockIdx.y * KC;
+  y += (size_t)blockIdx.z * N * K;
+  out += (size_t)blockIdx.z * M * K;
+  if (MODE != MODE_MATVEC) y0 += (size_t)blockIdx.z * M * K;
 
   if (t < BM) {
     s_m[t] = NEG_BIG;
@@ -200,52 +228,86 @@ folded_lp_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
     __syncthreads();
   }
 
-  // ---- epilogue: alpha * acc / s + (1 - alpha) * y0 -------------------------
+  // ---- epilogue: py = acc / s, then the mode's update ------------------------
   __syncthreads();  // s_s is complete even when the column loop did not run
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     const int gr = row0 + r;
     if (gr >= M) continue;
-    const float s = fmaxf(s_s[r], 1e-38f);
+    // an all-masked row normalizes over the reference's padded column count
+    const float s = fmaxf(s_m[r] == NEG_BIG ? (float)n_pad : s_s[r], 1e-38f);
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int gk = k0 + tx + 16 * c;
       if (gk >= K) continue;
-      const float al = alpha[gk];
       const size_t o = (size_t)gr * K + gk;
-      out[o] = al * (acc[i][c] / s) + (1.f - al) * y0[o];
+      const float py = acc[i][c] / s;
+      if (MODE == MODE_MATVEC) {
+        out[o] = py;
+      } else {
+        const float al = MODE == MODE_FOLDED ? alpha[gk] : alpha_s;
+        out[o] = al * py + (1.f - al) * y0[o];
+      }
     }
   }
 }
 
-}  // namespace
-
-// Launches K1 on `stream` (a cudaStream_t passed as a pointer) and returns
-// cudaGetLastError() as an int (0 on success).  Shapes: xr (M, d), xc (N, d),
-// y (N, K), y0 (M, K), alpha (K,), out (M, K); all float32, row-major,
-// contiguous, on the current device.  Allocates nothing.
-extern "C" int folded_lp_step(const float* xr, const float* xc, const float* y,
-                              const float* y0, const float* alpha, float* out,
-                              int M, int N, int d, int K, int row_base,
-                              float inv_two_sigma_sq, void* stream) {
-  if (M <= 0 || K <= 0) return 0;
+template <int MODE>
+int launch(const float* xr, const float* xc, const float* y, const float* y0,
+           const float* alpha, float alpha_s, float* out, int M, int N, int d,
+           int K, int B, int row_base, float inv_tss, int n_pad, void* stream) {
+  if (M <= 0 || K <= 0 || B <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 block(NT);
   if (K <= 16) {
-    const dim3 grid((M + BM - 1) / BM, (K + 15) / 16);
-    folded_lp_kernel<16><<<grid, block, 0, s>>>(xr, xc, y, y0, alpha, out, M,
-                                                 N, d, K, row_base,
-                                                 inv_two_sigma_sq);
+    const dim3 grid((M + BM - 1) / BM, (K + 15) / 16, B);
+    folded_lp_kernel<16, MODE><<<grid, block, 0, s>>>(
+        xr, xc, y, y0, alpha, alpha_s, out, M, N, d, K, row_base, inv_tss,
+        n_pad);
   } else {
-    const dim3 grid((M + BM - 1) / BM, (K + 63) / 64);
-    folded_lp_kernel<64><<<grid, block, 0, s>>>(xr, xc, y, y0, alpha, out, M,
-                                                 N, d, K, row_base,
-                                                 inv_two_sigma_sq);
+    const dim3 grid((M + BM - 1) / BM, (K + 63) / 64, B);
+    folded_lp_kernel<64, MODE><<<grid, block, 0, s>>>(
+        xr, xc, y, y0, alpha, alpha_s, out, M, N, d, K, row_base, inv_tss,
+        n_pad);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* folded_lp_error_string(int code) {
+}  // namespace
+
+// Each entry point launches its kernel on `stream` (a cudaStream_t passed as a
+// pointer) and returns cudaGetLastError() as an int (0 on success).  All
+// operands are float32, row-major, contiguous, on the current device; nothing
+// is allocated.  n_pad is the reference's padded column count (see above).
+
+// K1.  xr (M, d), xc (N, d), y (N, K), y0 (M, K), alpha (K,), out (M, K).
+extern "C" int folded_lp_step(const float* xr, const float* xc, const float* y,
+                              const float* y0, const float* alpha, float* out,
+                              int M, int N, int d, int K, int row_base,
+                              float inv_two_sigma_sq, int n_pad, void* stream) {
+  return launch<MODE_FOLDED>(xr, xc, y, y0, alpha, 0.f, out, M, N, d, K, 1,
+                             row_base, inv_two_sigma_sq, n_pad, stream);
+}
+
+// K2.  x (N, d), y (N, C), out (N, C).
+extern "C" int fused_lp_matvec(const float* x, const float* y, float* out,
+                               int N, int d, int C, float inv_two_sigma_sq,
+                               int n_pad, void* stream) {
+  return launch<MODE_MATVEC>(x, x, y, nullptr, nullptr, 0.f, out, N, N, d, C,
+                             1, 0, inv_two_sigma_sq, n_pad, stream);
+}
+
+// K3.  x (N, d), y, y0 and out (B, N, C), one alpha for all.
+extern "C" int fused_lp_step_perbatch(const float* x, const float* y,
+                                      const float* y0, float* out, int B,
+                                      int N, int d, int C, float alpha,
+                                      float inv_two_sigma_sq, int n_pad,
+                                      void* stream) {
+  return launch<MODE_PERBATCH>(x, x, y, y0, nullptr, alpha, out, N, N, d, C,
+                               B, 0, inv_two_sigma_sq, n_pad, stream);
+}
+
+extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

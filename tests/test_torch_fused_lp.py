@@ -21,6 +21,7 @@ from repro_torch.kernels.fused_lp import (alpha_row, dense_transition_ref,
                                           fused_lp_scan_batched_resume,
                                           fused_lp_scan_folded,
                                           fused_lp_scan_folded_resume)
+from repro_torch.kernels import _build
 from repro_torch.kernels.fused_lp import ops as t_ops
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -159,14 +160,12 @@ def test_kernel_operand_checks(bad):
     elif bad == "contiguous":
         t = torch.zeros(4, 6).T
     with pytest.raises(ValueError):
-        t_ops._check("y", t, want_shape,
-                     torch.device("meta") if bad == "device" else t.device)
+        _build.check_operand("y", t, want_shape, torch.device("meta")
+                             if bad == "device" else t.device)
 
 
 def test_kernel_source_and_build_flags():
     """The kernel is built from the package's own source, for sm_90a."""
-    from repro_torch.kernels import _build
-
     assert t_ops.KERNEL_SOURCE.is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")

@@ -141,8 +141,11 @@ def test_label_propagate_rejects_bad_requests(small_fitted_vdt):
         port.label_propagate_resume(ys, y0)
     with pytest.raises(ValueError, match="backend"):
         port.label_propagate(y0, backend="knn")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        port.label_propagate(y0, backend="grf")
+    with pytest.raises(ValueError, match="per-request alpha"):
+        port.label_propagate(ys, alpha=np.ones(2, np.float32), n_iters=2,
+                             backend="grf")
+    with pytest.raises(ValueError, match="resume"):
+        port.label_propagate_resume(y0, y0, backend="grf")
 
 
 # -------------------------------------------------------- exact backend

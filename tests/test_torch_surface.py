@@ -30,7 +30,9 @@ def _imported_roots(path: pathlib.Path) -> set:
 
 def test_import_pulls_neither_jax_nor_reference_and_is_warning_free():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels."
-            "fused_lp, repro_torch.data.synthetic\n"
+            "fused_lp, repro_torch.data.synthetic, repro_torch.core.grf, "
+            "repro_torch.core.baselines, repro_torch.kernels.grf, "
+            "repro_torch.kernels.pairwise\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
