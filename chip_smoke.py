@@ -35,14 +35,32 @@ Phases (any failure exits non-zero):
    (``fused_lp_matvec``, N = 83,679), K3 (``fused_lp_step_batched(
    reuse=False)``, B = 8, N = 16,384), K4 (``pairwise_sq_dists``, one kNN
    block 2,048 x 83,679), against their plain versions and timed; and one
-   point (N = 1, every column masked) through K1, K2 and K3.
+   point (N = 1, every column masked) through K1, K2 and K3;
+8. K6 (``flash_attention/csrc/flash_attention.cu``, flash attention)
+   against its plain version at small shapes: head widths 64, 128 and 256,
+   float32 and bfloat16, GQA groups 1, 3 and 4, causal with and without a
+   window, ragged S and bidirectional; two launches equal bit for bit;
+9. the dense LM serving path at the full width of smollm-360m
+   (``repro/configs/smollm_360m.py``: 32 layers, d_model 960, 15/5 heads of
+   64, d_ff 2,560, vocab 49,152, bfloat16; seeded random weights): 4
+   requests of 2,048 prompt tokens through ``prefill`` (K6 in every layer),
+   then 16 greedy ``decode_step``s; decode logits held to ``lm_forward`` on
+   S + 1 tokens at position S (``0.15``, the reference's own tolerance);
+10. the same model in float32, one prefill through K6 and one through K6's
+   plain version, last-position logits at ``rtol=atol=2e-3``;
+11. K6 timed at smollm's attention shape (B = 4, 15/5 heads, S = 2,048,
+   D = 64, causal, bfloat16) and at gemma3-1b's local layer (4/1 heads,
+   D = 256, window 1,024), beside its plain version, its bound and
+   ``scaled_dot_product_attention`` as the library yardstick.
 
 Each path runs with every launch counter set to 0 just before and read just
 after.  Prints the card (``nvidia-smi``), one JSON line with the kernel
 table, and as its last line ``{"ok": true, "device": {...}}``.  Tolerance:
 ``rtol=1e-4, atol=1e-5``, the reference package's own LP tolerance, for
 K1-K4 (``5e-2`` for K4 on bfloat16, as the reference's test); ``rtol=1e-5,
-atol=1e-6`` for K5, as the reference's ``test_feature_kernel_matches_ref``.
+atol=1e-6`` for K5, as the reference's ``test_feature_kernel_matches_ref``;
+``2e-4`` (float32) and ``5e-2`` (bfloat16) for K6, as the reference's
+flash-attention tests.
 """
 from __future__ import annotations
 
@@ -66,6 +84,10 @@ KNN_K = 4                       # |B| / N = 4: the paper's kNN equivalent
 GRF_ITERS, GRF_SEED = 50, 0
 N_VALIDATE, VDT_GRF_ITERS, VDT_GRF_WALKERS = 4_096, 20, 128
 K3_BATCH, K3_N, K4_ROWS = 8, 16_384, 2_048
+PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_SEED = "smollm-360m", 4, 2_048, 0
+LM_TOL, LM_F32_TOL = 0.15, 2e-3
+K6_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -91,9 +113,10 @@ def close(got, want, what: str, rtol: float = RTOL,
     return float(err.max()), rel
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """Least time on the card in ms, and what sets it (H100 SXM peaks)."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
         else "bytes"
 
@@ -102,11 +125,13 @@ def counters():
     """The launch counters of every kernel wrapper, by kernel."""
     from repro_torch.kernels.fused_lp import folded_step, matvec_step, \
         perbatch_step
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.grf import grf_feature_matvec
     from repro_torch.kernels.pairwise import pairwise_sq_dists
 
     return {"K1": folded_step, "K2": matvec_step, "K3": perbatch_step,
-            "K4": pairwise_sq_dists, "K5": grf_feature_matvec}
+            "K4": pairwise_sq_dists, "K5": grf_feature_matvec,
+            "K6": flash_attention}
 
 
 def reset_counts() -> None:
@@ -159,6 +184,8 @@ def graph_ms(fn, reps: int) -> float:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.flash_attention.ops import \
+        kernel_library as lib_k6
     from repro_torch.kernels.fused_lp import kernel_library as lib_k123
     from repro_torch.kernels.grf.ops import kernel_library as lib_k5
     from repro_torch.kernels.pairwise.ops import kernel_library as lib_k4
@@ -168,10 +195,11 @@ def phase_build():
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
-    names = ("K1-K3", "K4", "K5")
+    names = ("K1-K3", "K4", "K5", "K6")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
-        built = list(pool.map(lambda f: f(), (lib_k123, lib_k4, lib_k5)))
+        built = list(pool.map(lambda f: f(),
+                              (lib_k123, lib_k4, lib_k5, lib_k6)))
     print(f"[build] {time.perf_counter() - t0:.2f} s for all sources")
     for name, lib in zip(names, built):
         print(f"  {name} {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
@@ -645,6 +673,282 @@ def phase_single_point() -> None:
               f"{name} vs the reference's value")
 
 
+def attention_work(b: int, hq: int, hkv: int, s: int, d: int, window: int,
+                   itemsize: int) -> tuple[float, float]:
+    """Operations and bytes of causal attention over the unmasked pairs: two
+    products of 2 B Hq D flops per pair; q, k, v read and out written once."""
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    flops = 4.0 * b * hq * d * pairs
+    nbytes = itemsize * (2.0 * b * hq * s * d + 2.0 * b * hkv * s * d)
+    return flops, nbytes
+
+
+def phase_k6_small() -> float:
+    """K6 against its plain version at small shapes; returns the max error."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    print("[K6 vs plain, small shapes]")
+    g = torch.Generator().manual_seed(6)
+    errs = []
+    for b, hq, hkv, s, d, causal, window in (
+            (2, 3, 3, 64, 64, True, 0), (2, 3, 1, 65, 64, True, 16),
+            (1, 15, 5, 130, 64, True, 0), (2, 4, 1, 97, 128, True, 0),
+            (1, 8, 2, 200, 128, True, 16), (1, 4, 1, 129, 256, True, 16),
+            (2, 4, 4, 70, 256, True, 0), (2, 3, 1, 65, 64, False, 0),
+            (1, 4, 1, 100, 128, False, 16), (1, 4, 4, 33, 256, False, 0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
+                       for h in (hq, hkv, hkv))
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            tol = K6_TOL[str(dtype).split(".")[1]]
+            errs.append(close(
+                got, flash_attention_plain(q, k, v, causal, window),
+                f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} "
+                f"window={window} {str(dtype).split('.')[1]}", tol, tol)[0])
+            check(torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                                   window=window)),
+                  "K6: two launches differ")
+    print("  every shape: a second launch == the first bit for bit")
+    return max(errs)
+
+
+def lm_tokens(cfg, n: int) -> np.ndarray:
+    return np.random.RandomState(LM_SEED + 1).randint(
+        0, cfg.vocab_size, (LM_BATCH, n)).astype(np.int64)
+
+
+def phase_lm_serve() -> dict:
+    """smollm-360m at full width: prefill 4 x 2,048 tokens, 16 greedy decode
+    steps; K6 in every layer of the prefill."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_lm, lm_forward
+    from repro_torch.serving.decode import DECODE_SLACK, decode_step, prefill
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, LM_SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[lm serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; {n_params / 1e6:.1f} M params (f32) seeded on the "
+          f"card in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
+    # a cold call first (module loading, cuBLAS handles), outside the count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, tokens.flip(1), cfg)
+    decode_step(params, logits.argmax(-1)[:, None], state, cfg)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    del logits, state
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, tokens, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_counts = read_counts()
+    check(prefill_counts["K6"] == cfg.n_layers,
+          f"prefill launched K6 {prefill_counts['K6']} times, expected "
+          f"{cfg.n_layers}")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab)
+          and bool(torch.isfinite(logits.float()).all()), "prefill: bad logits")
+    check(tuple(state.kv.k.shape) == (cfg.n_layers, LM_BATCH,
+                                      LM_PROMPT + DECODE_SLACK,
+                                      cfg.n_kv_heads, cfg.head_dim_),
+          f"prefill: cache shape {tuple(state.kv.k.shape)}")
+    tok = logits.argmax(-1)[:, None]
+    generated, step_logits = [tok], []
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(DECODE_SLACK + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(DECODE_SLACK):
+        logits, state = decode_step(params, tok, state, cfg)
+        step_logits.append(logits)
+        tok = logits.argmax(-1)[:, None]
+        generated.append(tok)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_SLACK
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(bool(torch.isfinite(x.float()).all()) for x in step_logits),
+          "decode: non-finite logits")
+    check(int(state.kv.pos[0]) == LM_PROMPT + DECODE_SLACK, "decode: bad pos")
+    print(f"  cold prefill + 1 decode step (not counted): {cold_ms:.1f} ms")
+    print(f"  prefill {LM_BATCH} x {LM_PROMPT} tokens: {prefill_ms:.1f} ms "
+          f"({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} tokens/s), K6 "
+          f"launches {prefill_counts['K6']}; decode {DECODE_SLACK} greedy "
+          f"steps: {decode_ms:.2f} ms per step ({LM_BATCH / decode_ms * 1e3:.0f}"
+          f" tokens/s; steps between device events: min {min(step_ms):.2f}, "
+          f"max {max(step_ms):.2f} ms); max_memory_allocated {peak:.2f} GiB;"
+          f" launches {counts}")
+    print(f"  request 0 generated {torch.cat(generated, 1)[0].tolist()}")
+    # the reference's consistency check: decode at position S vs the forward
+    full_tokens = torch.cat([tokens, generated[0]], dim=1)
+    full, _ = lm_forward(params, full_tokens, cfg)
+    close(step_logits[0], full[:, LM_PROMPT], "decode logits vs lm_forward at "
+          f"position S={LM_PROMPT}", LM_TOL, LM_TOL)
+    del full
+    phase_lm_profile(params, cfg, tokens, prefill_ms, decode_ms)
+    return dict(params=params, counts=counts, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, peak_gib=peak)
+
+
+def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
+                     decode_ms: float) -> None:
+    """Device time by kernel of one prefill and one decode step (torch
+    profiler), and the device's busy share of the unprofiled times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.decode import decode_step, prefill
+
+    def groups(prof):
+        out, kernels = {}, []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.key
+            kind = ("K6" if "flash_attention_kernel" in name else
+                    "matmul" if any(w in name.lower() for w in (
+                        "gemm", "gemv", "cutlass", "xmma", "nvjet"))
+                    else "other")
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            out[kind] = out.get(kind, 0.0) + us / 1e3
+            kernels.append((us / 1e3, e.count, name))
+        return out, sorted(kernels, reverse=True)[:6]
+
+    logits, state = prefill(params, tokens, cfg)
+    tok = logits.argmax(-1)[:, None]
+    for name, fn, wall_ms in (
+            ("prefill", lambda: prefill(params, tokens, cfg), prefill_ms),
+            ("decode step", lambda: decode_step(params, tok, state, cfg),
+             decode_ms)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by, top = groups(prof)
+        total = sum(by.values())
+        if total == 0.0:
+            print(f"  [profile] {name}: the profiler saw no device time "
+                  "(busy share not measured)")
+            continue
+        parts = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})"
+                          for k, v in sorted(by.items(),
+                                             key=lambda kv: -kv[1]))
+        print(f"  [profile] {name}: device time {total:.2f} ms: {parts}; "
+              f"busy share of the unprofiled {wall_ms:.2f} ms: "
+              f"{min(total / wall_ms, 1.0):.3f}")
+        for ms, count, kname in top:
+            print(f"    {ms:8.3f} ms in {count:5d} launches  {kname[:90]}")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def phase_lm_f32(params) -> float:
+    """The same model in float32: one prefill through K6, one through K6's
+    plain version (swapped into the attention module for that call)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.models import attention
+    from repro_torch.serving.decode import prefill
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
+    print(f"[lm serve, f32] {cfg.name} in float32: prefill through K6 vs "
+          "through its plain version")
+    before = flash_attention.launches
+    t0 = time.perf_counter()
+    got, _ = prefill(params, tokens, cfg)
+    torch.cuda.synchronize()
+    k6_s = time.perf_counter() - t0
+    check(flash_attention.launches - before == cfg.n_layers,
+          "f32 prefill did not launch K6 once per layer")
+    attention.flash_attention = flash_attention_plain
+    try:
+        t0 = time.perf_counter()
+        want, _ = prefill(params, tokens, cfg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        attention.flash_attention = flash_attention
+    check(flash_attention.launches - before == cfg.n_layers,
+          "the plain prefill launched K6")
+    print(f"  prefill through K6 {k6_s * 1e3:.1f} ms, through the plain "
+          f"version {plain_s * 1e3:.1f} ms")
+    return close(got, want, "last-position logits, K6 vs plain", LM_F32_TOL,
+                 LM_F32_TOL)[0]
+
+
+def phase_k6_timing() -> list:
+    """K6 at the LM path's attention shapes, against its plain version, its
+    bound and ``scaled_dot_product_attention`` (yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    print("[K6 timing, bfloat16]")
+    g = torch.Generator().manual_seed(7)
+    rows = []
+    for name, b, hq, hkv, s, d, window in (
+            ("smollm-360m", 4, 15, 5, 2_048, 64, 0),
+            ("gemma3-1b local", 4, 4, 1, 2_048, 256, 1_024)):
+        q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda",
+                                                         torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        got = flash_attention(q, k, v, window=window)
+        err = close(got, flash_attention_plain(q, k, v, True, window),
+                    f"{name}: K6 vs plain", K6_TOL["bfloat16"],
+                    K6_TOL["bfloat16"])[0]
+        i = torch.arange(s, device="cuda")
+        mask = dict(attn_mask=(i[None, :] <= i[:, None])
+                    & (i[:, None] - i[None, :] < window)) if window else \
+            dict(is_causal=True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **mask)
+
+        close(sdpa(), got, f"{name}: SDPA vs K6", K6_TOL["bfloat16"],
+              K6_TOL["bfloat16"])
+        ms = cuda_ms(lambda: flash_attention(q, k, v, window=window), 10)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, True,
+                                                         window), 3)
+        lib_ms = cuda_ms(sdpa, 10)
+        flops, nbytes = attention_work(b, hq, hkv, s, d, window, 2)
+        bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        print(f"  {name} B={b} Hq={hq} Hkv={hkv} S={s} D={d} window="
+              f"{window}: K6 {ms:.3f} ms per launch ({flops / ms / 1e9:.2f} "
+              f"TFLOP/s), plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({by}), {bound_ms / ms:.4f} of the "
+              f"bound, SDPA / K6 {lib_ms / ms:.4f}")
+        rows.append(dict(name=name, shape=f"B={b} Hq={hq} Hkv={hkv} S={s} "
+                         f"D={d} window={window} bf16", ms=ms,
+                         plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms,
+                         by=by, err=err))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -691,6 +995,13 @@ def main() -> int:
           "vdt grf path: K1 or K5 not launched")
     ops = phase_ops(out)
     phase_single_point()
+    del out, data
+
+    k6_small_err = phase_k6_small()
+    lm = phase_lm_serve()
+    lm_counts = lm["counts"]
+    lm_f32_err = phase_lm_f32(lm.pop("params"))
+    k6 = phase_k6_timing()
 
     single = after["rows"][0]
     kernels = [dict(
@@ -732,6 +1043,22 @@ def main() -> int:
             ms=r["ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
             library_ms=r["lib_ms"], bound_ms=r["bound_ms"])
             for r in k5["rows"]}))
+    k6_path = k6[0]
+    kernels.append(dict(
+        name="K6 flash attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:98",
+        launches=lm_counts["K6"], max_abs_err=k6_path["err"],
+        ms=k6_path["ms"], plain_ms=k6_path["plain_ms"],
+        bound_ms=k6_path["bound_ms"], bound_by=k6_path["by"],
+        library_ms=k6_path["lib_ms"], shape=k6_path["shape"],
+        small_shapes_max_abs_err=k6_small_err,
+        lm_f32_logits_max_abs_err=lm_f32_err,
+        prefill_ms=lm["prefill_ms"], decode_ms_per_step=lm["decode_ms"],
+        by_shape={r["name"]: dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                  library_ms=r["lib_ms"],
+                                  bound_ms=r["bound_ms"], shape=r["shape"])
+                  for r in k6}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

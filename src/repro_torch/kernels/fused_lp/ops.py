@@ -189,13 +189,25 @@ def fused_lp_scan_folded_resume(x: torch.Tensor, y: torch.Tensor,
     """``n_iters`` folded eq.-15 steps entered from a mid-walk carry ``y``.
 
     ``x`` (N, d), ``y``/``y0`` (N, K), ``alpha`` a scalar or (K,).
+
+    At N = 1 the reference's scan also carries its ``R - 1 = 255`` padded
+    rows (``R = ref_padded_columns(1)``): each sees the one point as its only
+    unmasked column, so after a step it holds ``alpha * y`` (its seed is 0),
+    and the point's all-masked row averages all ``R`` rows.  The port carries
+    that one padded value, starting from 0 as the reference re-pads every
+    segment's carry with zeros.
     """
     x, y0 = x.contiguous(), y0.contiguous()
     al = alpha_row(alpha, y0.shape[1], x.device)
     inv = float(1.0 / (2.0 * sigma * sigma))
     y = y.contiguous()
+    pad = torch.zeros_like(y) if x.shape[0] == 1 else None
+    r = ref_padded_columns(1)
     for _ in range(int(n_iters)):
-        y = folded_step(x, x, y, y0, al, inv)
+        y_next = folded_step(x, x, y, y0, al, inv)
+        if pad is not None:  # N = 1: add the padded rows' share of the mean
+            y_next, pad = y_next + al * pad * ((r - 1) / r), al * y
+        y = y_next
     return y
 
 

@@ -1,0 +1,13 @@
+"""``repro_torch/models`` ↔ ``repro/models``: the dense decoder-only LM
+(configuration, layers, attention through K6, the transformer stack) and the
+conversion of the reference's parameters."""
+from repro_torch.models.attention import (KVCache, attn_apply, attn_decode,
+                                          attn_init, init_cache)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import lm_params_from_numpy
+from repro_torch.models.transformer import (HUGE_WINDOW, init_lm,
+                                            layer_windows, lm_forward)
+
+__all__ = ["HUGE_WINDOW", "KVCache", "ModelConfig", "attn_apply",
+           "attn_decode", "attn_init", "init_cache", "init_lm",
+           "layer_windows", "lm_forward", "lm_params_from_numpy"]

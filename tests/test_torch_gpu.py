@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain,
+                                                 flash_attention_ref)
 from repro_torch.kernels.fused_lp import (alpha_row, folded_step,
                                           folded_step_plain, fused_lp_matvec,
                                           fused_lp_scan_folded,
@@ -182,3 +185,46 @@ def test_cuda_grf_feature_kernel_skips_positions_outside_the_graph():
     got = grf_feature_matvec(pos, load, y)
     torch.testing.assert_close(got, grf_feature_plain(pos, load, y),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 2, 2, 64, 64, True, 0), (2, 3, 1, 65, 64, True, 0),
+    (2, 4, 1, 130, 128, True, 16), (1, 4, 1, 97, 256, True, 0),
+    (1, 15, 5, 200, 64, True, 0), (2, 3, 1, 65, 64, False, 0),
+    (1, 4, 2, 100, 128, False, 24), (1, 8, 2, 257, 256, True, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_kernel_matches_plain(b, hq, hkv, s, d, causal,
+                                                   window, dtype):
+    """K6 against its plain version and the naive oracle, at the reference's
+    tolerances (2e-4 in float32, 5e-2 in bfloat16); two launches agree bit
+    for bit."""
+    _card()
+    r = np.random.RandomState(s + d)
+    q, k, v = (torch.as_tensor(r.randn(b, h, s, d).astype(np.float32))
+               .to("cuda", dtype) for h in (hq, hkv, hkv))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    for want in (flash_attention_plain(q, k, v, causal, window),
+                 flash_attention_ref(q, k, v, causal, window)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take():
+    _card()
+    q = torch.zeros((1, 2, 8, 32), device="cuda")
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 3, 8, 64), device="cuda")
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q, q.double(), q)

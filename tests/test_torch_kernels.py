@@ -19,7 +19,8 @@ from repro.core import label_prop as r_lp
 from repro.kernels import fused_lp as r_fl
 from repro.kernels.pairwise.pairwise import pairwise_sq_dists_kernel
 from repro.kernels.pairwise.ref import pairwise_sq_dists_ref as r_pw_ref
-from repro_torch.core.label_prop import lp_scan_fused
+from repro_torch.core.label_prop import (lp_scan_fused,
+                                         lp_scan_fused_resume)
 from repro_torch.kernels.fused_lp import (alpha_row, folded_step,
                                           folded_step_plain, fused_lp_matvec,
                                           fused_lp_matvec_batched,
@@ -232,11 +233,36 @@ def test_single_point_matches_reference(op):
 
 
 def test_single_point_lp_scan_matches_reference_first_step():
-    """One exact LP iteration at N = 1 equals the reference's.  Later
-    iterations of the reference also read the outputs of its own padded rows,
-    which the port does not have, so only the first step is comparable."""
+    """One exact LP iteration at N = 1 equals the reference's closed form."""
     got = lp_scan_fused(torch.as_tensor(X1), torch.as_tensor(Y01), 1.0, 0.3, 1)
     want = r_lp.lp_scan_fused(jnp.asarray(X1), jnp.asarray(Y01), 1.0, 0.3, 1)
     _close(got, want, rtol=1e-6, atol=0)
     np.testing.assert_allclose(got.numpy(), 0.3 * Y01 / 256 + 0.7 * Y01,
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("walk", ["scan3", "segmented1+2", "batched3",
+                                  "batched_segmented1+2"])
+def test_single_point_lp_scan_matches_reference_every_step(walk):
+    """At N = 1 later iterations of the reference also average its 255
+    padded rows, each holding ``alpha * y`` after a step; the port carries
+    that row.  A segmented walk re-pads the carry with zeros in the
+    reference, and does the same in the port."""
+    tx, ty0 = torch.as_tensor(X1), torch.as_tensor(Y01)
+    jx, jy0 = jnp.asarray(X1), jnp.asarray(Y01)
+    alpha = np.array([0.3, 0.6], np.float32)
+    if walk.startswith("batched"):       # (2, 1, 2): per-request alpha
+        seeds = np.concatenate([Y01, 2 * Y01])[:, None]
+        ty0, jy0 = torch.as_tensor(seeds), jnp.asarray(seeds)
+    if walk.endswith("segmented1+2"):
+        got = lp_scan_fused_resume(
+            tx, lp_scan_fused(tx, ty0, 1.0, alpha, 1), ty0, 1.0, alpha, 2)
+        want = r_lp.lp_scan_fused_resume(
+            jx, r_lp.lp_scan_fused(jx, jy0, 1.0, jnp.asarray(alpha), 1), jy0,
+            1.0, jnp.asarray(alpha), 2)
+        mono = r_lp.lp_scan_fused(jx, jy0, 1.0, jnp.asarray(alpha), 3)
+        assert not np.allclose(np.asarray(want), np.asarray(mono))
+    else:
+        got = lp_scan_fused(tx, ty0, 1.0, alpha, 3)
+        want = r_lp.lp_scan_fused(jx, jy0, 1.0, jnp.asarray(alpha), 3)
+    _close(got, want, rtol=1e-6, atol=0)

@@ -32,7 +32,11 @@ def test_import_pulls_neither_jax_nor_reference_and_is_warning_free():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels."
             "fused_lp, repro_torch.data.synthetic, repro_torch.core.grf, "
             "repro_torch.core.baselines, repro_torch.kernels.grf, "
-            "repro_torch.kernels.pairwise\n"
+            "repro_torch.kernels.pairwise, repro_torch.models, "
+            "repro_torch.configs.registry, repro_torch.serving.decode, "
+            "repro_torch.kernels.flash_attention\n"
+            "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
+            "[get_config(a) for a in ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -46,6 +50,10 @@ def test_import_pulls_neither_jax_nor_reference_and_is_warning_free():
 def test_no_port_file_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    for new in ("models/attention.py", "models/transformer.py",
+                "serving/decode.py", "configs/registry.py",
+                "configs/gemma3_1b.py", "kernels/flash_attention/ops.py"):
+        assert PORT / new in files, new
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -98,3 +106,29 @@ def test_streaming_is_not_ported_yet(small_fitted_vdt):
         port.insert_points(np.zeros((1, 4), np.float32))
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         port.delete_points([0])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-130m",
+                                  "whisper-medium"])
+def test_non_dense_architectures_name_their_roadmap_item(arch):
+    from repro_torch.configs.registry import get_config, get_smoke_config
+
+    for get in (get_config, get_smoke_config):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            get(arch)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import init_lm
+    from repro_torch.serving.decode import init_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("smollm-360m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lm(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(cfg, 1, 8)
+    assert init_lm(cfg, device="cpu")["embed"].device.type == "cpu"
