@@ -5,12 +5,14 @@
 
 Phases (any failure exits non-zero):
 
-1. device and build: the card's name and power limit, and the three kernel
+1. device and build: the card's name and power limit, and the five kernel
    sources built at once with ``nvcc`` for ``sm_90a`` from the checkout
    (``fused_lp/csrc/folded_lp.cu``: K1 the folded exact LP step, K2 ``P @ Y``,
    K3 the per-batch-recompute step; ``pairwise/csrc/pairwise.cu``: K4;
-   ``grf/csrc/grf_feature.cu``: K5 the GRF walker-mean feature product),
-   with their ``-Xptxas -v`` lines;
+   ``grf/csrc/grf_feature.cu``: K5 the GRF walker-mean feature product;
+   ``flash_attention/csrc/flash_attention.cu``: K6's float32 route on the
+   CUDA cores; ``flash_attention/csrc/flash_attention_sm90.cu``: K6's
+   bfloat16 route on the tensor cores), with their ``-Xptxas -v`` lines;
 2. K1 against its plain-torch version on the card at small shapes: one
    step, a 5-step scan, a ``row_base`` stripe, and resume-from-carry equal to
    the monolithic scan bit for bit; K5 likewise, and a K = 16 column's bits
@@ -34,23 +36,29 @@ Phases (any failure exits non-zero):
 7. the reference's remaining op entry points, each at its shape: K2
    (``fused_lp_matvec``, N = 83,679), K3 (``fused_lp_step_batched(
    reuse=False)``, B = 8, N = 16,384), K4 (``pairwise_sq_dists``, one kNN
-   block 2,048 x 83,679), against their plain versions and timed; and one
-   point (N = 1, every column masked) through K1, K2 and K3;
-8. K6 (``flash_attention/csrc/flash_attention.cu``, flash attention)
-   against its plain version at small shapes: head widths 64, 128 and 256,
-   float32 and bfloat16, GQA groups 1, 3 and 4, causal with and without a
-   window, ragged S and bidirectional; two launches equal bit for bit;
+   block 2,048 x 83,679), against their plain versions and timed, K4 beside
+   ``torch.cdist`` (yardstick only); and one point (N = 1, every column
+   masked) through K1, K2 and K3;
+8. K6 (flash attention) against its plain version at small shapes, both
+   routes (float32: the FMA kernel; bfloat16: the tensor-core kernel), each
+   launch counted on its route: head widths 64, 128 and 256, GQA groups 1, 3
+   and 4, causal with and without a window, ragged S and bidirectional; two
+   launches equal bit for bit;
 9. the dense LM serving path at the full width of smollm-360m
    (``repro/configs/smollm_360m.py``: 32 layers, d_model 960, 15/5 heads of
    64, d_ff 2,560, vocab 49,152, bfloat16; seeded random weights): 4
-   requests of 2,048 prompt tokens through ``prefill`` (K6 in every layer),
-   then 16 greedy ``decode_step``s; decode logits held to ``lm_forward`` on
-   S + 1 tokens at position S (``0.15``, the reference's own tolerance);
-10. the same model in float32, one prefill through K6 and one through K6's
-   plain version, last-position logits at ``rtol=atol=2e-3``;
+   requests of 2,048 prompt tokens through ``prefill`` (K6's tensor-core
+   route in every layer, no FMA launch), then 16 greedy ``decode_step``s;
+   decode logits held to ``lm_forward`` on S + 1 tokens at position S
+   (``0.15``, the reference's own tolerance); K6's share of the prefill's
+   device time;
+10. the same model in float32, one prefill through K6 (its FMA route in
+   every layer) and one through K6's plain version, last-position logits at
+   ``rtol=atol=2e-3``;
 11. K6 timed at smollm's attention shape (B = 4, 15/5 heads, S = 2,048,
-   D = 64, causal, bfloat16) and at gemma3-1b's local layer (4/1 heads,
-   D = 256, window 1,024), beside its plain version, its bound and
+   D = 64, causal) and at gemma3-1b's local layer (4/1 heads, D = 256,
+   window 1,024), each route at its type (bfloat16: tensor cores; float32:
+   FMA), beside its plain version, its bound and
    ``scaled_dot_product_attention`` as the library yardstick.
 
 Each path runs with every launch counter set to 0 just before and read just
@@ -59,8 +67,15 @@ table, and as its last line ``{"ok": true, "device": {...}}``.  Tolerance:
 ``rtol=1e-4, atol=1e-5``, the reference package's own LP tolerance, for
 K1-K4 (``5e-2`` for K4 on bfloat16, as the reference's test); ``rtol=1e-5,
 atol=1e-6`` for K5, as the reference's ``test_feature_kernel_matches_ref``;
-``2e-4`` (float32) and ``5e-2`` (bfloat16) for K6, as the reference's
-flash-attention tests.
+``2e-4`` (float32) for K6, as the reference's flash-attention tests.  K6's
+bfloat16 route is held to its plain version, which repeats its recurrence
+and rounds p to bfloat16 as it does, at ``rtol=atol=1e-2`` and, per block of
+64 query rows of one (b, h), an error of at most ``1e-2`` of the block's
+output in RMS: the two differ by roundings of single bfloat16 values (the
+output's, or a p's on a short row; the largest reading is 3.9e-3, one
+bfloat16 step of an output in [0.5, 1)), while a dropped key tile or a wrong
+rescale moves a whole block.  SDPA is held to K6 at the reference's bfloat16 tolerance,
+``5e-2``.
 """
 from __future__ import annotations
 
@@ -87,7 +102,10 @@ K3_BATCH, K3_N, K4_ROWS = 8, 16_384, 2_048
 PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_SEED = "smollm-360m", 4, 2_048, 0
 LM_TOL, LM_F32_TOL = 0.15, 2e-3
-K6_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+K6_TOL = {"float32": 2e-4, "bfloat16": 5e-2}   # K6 vs the reference, SDPA
+# K6's bfloat16 route vs its plain version: elementwise rtol=atol, and the
+# RMS error of each 64-row block over the RMS of its output (both routes)
+K6_BF16_PLAIN_TOL, K6_BLOCK_RMS = 1e-2, 1e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -137,10 +155,17 @@ def counters():
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
+    routes = counters()["K6"].launches_by_route
+    for route in routes:
+        routes[route] = 0
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
+    """Launches by kernel, and K6's by route (``K6 sm90_bf16``, ``K6 fma``)."""
+    counts = {k: fn.launches for k, fn in counters().items()}
+    for route, n in counters()["K6"].launches_by_route.items():
+        counts[f"K6 {route}"] = n
+    return counts
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -186,6 +211,8 @@ def phase_build():
 
     from repro_torch.kernels.flash_attention.ops import \
         kernel_library as lib_k6
+    from repro_torch.kernels.flash_attention.ops import \
+        sm90_library as lib_k6_sm90
     from repro_torch.kernels.fused_lp import kernel_library as lib_k123
     from repro_torch.kernels.grf.ops import kernel_library as lib_k5
     from repro_torch.kernels.pairwise.ops import kernel_library as lib_k4
@@ -195,11 +222,11 @@ def phase_build():
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
-    names = ("K1-K3", "K4", "K5", "K6")
+    names = ("K1-K3", "K4", "K5", "K6 fma", "K6 sm90_bf16")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
-        built = list(pool.map(lambda f: f(),
-                              (lib_k123, lib_k4, lib_k5, lib_k6)))
+        built = list(pool.map(lambda f: f(), (lib_k123, lib_k4, lib_k5,
+                                               lib_k6, lib_k6_sm90)))
     print(f"[build] {time.perf_counter() - t0:.2f} s for all sources")
     for name, lib in zip(names, built):
         print(f"  {name} {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
@@ -635,15 +662,23 @@ def phase_ops(out) -> dict:
     close(pairwise_sq_dists(xb.bfloat16(), x.bfloat16()),
           pairwise_sq_dists_plain(xb.bfloat16(), x.bfloat16()),
           "K4 vs plain (bf16)", 5e-2, 5e-2)
+    # the library yardstick: cdist returns the square root of K4's output
+    dist = torch.cdist(xb, x, compute_mode="use_mm_for_euclid_dist")
+    print(f"  torch.cdist(use_mm)^2 vs K4: max_abs_diff="
+          f"{float((dist.square() - k4).abs().max()):.3e} (not a check)")
+    del dist
     rows["K4"] = dict(
         err=err, ms=cuda_ms(lambda: pairwise_sq_dists(xb, x), 10),
         plain_ms=cuda_ms(lambda: pairwise_sq_dists_plain(xb, x), 5),
+        lib_ms=cuda_ms(lambda: torch.cdist(
+            xb, x, compute_mode="use_mm_for_euclid_dist"), 5),
         bound=bound(2.0 * K4_ROWS * n * d,
                     4.0 * (K4_ROWS * d + n * d + K4_ROWS * n)),
         shape=f"M={K4_ROWS} N={n} d={d} f32")
     for k, r in rows.items():
+        lib = f", torch.cdist {r['lib_ms']:.3f} ms" if "lib_ms" in r else ""
         print(f"  {k} {r['shape']}: {r['ms']:.3f} ms per launch, plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+              f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms "
               f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.3f} of the bound")
     return dict(rows=rows, counts=counts)
 
@@ -673,6 +708,29 @@ def phase_single_point() -> None:
               f"{name} vs the reference's value")
 
 
+def close_k6(got, want, what: str) -> tuple[float, float]:
+    """Hold K6 to its plain version: elementwise (``2e-4`` for float32,
+    ``K6_BF16_PLAIN_TOL`` for bfloat16), then each block of 64 query rows of
+    one (b, h) to ``K6_BLOCK_RMS`` in RMS error over RMS output.  Returns the
+    max abs error and the largest block ratio."""
+    import torch
+
+    tol = K6_TOL["float32"] if want.dtype == torch.float32 else \
+        K6_BF16_PLAIN_TOL
+    err = close(got, want, what, tol, tol)[0]
+    b, h, s, d = want.shape
+    pad = (0, 0, 0, -s % 64)   # zero rows past S leave both norms as they are
+    blocks = [torch.nn.functional.pad(t.double().cpu(), pad)
+              .reshape(b, h, -1, 64 * d) for t in (got - want, want)]
+    ratio = float((blocks[0].norm(dim=-1)
+                   / blocks[1].norm(dim=-1).clamp_min(1e-30)).max())
+    print(f"    per 64-row block: max RMS error / RMS output = {ratio:.3e}")
+    check(ratio <= K6_BLOCK_RMS, f"{what}: a 64-row block's RMS error is "
+                                 f"{ratio:.3e} of its output, over "
+                                 f"{K6_BLOCK_RMS}")
+    return err, ratio
+
+
 def attention_work(b: int, hq: int, hkv: int, s: int, d: int, window: int,
                    itemsize: int) -> tuple[float, float]:
     """Operations and bytes of causal attention over the unmasked pairs: two
@@ -683,15 +741,16 @@ def attention_work(b: int, hq: int, hkv: int, s: int, d: int, window: int,
     return flops, nbytes
 
 
-def phase_k6_small() -> float:
-    """K6 against its plain version at small shapes; returns the max error."""
+def phase_k6_small() -> dict:
+    """K6 against its plain version at small shapes, both routes; returns the
+    max error by route."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
-    print("[K6 vs plain, small shapes]")
+    print("[K6 vs plain, small shapes: float32 -> fma, bfloat16 -> sm90_bf16]")
     g = torch.Generator().manual_seed(6)
-    errs = []
+    errs, ratios = {"fma": [], "sm90_bf16": []}, {"fma": [], "sm90_bf16": []}
     for b, hq, hkv, s, d, causal, window in (
             (2, 3, 3, 64, 64, True, 0), (2, 3, 1, 65, 64, True, 16),
             (1, 15, 5, 130, 64, True, 0), (2, 4, 1, 97, 128, True, 0),
@@ -701,17 +760,26 @@ def phase_k6_small() -> float:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
                        for h in (hq, hkv, hkv))
+            route = "sm90_bf16" if dtype == torch.bfloat16 else "fma"
+            before = dict(flash_attention.launches_by_route)
             got = flash_attention(q, k, v, causal=causal, window=window)
-            tol = K6_TOL[str(dtype).split(".")[1]]
-            errs.append(close(
+            after = flash_attention.launches_by_route
+            check(after[route] == before[route] + 1 and sum(after.values())
+                  == sum(before.values()) + 1,
+                  f"K6 {dtype}: launched {after} after {before}, expected one "
+                  f"launch on {route}")
+            err, ratio = close_k6(
                 got, flash_attention_plain(q, k, v, causal, window),
                 f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} "
-                f"window={window} {str(dtype).split('.')[1]}", tol, tol)[0])
+                f"window={window} {str(dtype).split('.')[1]}")
+            errs[route].append(err)
+            ratios[route].append(ratio)
             check(torch.equal(got, flash_attention(q, k, v, causal=causal,
                                                    window=window)),
                   "K6: two launches differ")
-    print("  every shape: a second launch == the first bit for bit")
-    return max(errs)
+    print("  every shape: a second launch == the first bit for bit; each "
+          "launch on its route")
+    return {route: (max(errs[route]), max(ratios[route])) for route in errs}
 
 
 def lm_tokens(cfg, n: int) -> np.ndarray:
@@ -754,9 +822,11 @@ def phase_lm_serve() -> dict:
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_counts = read_counts()
-    check(prefill_counts["K6"] == cfg.n_layers,
-          f"prefill launched K6 {prefill_counts['K6']} times, expected "
-          f"{cfg.n_layers}")
+    check(prefill_counts["K6"] == cfg.n_layers
+          and prefill_counts["K6 sm90_bf16"] == cfg.n_layers
+          and prefill_counts["K6 fma"] == 0,
+          f"prefill launched K6 {prefill_counts}, expected {cfg.n_layers} "
+          "times on the tensor-core route and never on the FMA route")
     check(tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab)
           and bool(torch.isfinite(logits.float()).all()), "prefill: bad logits")
     check(tuple(state.kv.k.shape) == (cfg.n_layers, LM_BATCH,
@@ -787,7 +857,9 @@ def phase_lm_serve() -> dict:
     print(f"  cold prefill + 1 decode step (not counted): {cold_ms:.1f} ms")
     print(f"  prefill {LM_BATCH} x {LM_PROMPT} tokens: {prefill_ms:.1f} ms "
           f"({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} tokens/s), K6 "
-          f"launches {prefill_counts['K6']}; decode {DECODE_SLACK} greedy "
+          f"launches {prefill_counts['K6']} (tensor cores "
+          f"{prefill_counts['K6 sm90_bf16']}, fma {prefill_counts['K6 fma']})"
+          f"; decode {DECODE_SLACK} greedy "
           f"steps: {decode_ms:.2f} ms per step ({LM_BATCH / decode_ms * 1e3:.0f}"
           f" tokens/s; steps between device events: min {min(step_ms):.2f}, "
           f"max {max(step_ms):.2f} ms); max_memory_allocated {peak:.2f} GiB;"
@@ -799,15 +871,16 @@ def phase_lm_serve() -> dict:
     close(step_logits[0], full[:, LM_PROMPT], "decode logits vs lm_forward at "
           f"position S={LM_PROMPT}", LM_TOL, LM_TOL)
     del full
-    phase_lm_profile(params, cfg, tokens, prefill_ms, decode_ms)
-    return dict(params=params, counts=counts, prefill_ms=prefill_ms,
-                decode_ms=decode_ms, peak_gib=peak)
+    profile = phase_lm_profile(params, cfg, tokens, prefill_ms, decode_ms)
+    return dict(params=params, counts=prefill_counts, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, peak_gib=peak, profile=profile)
 
 
 def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
-                     decode_ms: float) -> None:
+                     decode_ms: float) -> dict:
     """Device time by kernel of one prefill and one decode step (torch
-    profiler), and the device's busy share of the unprofiled times."""
+    profiler), and the device's busy share of the unprofiled times; returns
+    the device ms by group of each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.decode import decode_step, prefill
@@ -818,7 +891,9 @@ def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             name = e.key
-            kind = ("K6" if "flash_attention_kernel" in name else
+            # K6's two kernels: flash_attention_kernel (fma) and
+            # flash_attention_sm90_kernel (tensor cores)
+            kind = ("K6" if "flash_attention" in name else
                     "matmul" if any(w in name.lower() for w in (
                         "gemm", "gemv", "cutlass", "xmma", "nvjet"))
                     else "other")
@@ -830,6 +905,7 @@ def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
 
     logits, state = prefill(params, tokens, cfg)
     tok = logits.argmax(-1)[:, None]
+    result = {}
     for name, fn, wall_ms in (
             ("prefill", lambda: prefill(params, tokens, cfg), prefill_ms),
             ("decode step", lambda: decode_step(params, tok, state, cfg),
@@ -841,6 +917,7 @@ def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
             torch.cuda.synchronize()
         by, top = groups(prof)
         total = sum(by.values())
+        result[name] = dict(by, total=total)
         if total == 0.0:
             print(f"  [profile] {name}: the profiler saw no device time "
                   "(busy share not measured)")
@@ -853,6 +930,7 @@ def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
               f"{min(total / wall_ms, 1.0):.3f}")
         for ms, count, kname in top:
             print(f"    {ms:8.3f} ms in {count:5d} launches  {kname[:90]}")
+    return result
 
 
 def _leaves(tree):
@@ -860,9 +938,11 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def phase_lm_f32(params) -> float:
-    """The same model in float32: one prefill through K6, one through K6's
-    plain version (swapped into the attention module for that call)."""
+def phase_lm_f32(params) -> tuple[float, dict]:
+    """The same model in float32: one prefill through K6 (its FMA route,
+    counted from 0), one through K6's plain version (swapped into the
+    attention module for that call); returns the logits' max error and the
+    K6 prefill's launch counts."""
     import dataclasses
 
     import torch
@@ -876,13 +956,16 @@ def phase_lm_f32(params) -> float:
     tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
     print(f"[lm serve, f32] {cfg.name} in float32: prefill through K6 vs "
           "through its plain version")
-    before = flash_attention.launches
+    reset_counts()
     t0 = time.perf_counter()
     got, _ = prefill(params, tokens, cfg)
     torch.cuda.synchronize()
     k6_s = time.perf_counter() - t0
-    check(flash_attention.launches - before == cfg.n_layers,
-          "f32 prefill did not launch K6 once per layer")
+    counts = read_counts()
+    before = flash_attention.launches
+    check(counts["K6"] == cfg.n_layers and counts["K6 fma"] == cfg.n_layers,
+          f"f32 prefill launched K6 {counts}, expected once per layer on "
+          "the FMA route")
     attention.flash_attention = flash_attention_plain
     try:
         t0 = time.perf_counter()
@@ -891,35 +974,45 @@ def phase_lm_f32(params) -> float:
         plain_s = time.perf_counter() - t0
     finally:
         attention.flash_attention = flash_attention
-    check(flash_attention.launches - before == cfg.n_layers,
+    check(flash_attention.launches == before,
           "the plain prefill launched K6")
-    print(f"  prefill through K6 {k6_s * 1e3:.1f} ms, through the plain "
-          f"version {plain_s * 1e3:.1f} ms")
+    print(f"  prefill through K6 {k6_s * 1e3:.1f} ms (launches {counts}), "
+          f"through the plain version {plain_s * 1e3:.1f} ms")
     return close(got, want, "last-position logits, K6 vs plain", LM_F32_TOL,
-                 LM_F32_TOL)[0]
+                 LM_F32_TOL)[0], counts
 
 
 def phase_k6_timing() -> list:
-    """K6 at the LM path's attention shapes, against its plain version, its
-    bound and ``scaled_dot_product_attention`` (yardstick only)."""
+    """K6 at the LM path's attention shapes, each route at its type (bfloat16:
+    the tensor-core kernel; float32: the FMA kernel), against its plain
+    version, its bound and ``scaled_dot_product_attention`` (yardstick
+    only)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
-    print("[K6 timing, bfloat16]")
+    print("[K6 timing]")
     g = torch.Generator().manual_seed(7)
     rows = []
-    for name, b, hq, hkv, s, d, window in (
-            ("smollm-360m", 4, 15, 5, 2_048, 64, 0),
-            ("gemma3-1b local", 4, 4, 1, 2_048, 256, 1_024)):
-        q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda",
-                                                         torch.bfloat16)
+    for (name, b, hq, hkv, s, d, window), dtype in (
+            (shape, dtype) for dtype in (torch.bfloat16, torch.float32)
+            for shape in (("smollm-360m", 4, 15, 5, 2_048, 64, 0),
+                          ("gemma3-1b local", 4, 4, 1, 2_048, 256, 1_024))):
+        route = "sm90_bf16" if dtype == torch.bfloat16 else "fma"
+        tname = str(dtype).split(".")[1]
+        tol = K6_TOL[tname]
+        q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
                    for h in (hq, hkv, hkv))
+        before = flash_attention.launches_by_route[route]
         got = flash_attention(q, k, v, window=window)
-        err = close(got, flash_attention_plain(q, k, v, True, window),
-                    f"{name}: K6 vs plain", K6_TOL["bfloat16"],
-                    K6_TOL["bfloat16"])[0]
+        check(flash_attention.launches_by_route[route] == before + 1,
+              f"K6 {tname} did not launch on {route}")
+        err, ratio = close_k6(got, flash_attention_plain(q, k, v, True,
+                                                         window),
+                              f"{name} {tname}: K6 ({route}) vs plain")
+        check(torch.equal(got, flash_attention(q, k, v, window=window)),
+              f"{name} {tname}: two launches differ")
         i = torch.arange(s, device="cuda")
         mask = dict(attn_mask=(i[None, :] <= i[:, None])
                     & (i[:, None] - i[None, :] < window)) if window else \
@@ -929,23 +1022,31 @@ def phase_k6_timing() -> list:
             return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
                                                   **mask)
 
-        close(sdpa(), got, f"{name}: SDPA vs K6", K6_TOL["bfloat16"],
-              K6_TOL["bfloat16"])
+        close(sdpa(), got, f"{name} {tname}: SDPA vs K6", tol, tol)
+        # kernel, SDPA, kernel, SDPA: the two are compared only in one run
         ms = cuda_ms(lambda: flash_attention(q, k, v, window=window), 10)
+        lib_ms = cuda_ms(sdpa, 10)
+        ms2 = cuda_ms(lambda: flash_attention(q, k, v, window=window), 10)
+        lib_ms2 = cuda_ms(sdpa, 10)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, True,
                                                          window), 3)
-        lib_ms = cuda_ms(sdpa, 10)
-        flops, nbytes = attention_work(b, hq, hkv, s, d, window, 2)
-        bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        print(f"  {name} B={b} Hq={hq} Hkv={hkv} S={s} D={d} window="
-              f"{window}: K6 {ms:.3f} ms per launch ({flops / ms / 1e9:.2f} "
-              f"TFLOP/s), plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, "
+        flops, nbytes = attention_work(b, hq, hkv, s, d, window,
+                                       q.element_size())
+        # bfloat16 on the tensor cores; float32 on the CUDA cores (the FMA
+        # route keeps float32 arithmetic, so TF32 is not its peak)
+        bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS
+                             if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+        print(f"  {name} {tname} B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+              f"window={window}: K6 ({route}) {ms:.4f} / {ms2:.4f} ms per "
+              f"launch ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} / {lib_ms2:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({by}), {bound_ms / ms:.4f} of the "
-              f"bound, SDPA / K6 {lib_ms / ms:.4f}")
-        rows.append(dict(name=name, shape=f"B={b} Hq={hq} Hkv={hkv} S={s} "
-                         f"D={d} window={window} bf16", ms=ms,
-                         plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms,
-                         by=by, err=err))
+              f"bound, K6 / SDPA {ms / lib_ms:.3f}")
+        rows.append(dict(name=name, route=route, shape=f"B={b} Hq={hq} "
+                         f"Hkv={hkv} S={s} D={d} window={window} {tname}",
+                         ms=ms, ms2=ms2, plain_ms=plain_ms, lib_ms=lib_ms,
+                         lib_ms2=lib_ms2, bound_ms=bound_ms, by=by, err=err,
+                         block_rms=ratio))
     return rows
 
 
@@ -1000,7 +1101,7 @@ def main() -> int:
     k6_small_err = phase_k6_small()
     lm = phase_lm_serve()
     lm_counts = lm["counts"]
-    lm_f32_err = phase_lm_f32(lm.pop("params"))
+    lm_f32_err, f32_counts = phase_lm_f32(lm.pop("params"))
     k6 = phase_k6_timing()
 
     single = after["rows"][0]
@@ -1028,7 +1129,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=ops["counts"][k], max_abs_err=r["err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=None, shape=r["shape"]))
+            bound_by=r["bound"][1], library_ms=r.get("lib_ms"),
+            shape=r["shape"]))
     r400 = next(r for r in k5["rows"] if r["m"] == 400 and r["k"] == 2)
     kernels.append(dict(
         name="K5 GRF walker-mean feature product", route="cuda",
@@ -1043,22 +1145,41 @@ def main() -> int:
             ms=r["ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
             library_ms=r["lib_ms"], bound_ms=r["bound_ms"])
             for r in k5["rows"]}))
-    k6_path = k6[0]
-    kernels.append(dict(
-        name="K6 flash attention", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:98",
-        launches=lm_counts["K6"], max_abs_err=k6_path["err"],
-        ms=k6_path["ms"], plain_ms=k6_path["plain_ms"],
-        bound_ms=k6_path["bound_ms"], bound_by=k6_path["by"],
-        library_ms=k6_path["lib_ms"], shape=k6_path["shape"],
-        small_shapes_max_abs_err=k6_small_err,
-        lm_f32_logits_max_abs_err=lm_f32_err,
-        prefill_ms=lm["prefill_ms"], decode_ms_per_step=lm["decode_ms"],
-        by_shape={r["name"]: dict(ms=r["ms"], plain_ms=r["plain_ms"],
-                                  library_ms=r["lib_ms"],
-                                  bound_ms=r["bound_ms"], shape=r["shape"])
-                  for r in k6}))
+    # K6: one entry per route, each timed at smollm-360m's shape in its type;
+    # launches are the bf16 prefill's (tensor cores) and the f32 twin's (FMA)
+    k6_dir = "src/repro_torch/kernels/flash_attention/csrc/"
+    k6_sources = {"sm90_bf16": k6_dir + "flash_attention_sm90.cu",
+                  "fma": k6_dir + "flash_attention.cu"}
+    prefill_share = lm["profile"].get("prefill", {})
+    for route, name, launches in (
+            ("sm90_bf16", "K6 flash attention, bfloat16 (tensor cores)",
+             lm_counts["K6 sm90_bf16"]),
+            ("fma", "K6 flash attention, float32 (FMA)",
+             f32_counts["K6 fma"])):
+        rows = [r for r in k6 if r["route"] == route]
+        kernels.append(dict(
+            name=name, route="cuda", source=k6_sources[route],
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:98",
+            launches=launches, max_abs_err=rows[0]["err"], ms=rows[0]["ms"],
+            plain_ms=rows[0]["plain_ms"], bound_ms=rows[0]["bound_ms"],
+            bound_by=rows[0]["by"], library_ms=rows[0]["lib_ms"],
+            shape=rows[0]["shape"], k6_route=route, k6_sources=k6_sources,
+            small_shapes_max_abs_err=k6_small_err[route][0],
+            small_shapes_max_block_rms=k6_small_err[route][1],
+            by_shape={r["name"]: dict(ms=r["ms"], ms2=r["ms2"],
+                                      plain_ms=r["plain_ms"],
+                                      library_ms=r["lib_ms"],
+                                      library_ms2=r["lib_ms2"],
+                                      bound_ms=r["bound_ms"],
+                                      max_abs_err=r["err"],
+                                      max_block_rms=r["block_rms"],
+                                      shape=r["shape"]) for r in rows},
+            **(dict(prefill_ms=lm["prefill_ms"],
+                    decode_ms_per_step=lm["decode_ms"],
+                    prefill_device_ms=prefill_share.get("total"),
+                    prefill_k6_device_ms=prefill_share.get("K6"))
+               if route == "sm90_bf16" else
+               dict(lm_f32_logits_max_abs_err=lm_f32_err))))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

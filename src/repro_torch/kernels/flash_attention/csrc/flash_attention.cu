@@ -2,12 +2,11 @@
 //
 //   out[b, h, i, :] = sum_j softmax_j(mask(q_i . k_j * D^-1/2)) v[b, h / G, j, :]
 //
-// for q (B, Hq, S, D) and k, v (B, Hkv, S, D), G = Hq / Hkv, in float32 or
-// bfloat16; out is (B, Hq, S, D) in the input type.  Products, exponentials
-// and sums are float32 (bfloat16 is upcast on load, the output rounded to
-// nearest once at the end).  A key j is masked for query i when j >= S, when
-// causal and j > i, or when window > 0 and i - j >= window; a masked logit is
-// -1e30.  Per key tile: m' = max(m, rowmax), alpha = exp(m - m'),
+// for q (B, Hq, S, D) and k, v (B, Hkv, S, D), G = Hq / Hkv, all float32;
+// out is (B, Hq, S, D) float32.  This is K6's float32 route; bfloat16 goes to
+// flash_attention_sm90.cu on the tensor cores.  A key j is masked for query i
+// when j >= S, when causal and j > i, or when window > 0 and i - j >= window;
+// a masked logit is -1e30.  Per key tile: m' = max(m, rowmax), alpha = exp(m - m'),
 // p = exp(logit - m'), s = s * alpha + sum p, acc = acc * alpha + p v; the
 // output is acc / max(s, 1e-38).
 //
@@ -48,14 +47,12 @@
 //
 // Bound on an H100 SXM: operations.  At the LM path's shape (B = 4, Hq = 15,
 // Hkv = 5, S = 2048, D = 64, causal) the two products over the unmasked half
-// are 2 B Hq S^2 D = 32.2 GFLOP against 42 MB of q, k, v and out, so the card's
-// bf16 tensor-core peak (989 TFLOP/s) sets the bound, 0.033 ms.  This kernel
-// runs on the FP32 CUDA cores (67 TFLOP/s peak) and its inner loops issue one
-// 16-byte shared load for every 8 FMAs, so it cannot come within an order of
-// magnitude of that bound.  What is not attempted: mma.sync / wgmma on bf16
-// tiles, TMA loads of K/V into a multi-stage ring, and a triangular schedule
-// that splits the diagonal tile.
-#include <cuda_bf16.h>
+// are 2 B Hq S^2 D = 32.2 GFLOP against 84 MB of q, k, v and out, so the FP32
+// CUDA cores' peak (67 TFLOP/s) sets the bound, 0.48 ms; TF32 tensor cores
+// would not hold the route's float32 tolerances.  The inner loops issue one
+// 16-byte shared load for every 8 FMAs; the kernel reaches about a third of
+// that bound at this shape on an H100 (PERF.md).  Not attempted: a triangular
+// schedule that splits the diagonal tile.
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,15 +71,6 @@ __host__ __device__ constexpr int smem_floats() {
          kv_tile<D>() * (BQ + PAD);
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // N consecutive floats from shared memory, 16 (or 8) bytes at a time
 template <int N>
 __device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
@@ -99,11 +87,13 @@ __device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
   }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Hq,
-                       int Hkv, int S, int causal, int window, float scale) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int Hq, int Hkv, int S, int causal, int window,
+                       float scale) {
   constexpr int BK = kv_tile<D>();
   constexpr int RQ = BQ / 16;   // query rows per thread
   constexpr int CK = BK / 16;   // keys per thread per tile
@@ -121,14 +111,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const T* qb = q + (size_t)(b * Hq + h) * S * D;
-  const T* kb = k + (size_t)(b * Hkv + hk) * S * D;
-  const T* vb = v + (size_t)(b * Hkv + hk) * S * D;
+  const float* qb = q + (size_t)(b * Hq + h) * S * D;
+  const float* kb = k + (size_t)(b * Hkv + hk) * S * D;
+  const float* vb = v + (size_t)(b * Hkv + hk) * S * D;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
-    Qt[c * QS + r] = q0 + r < S ? to_f32(qb[(size_t)(q0 + r) * D + c]) * scale
-                                : 0.f;
+    Qt[c * QS + r] = q0 + r < S ? qb[(size_t)(q0 + r) * D + c] * scale : 0.f;
   }
 
   float m[RQ], l[RQ], acc[RQ][CD];
@@ -148,8 +137,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += NT) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < S;
-      Kt[c * KS + r] = in ? to_f32(kb[(size_t)(k0 + r) * D + c]) : 0.f;
-      Vs[i] = in ? to_f32(vb[(size_t)(k0 + r) * D + c]) : 0.f;
+      Kt[c * KS + r] = in ? kb[(size_t)(k0 + r) * D + c] : 0.f;
+      Vs[i] = in ? vb[(size_t)(k0 + r) * D + c] : 0.f;
     }
     __syncthreads();
 
@@ -220,66 +209,50 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty * RQ + i;
     if (qi >= S) continue;
     const float den = fmaxf(l[i], 1e-38f);
-    T* o = out + ((size_t)(b * Hq + h) * S + qi) * D + tx * CD;
+    float* o = out + ((size_t)(b * Hq + h) * S + qi) * D + tx * CD;
 #pragma unroll
-    for (int j = 0; j < CD; ++j) put(o + j, acc[i][j] / den);
+    for (int j = 0; j < CD; ++j) o[j] = acc[i][j] / den;
   }
 }
 
-template <int D, typename T>
-int run(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-        int Hkv, int S, int causal, int window, float scale,
+template <int D>
+int run(const float* q, const float* k, const float* v, float* out, int B,
+        int Hq, int Hkv, int S, int causal, int window, float scale,
         cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * sizeof(float);
-  auto kern = flash_attention_kernel<D, T>;
+  auto kern = flash_attention_kernel<D>;
   static const cudaError_t opted = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (opted != cudaSuccess) return static_cast<int>(opted);
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  kern<<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, S, causal,
-      window, scale);
+  kern<<<grid, NT, bytes, stream>>>(q, k, v, out, Hq, Hkv, S, causal, window,
+                                    scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int Hq, int Hkv, int S, int D, int causal, int window,
-             float scale, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return run<64, T>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale,
-                        stream);
-    case 128:
-      return run<128, T>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale,
-                         stream);
-    case 256:
-      return run<256, T>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale,
-                         stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// Launches K6 on `stream` (a cudaStream_t passed as a pointer) and returns
-// cudaGetLastError() as an int (0 on success).  q (B, Hq, S, D), k and v
-// (B, Hkv, S, D), out (B, Hq, S, D): row-major, contiguous, on the current
-// device, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1) alike.  D is 64,
-// 128 or 256; Hq is a multiple of Hkv; window 0 means none.  scale is
-// D^-1/2.  Allocates nothing.
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int Hq, int Hkv, int S, int D,
-                               int causal, int window, int is_bf16,
-                               float scale, void* stream) {
+// Launches K6's float32 route on `stream` (a cudaStream_t passed as a
+// pointer) and returns cudaGetLastError() as an int (0 on success).
+// q (B, Hq, S, D), k and v (B, Hkv, S, D), out (B, Hq, S, D): float32,
+// row-major, contiguous, on the current device.  D is 64, 128 or 256; Hq is a
+// multiple of Hkv; window 0 means none.  scale is D^-1/2.  Allocates nothing.
+extern "C" int flash_attention(const float* q, const float* k, const float* v,
+                               float* out, int B, int Hq, int Hkv, int S,
+                               int D, int causal, int window, float scale,
+                               void* stream) {
   if (B <= 0 || S <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, D,
-                                           causal, window, scale, st)
-                 : dispatch<float>(q, k, v, out, B, Hq, Hkv, S, D, causal,
-                                   window, scale, st);
+  switch (D) {
+    case 64:
+      return run<64>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, st);
+    case 128:
+      return run<128>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, st);
+    case 256:
+      return run<256>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* cuda_error_string(int code) {

@@ -1,14 +1,22 @@
 """``repro_torch/kernels/flash_attention/ops.py`` ↔ ``repro/kernels/flash_attention/ops.py``.
 
-:func:`flash_attention` is the wrapper of K6, the hand-written CUDA kernel
-``csrc/flash_attention.cu``.  On CUDA tensors it launches the kernel,
-counting the launch in ``flash_attention.launches``, or raises; it never
-falls back.  On CPU tensors it runs the plain version
-``flash_attention.flash_attention_plain``.  The kernel takes float32 or
-bfloat16 (all three operands alike) and head widths 64, 128 and 256, those
-of the ported dense configurations.  The reference's ``block_q``/``block_k``
-arguments are TPU tile sizes and are not taken: the kernel's tiles are fixed
-(``kv_tile``).
+:func:`flash_attention` is the wrapper of K6, two hand-written CUDA kernels
+picked by the operands' type:
+
+- bfloat16, the served models' type: ``csrc/flash_attention_sm90.cu``, on
+  Hopper's tensor cores (``wgmma``, K/V staged by TMA), route ``"sm90_bf16"``;
+- float32: ``csrc/flash_attention.cu``, FP32 FMA on the CUDA cores, route
+  ``"fma"``.
+
+On CUDA tensors it launches one of them, counting the launch in
+``flash_attention.launches`` and in ``flash_attention.launches_by_route``, or
+raises; it never falls back, and a bfloat16 tensor never reaches the FMA
+kernel.  On CPU tensors it runs the plain version
+``flash_attention.flash_attention_plain``, which walks the tiles of the route
+the operands' type selects.  Both kernels take head widths 64, 128 and 256,
+those of the ported dense configurations, with q, k and v of one type.  The
+reference's ``block_q``/``block_k`` arguments are TPU tile sizes and are not
+taken: the kernels' tiles are fixed (``kv_tile``).
 """
 from __future__ import annotations
 
@@ -19,25 +27,45 @@ import torch
 
 from repro_torch.kernels._build import (check_operand, launch, load_library,
                                         on_card)
-from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention_plain
+from repro_torch.kernels.flash_attention.flash_attention import (
+    LOG2E, flash_attention_plain)
 
-__all__ = ["HEAD_DIMS", "KERNEL_SOURCE", "flash_attention", "kernel_library"]
+__all__ = ["HEAD_DIMS", "KERNEL_SOURCE", "SM90_SOURCE", "flash_attention",
+           "kernel_library", "sm90_library"]
 
-KERNEL_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+KERNEL_SOURCE = _CSRC / "flash_attention.cu"        # float32, route "fma"
+SM90_SOURCE = _CSRC / "flash_attention_sm90.cu"     # bfloat16, "sm90_bf16"
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def kernel_library():
-    """Build (at first use) and load K6; returns a ``_build.BuiltLibrary``."""
+    """Build (at first use) and load the float32 kernel; returns a
+    ``_build.BuiltLibrary``."""
     built = load_library(KERNEL_SOURCE)
     fn = built.lib.flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return built
+
+
+def sm90_library():
+    """Build (at first use) and load the bfloat16 tensor-core kernel."""
+    built = load_library(SM90_SOURCE)
+    fn = built.lib.flash_attention_sm90
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return built
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its storage is not 16-byte aligned (TMA)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,12 +95,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operand("k", k, (b, hkv, s, d), q.device, _DTYPES)
     check_operand("v", v, (b, hkv, s, d), q.device, _DTYPES)
     out = torch.empty_like(q)
-    launch(kernel_library(), "flash_attention", q.device, q.data_ptr(),
-           k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
-           int(bool(causal)), int(window), int(q.dtype == torch.bfloat16),
-           float(d) ** -0.5)
+    if q.dtype == torch.bfloat16:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        route = "sm90_bf16"
+        launch(sm90_library(), "flash_attention_sm90", q.device, q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
+               int(bool(causal)), int(window), float(d) ** -0.5 * LOG2E)
+    else:
+        route = "fma"
+        launch(kernel_library(), "flash_attention", q.device, q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
+               int(bool(causal)), int(window), float(d) ** -0.5)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
-flash_attention.launches = 0  # K6 launches; the CPU path does not count
+# K6 launches, in all and by route; the CPU path does not count
+flash_attention.launches = 0
+flash_attention.launches_by_route = {"sm90_bf16": 0, "fma": 0}

@@ -7,9 +7,13 @@ reference's ``repro.kernels.flash_attention.flash_attention`` (the Pallas
 kernel, interpreted off the TPU, as ``tests/test_kernels.py`` runs it) and
 against ``flash_attention_ref``, on the same numpy inputs and the shapes of
 the reference's own tests, at the reference's tolerances: ``2e-4`` in
-float32, ``5e-2`` in bfloat16.  The CUDA kernel itself runs only on a card
-(``tests/test_torch_gpu.py``).
+float32, ``5e-2`` in bfloat16.  In bfloat16 the plain version walks the
+tensor-core route's recurrence (64-key tiles at every head width, the scale
+on the float32 logits, ``exp2``, p rounded to bfloat16 before ``p @ v``).  The
+CUDA kernels themselves run only on a card (``tests/test_torch_gpu.py``).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,3 +96,50 @@ def test_other_devices_raise():
     q = torch.zeros((1, 1, 4, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (1, 2, 2, 64, 64, 0), (1, 3, 1, 80, 128, 0), (1, 2, 1, 72, 256, 0),
+    (2, 3, 1, 96, 64, 16), (1, 6, 2, 130, 128, 40), (1, 3, 1, 100, 256, 24)])
+def test_plain_bf16_recurrence_matches_reference_kernel(b, hq, hkv, s, d,
+                                                        window):
+    """The bfloat16 route's tile walk against the reference's kernel and both
+    oracles, at the reference's bfloat16 tolerance: head widths 64, 128 and
+    256, GQA ratios 1, 2 and 3, windows narrower than the 64-key tile."""
+    arrays = _qkv(s * d + window, b, hq, hkv, s, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, jnp.bfloat16, torch.bfloat16)
+    got = flash_attention(tq, tk, tv, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    _close(got, r_flash(jq, jk, jv, window=window, block_q=32, block_k=32),
+           5e-2)
+    _close(got, r_flash_ref(jq, jk, jv, window=window), 5e-2)
+    _close(got, flash_attention_ref(tq, tk, tv, window=window).float(), 5e-2)
+
+
+@pytest.mark.parametrize("s,d,window", [(65, 64, 0), (33, 128, 0),
+                                        (97, 256, 7), (130, 64, 63)])
+def test_plain_bf16_non_causal_ragged_matches_oracle(s, d, window):
+    """``causal=False`` at a ragged S, in bfloat16, against ``ref.py`` only
+    (the reference kernel pads keys into the softmax there)."""
+    arrays = _qkv(s + d, 1, 3, 1, s, d)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, jnp.bfloat16, torch.bfloat16)
+    got = flash_attention(tq, tk, tv, causal=False, window=window)
+    _close(got, r_flash_ref(jq, jk, jv, causal=False, window=window), 5e-2)
+    _close(got, flash_attention_ref(tq, tk, tv, causal=False,
+                                    window=window).float(), 5e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_plain_bf16_one_tile_is_softmax_with_p_rounded(d):
+    """At S <= 64 the bfloat16 route is one tile: t = (q k^T) D^-1/2 log2 e,
+    p = 2^(t - max t), out = bf16(p) v / sum p, computed here in float64 from
+    the same bfloat16 inputs; the kernel's tile is 64 keys at every width."""
+    assert kv_tile(d, torch.bfloat16) == 64
+    tq, tk, tv = (torch.as_tensor(a).to(torch.bfloat16)
+                  for a in _qkv(d, 1, 2, 1, 40, d))
+    got = flash_attention(tq, tk, tv, causal=False)
+    t = (tq.double() @ tk.double().transpose(-1, -2)) * (d ** -0.5) \
+        * math.log2(math.e)
+    p = torch.exp2(t - t.amax(-1, keepdim=True))
+    want = (p.to(torch.bfloat16).double() @ tv.double()) / p.sum(-1)[..., None]
+    torch.testing.assert_close(got.double(), want, rtol=8e-3, atol=1e-3)

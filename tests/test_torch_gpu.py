@@ -26,11 +26,28 @@ from repro_torch.kernels.pairwise import (pairwise_sq_dists,
                                           pairwise_sq_dists_ref)
 
 RTOL, ATOL = 1e-4, 1e-5
+# K6's bfloat16 route against its plain version, which repeats its
+# recurrence and rounds p to bfloat16 as it does: elementwise rtol=atol, and
+# the RMS error of each 64-row block over the RMS of its output
+K6_BF16_PLAIN_TOL, K6_BLOCK_RMS = 1e-2, 1e-2
 
 
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+
+
+def _assert_k6_bf16_matches_plain(got, want):
+    """The two differ by roundings of single bfloat16 values; a dropped key
+    tile or a wrong rescale moves a whole block of rows."""
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=K6_BF16_PLAIN_TOL, atol=K6_BF16_PLAIN_TOL)
+    b, h, s, d = want.shape
+    pad = (0, 0, 0, -s % 64)
+    err, ref = (torch.nn.functional.pad(t, pad).reshape(b, h, -1, 64 * d)
+                for t in (got.double() - want.double(), want.double()))
+    ratio = err.norm(dim=-1) / ref.norm(dim=-1)
+    assert float(ratio.max()) <= K6_BLOCK_RMS, float(ratio.max())
 
 
 def _inputs(n, d, k, seed):
@@ -197,8 +214,9 @@ def test_cuda_grf_feature_kernel_skips_positions_outside_the_graph():
 def test_cuda_flash_attention_kernel_matches_plain(b, hq, hkv, s, d, causal,
                                                    window, dtype):
     """K6 against its plain version and the naive oracle, at the reference's
-    tolerances (2e-4 in float32, 5e-2 in bfloat16); two launches agree bit
-    for bit."""
+    tolerances (2e-4 in float32, 5e-2 in bfloat16), and in bfloat16 against
+    its plain version at the tighter limits above; two launches agree bit for
+    bit."""
     _card()
     r = np.random.RandomState(s + d)
     q, k, v = (torch.as_tensor(r.randn(b, h, s, d).astype(np.float32))
@@ -213,6 +231,9 @@ def test_cuda_flash_attention_kernel_matches_plain(b, hq, hkv, s, d, causal,
                  flash_attention_ref(q, k, v, causal, window)):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+    if dtype == torch.bfloat16:
+        _assert_k6_bf16_matches_plain(
+            got, flash_attention_plain(q, k, v, causal, window))
     assert torch.equal(got, flash_attention(q, k, v, causal=causal,
                                             window=window))
 
@@ -228,3 +249,92 @@ def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take():
         flash_attention(q, q[:, :2], q[:, :2])
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention(q, q.double(), q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 1, 1, 64, 64, True, 0), (2, 3, 1, 33, 64, True, 0),
+    (1, 4, 1, 130, 64, False, 0), (2, 3, 3, 200, 64, True, 16),
+    (1, 6, 2, 257, 64, True, 63), (1, 2, 1, 1100, 64, True, 1024),
+    (1, 2, 2, 64, 128, False, 0), (2, 3, 1, 97, 128, True, 63),
+    (1, 8, 2, 300, 128, True, 1024), (1, 4, 4, 33, 128, False, 16),
+    (1, 1, 1, 64, 256, True, 0), (1, 3, 1, 130, 256, True, 16),
+    (2, 4, 1, 70, 256, False, 63), (1, 4, 1, 1100, 256, True, 1024)])
+def test_cuda_flash_attention_sm90_route(b, hq, hkv, s, d, causal, window):
+    """K6's bfloat16 route (the tensor-core kernel) against its plain version
+    at the tighter limits above and against the naive oracle at the
+    reference's bfloat16 tolerance, 5e-2: head widths 64, 128 and 256; GQA
+    ratios 1, 3 and 4; causal and not; windows of 16, BK - 1 = 63 and 1,024;
+    S below, at and past the 64-key tile.  One launch, counted on the
+    tensor-core route alone; a second launch equal to the first bit for
+    bit."""
+    _card()
+    r = np.random.RandomState(7 * s + d)
+    q, k, v = (torch.as_tensor(r.randn(b, h, s, d).astype(np.float32))
+               .to("cuda", torch.bfloat16) for h in (hq, hkv, hkv))
+    routes = dict(flash_attention.launches_by_route)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {
+        "sm90_bf16": routes["sm90_bf16"] + 1, "fma": routes["fma"]}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_k6_bf16_matches_plain(
+        got, flash_attention_plain(q, k, v, causal, window))
+    torch.testing.assert_close(
+        got.float(), flash_attention_ref(q, k, v, causal, window).float(),
+        rtol=5e-2, atol=5e-2)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_routes_by_dtype():
+    """float32 goes to the FMA kernel, bfloat16 to the tensor-core kernel;
+    ``launches`` counts both."""
+    _card()
+    q = torch.randn(1, 2, 70, 64, device="cuda")
+    before, routes = flash_attention.launches, \
+        dict(flash_attention.launches_by_route)
+    flash_attention(q, q, q)
+    flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), causal=False)
+    assert flash_attention.launches == before + 3
+    assert flash_attention.launches_by_route == {
+        "sm90_bf16": routes["sm90_bf16"] + 2, "fma": routes["fma"] + 1}
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_sm90_takes_unaligned_and_strided_views():
+    """A bfloat16 operand whose storage is not 16-byte aligned (TMA's rule) or
+    not contiguous is copied, not refused."""
+    _card()
+    r = np.random.RandomState(3)
+    base = torch.as_tensor(r.randn(2 * 3 * 65 * 64 + 1).astype(np.float32)) \
+        .to("cuda", torch.bfloat16)
+    q = base[1:].view(2, 3, 65, 64)
+    assert q.data_ptr() % 16 != 0
+    k = torch.as_tensor(r.randn(2, 65, 3, 64).astype(np.float32)) \
+        .to("cuda", torch.bfloat16).transpose(1, 2)
+    assert not k.is_contiguous()
+    got = flash_attention(q, k, k)
+    _assert_k6_bf16_matches_plain(got, flash_attention_plain(q, k, k))
+    torch.testing.assert_close(
+        got.float(), flash_attention_ref(q, k, k).float(), rtol=5e-2,
+        atol=5e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_sm90_rejects_what_it_does_not_take():
+    _card()
+    q = torch.zeros((1, 2, 8, 32), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 3, 8, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q, q.float(), q)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, q, q, window=-1)
