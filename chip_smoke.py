@@ -6,9 +6,11 @@
 Phases (any failure exits non-zero):
 
 1. device and build: the card's name and power limit, and the five kernel
-   sources built at once with ``nvcc`` for ``sm_90a`` from the checkout
-   (``fused_lp/csrc/folded_lp.cu``: K1 the folded exact LP step, K2 ``P @ Y``,
-   K3 the per-batch-recompute step; ``pairwise/csrc/pairwise.cu``: K4;
+   sources built at once with ``nvcc`` for ``sm_90a`` from the checkout, with
+   the shared headers of ``kernels/csrc`` (``fused_lp/csrc/folded_lp.cu``:
+   K1 the folded exact LP step, K2 ``P @ Y``, K3 the per-batch-recompute
+   step; ``pairwise/csrc/pairwise.cu``: K4; the four on Hopper's tensor
+   cores as 3xTF32, ``kernels/csrc/tf32x3.cuh``;
    ``grf/csrc/grf_feature.cu``: K5 the GRF walker-mean feature product;
    ``flash_attention/csrc/flash_attention.cu``: K6's float32 route on the
    CUDA cores; ``flash_attention/csrc/flash_attention_sm90.cu``: K6's
@@ -17,6 +19,15 @@ Phases (any failure exits non-zero):
    step, a 5-step scan, a ``row_base`` stripe, and resume-from-carry equal to
    the monolithic scan bit for bit; K5 likewise, and a K = 16 column's bits
    equal to a K = 2 call's;
+2b. the precision gate, which tells 3xTF32 from one TF32 product: on dense
+   Gaussian points (numpy seed, d = 315) K4 at its timing shape, 2,048 x
+   83,679, and K1 at N = 16,384 with K = 2 and K = 16 (logits spanning
+   about 37 units across a row) against a float64 run of the same function
+   (for K1 the plain recurrence in float64): the kernel's max and RMS errors
+   must each be at most 2 x the plain float32 version's on the same inputs.
+   The SecStr-like data of the main path has 0/1 features, so its distances
+   are integers, exact in any order and in one TF32 product: the checks on it
+   cannot see a precision loss;
 3. the main path, at the scale of the paper's SecStr benchmark
    (``secstr_like(83_679, 315, seed=3)``, ``|B| = 4N``): ``fit`` on the card,
    VDT label propagation (one request and a batch of 8 with per-request
@@ -62,8 +73,10 @@ Phases (any failure exits non-zero):
    ``scaled_dot_product_attention`` as the library yardstick.
 
 Each path runs with every launch counter set to 0 just before and read just
-after.  Prints the card (``nvidia-smi``), one JSON line with the kernel
-table, and as its last line ``{"ok": true, "device": {...}}``.  Tolerance:
+after; K1-K4 count their launches by route too, and every one of them must
+be on ``tf32x3``, the tensor-core route.  Prints the card (``nvidia-smi``),
+one JSON line with the kernel table, and as its last line ``{"ok": true,
+"device": {...}}``.  Tolerance:
 ``rtol=1e-4, atol=1e-5``, the reference package's own LP tolerance, for
 K1-K4 (``5e-2`` for K4 on bfloat16, as the reference's test); ``rtol=1e-5,
 atol=1e-6`` for K5, as the reference's ``test_feature_kernel_matches_ref``;
@@ -91,6 +104,7 @@ REPO = Path(__file__).resolve().parent
 RTOL, ATOL = 1e-4, 1e-5
 # NVIDIA H100 SXM data sheet, at the 700 W power limit
 PEAK_FP32_FLOPS = 67e12      # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12
 N_SECSTR, D_SECSTR = 83_679, 315
 VDT_ITERS, EXACT_ITERS, BATCH = 50, 10, 8
@@ -106,6 +120,10 @@ K6_TOL = {"float32": 2e-4, "bfloat16": 5e-2}   # K6 vs the reference, SDPA
 # K6's bfloat16 route vs its plain version: elementwise rtol=atol, and the
 # RMS error of each 64-row block over the RMS of its output (both routes)
 K6_BF16_PLAIN_TOL, K6_BLOCK_RMS = 1e-2, 1e-2
+# the precision gate: kernel error vs float64 at most GATE_RATIO x the plain
+# float32 version's, max and RMS; K1's 1 / (2 sigma^2) on Gaussian d = 315
+GATE_SEED, GATE_N_K1, GATE_RATIO, GATE_INV_TSS = 15, 16_384, 2.0, 0.1
+TC_ROUTE = "tf32x3"          # K1-K4's tensor-core route
 
 
 def check(cond: bool, msg: str) -> None:
@@ -155,17 +173,41 @@ def counters():
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
-    routes = counters()["K6"].launches_by_route
-    for route in routes:
-        routes[route] = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
 
 
 def read_counts() -> dict:
-    """Launches by kernel, and K6's by route (``K6 sm90_bf16``, ``K6 fma``)."""
-    counts = {k: fn.launches for k, fn in counters().items()}
-    for route, n in counters()["K6"].launches_by_route.items():
-        counts[f"K6 {route}"] = n
+    """Launches by kernel, and by route where a kernel has routes
+    (``K1 tf32x3``, ``K4 tf32x1_bf16``, ``K6 sm90_bf16``, ``K6 fma``, ...)."""
+    counts = {}
+    for k, fn in counters().items():
+        counts[k] = fn.launches
+        for route, n in getattr(fn, "launches_by_route", {}).items():
+            counts[f"{k} {route}"] = n
     return counts
+
+
+def check_tc_route(counts: dict, kernels=("K1", "K2", "K3", "K4")) -> None:
+    """Every launch of K1-K4 in ``counts`` went through the tensor-core route:
+    its entry point reported three TF32 products a k step."""
+    for k in kernels:
+        check(counts[f"{k} {TC_ROUTE}"] == counts[k],
+              f"{k}: {counts[k]} launches, {counts[f'{k} {TC_ROUTE}']} on "
+              f"{TC_ROUTE}")
+
+
+def tc_bound(m: int, n: int, d: int, k: int, nbytes: float) -> tuple:
+    """K1-K4's least time in ms on the tensor-core route, what sets it, and
+    the float32 CUDA-core bound of the same function: the cross term as
+    three TF32 products (3 x 2 m n d) at the TF32 peak, plus p @ Y (2 m n k)
+    at the float32 peak; or the bytes at the memory rate."""
+    t_ops = (3 * 2.0 * m * n * d / PEAK_TF32_FLOPS
+             + 2.0 * m * n * k / PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    f32_ms = max(2.0 * m * n * (d + k) / PEAK_FP32_FLOPS, t_bytes) * 1e3
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", f32_ms)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -305,6 +347,76 @@ def phase_k5_small():
             print("  K=16 columns 3:5 == K=2 call bit for bit")
 
 
+def gate_check(what: str, got, plain, ref) -> dict:
+    """Measure ``got`` against the float64 ``ref`` beside the plain float32
+    version ``plain``; ``ok`` when its max and RMS errors are each at most
+    ``GATE_RATIO`` x the plain version's."""
+    import torch
+
+    def errors(t):
+        check(t.shape == ref.shape and bool(torch.isfinite(t).all()),
+              f"{what}: bad output")
+        err = (t.double() - ref).abs()
+        return float(err.max()), float(err.square().mean().sqrt())
+
+    (k_max, k_rms), (p_max, p_rms) = errors(got), errors(plain)
+    ok = k_max <= GATE_RATIO * p_max and k_rms <= GATE_RATIO * p_rms
+    print(f"  {what}: kernel max {k_max:.4e} rms {k_rms:.4e}; plain f32 max "
+          f"{p_max:.4e} rms {p_rms:.4e}; kernel / plain {k_max / p_max:.3f} "
+          f"(max), {k_rms / p_rms:.3f} (rms) {'ok' if ok else 'FAIL'}")
+    return dict(max=k_max, rms=k_rms, plain_max=p_max, plain_rms=p_rms, ok=ok)
+
+
+def phase_gate() -> dict:
+    """The precision gate: K4 and K1 against float64 on dense Gaussian points,
+    where a dropped low product shows; the counts are not a path's."""
+    import torch
+    from repro_torch.kernels.fused_lp import folded_step, folded_step_plain
+    from repro_torch.kernels.pairwise import (pairwise_sq_dists,
+                                              pairwise_sq_dists_plain)
+
+    print(f"[precision gate] Gaussian d={D_SECSTR}, seed {GATE_SEED}: kernel "
+          f"vs float64 within {GATE_RATIO} x the plain float32 version's error")
+    rng = np.random.RandomState(GATE_SEED)
+    out = {}
+    x = torch.as_tensor(rng.randn(K4_ROWS, D_SECSTR).astype(np.float32),
+                        device="cuda")
+    y = torch.as_tensor(rng.randn(N_SECSTR, D_SECSTR).astype(np.float32),
+                        device="cuda")
+    xd, yd = x.double(), y.double()
+    ref = ((xd * xd).sum(1)[:, None] + (yd * yd).sum(1)[None, :]
+           - 2.0 * (xd @ yd.T)).clamp_min(0.0)
+    out["K4"] = gate_check(f"K4 {K4_ROWS} x {N_SECSTR}", pairwise_sq_dists(x, y),
+                           pairwise_sq_dists_plain(x, y), ref)
+    del x, y, xd, yd, ref
+    x = torch.as_tensor(rng.randn(GATE_N_K1, D_SECSTR).astype(np.float32),
+                        device="cuda")
+    xd = x.double()
+    head = xd[:256]
+    d2 = ((head * head).sum(1)[:, None] + (xd * xd).sum(1)[None, :]
+          - 2.0 * (head @ xd.T)) * GATE_INV_TSS
+    d2.fill_diagonal_(float("nan"))
+    span = float((d2.nan_to_num(-1.0).amax(1) - d2.nan_to_num(1e30).amin(1))
+                 .mean())
+    print(f"  K1 logits at 1/(2 sigma^2) = {GATE_INV_TSS}: a row spans "
+          f"{span:.1f} units on average (first 256 rows)")
+    for k in (2, 16):
+        y = torch.as_tensor(rng.rand(GATE_N_K1, k).astype(np.float32),
+                            device="cuda")
+        al = torch.as_tensor(rng.rand(k).astype(np.float32), device="cuda")
+        ref = folded_step_plain(xd, xd, y.double(), y.double(), al.double(),
+                                GATE_INV_TSS)
+        out[f"K1 K={k}"] = gate_check(
+            f"K1 N={GATE_N_K1} K={k}", folded_step(x, x, y, y, al,
+                                                   GATE_INV_TSS),
+            folded_step_plain(x, x, y, y, al, GATE_INV_TSS), ref)
+    failed = [k for k, v in out.items() if not v["ok"]]
+    check(not failed, f"precision gate failed for {failed}: error over "
+                      f"{GATE_RATIO} x the plain float32 version's")
+    out["K1 logit span"] = span
+    return out
+
+
 def phase_main(data):
     """The port's main path; returns what the later checks need."""
     import torch
@@ -417,15 +529,16 @@ def phase_after(data, out) -> dict:
         k_seed, al = shapes[name]
         k = k_seed.shape[1]
         ms = cuda_ms(lambda: folded_step(x, x, k_seed, k_seed, al, inv), 3)
+        ms2 = cuda_ms(lambda: folded_step(x, x, k_seed, k_seed, al, inv), 3)
         plain_ms = cuda_ms(lambda: folded_step_plain(x, x, k_seed, k_seed, al, inv), 1)
-        flops = 2.0 * n * n * d + 2.0 * n * n * k
-        nbytes = 4.0 * (n * d + 3 * n * k + k)   # x, y, y0, alpha in; out
-        bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-        by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_HBM_BYTES \
-            else "bytes"
-        print(f"  K={k}: K1 {ms:.2f} ms per launch, plain {plain_ms:.2f} ms, "
-              f"bound {bound_ms:.2f} ms ({by}), {bound_ms / ms:.3f} of the bound")
-        rows.append(dict(k=k, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, by=by))
+        # x, y, y0, alpha in; out
+        bound_ms, by, f32_ms = tc_bound(n, n, d, k, 4.0 * (n * d + 3 * n * k + k))
+        print(f"  K={k}: K1 {ms:.2f} / {ms2:.2f} ms per launch, plain "
+              f"{plain_ms:.2f} ms, bound {bound_ms:.2f} ms ({by}; 3xTF32 on "
+              f"the tensor cores), {bound_ms / ms:.3f} of it; float32 CUDA-core"
+              f" bound {f32_ms:.2f} ms, {f32_ms / ms:.3f} of it")
+        rows.append(dict(k=k, ms=ms, ms2=ms2, plain_ms=plain_ms,
+                         bound_ms=bound_ms, by=by))
     return dict(max_abs_err=max(errs), rows=rows)
 
 
@@ -640,13 +753,14 @@ def phase_ops(out) -> dict:
     print(f"  launches {counts}")
     for k in ("K2", "K3", "K4"):
         check(counts[k] == 1, f"{k} launched {counts[k]} times, expected 1")
+    check_tc_route(counts, ("K2", "K3", "K4"))
 
     rows = {}
     err = close(k2, matvec_plain(x, y, inv), "K2 vs plain")[0]
     rows["K2"] = dict(
         err=err, ms=cuda_ms(lambda: fused_lp_matvec(x, y, sigma), 2),
         plain_ms=cuda_ms(lambda: matvec_plain(x, y, inv), 1),
-        bound=bound(2.0 * n * n * (d + 2), 4.0 * (n * d + 2 * n * 2)),
+        bound=tc_bound(n, n, d, 2, 4.0 * (n * d + 2 * n * 2)),
         shape=f"N={n} d={d} C=2")
     err = close(k3, step_batched_perbatch_plain(xs, ys, ys, 0.01, inv),
                 "K3 vs plain")[0]
@@ -655,8 +769,8 @@ def phase_ops(out) -> dict:
             xs, ys, ys, sigma, 0.01, reuse=False), 2),
         plain_ms=cuda_ms(lambda: step_batched_perbatch_plain(
             xs, ys, ys, 0.01, inv), 1),
-        bound=bound(K3_BATCH * 2.0 * K3_N * K3_N * (d + 2),
-                    4.0 * (K3_N * d + 3 * K3_BATCH * K3_N * 2)),
+        bound=tc_bound(K3_BATCH * K3_N, K3_N, d, 2,
+                       4.0 * (K3_N * d + 3 * K3_BATCH * K3_N * 2)),
         shape=f"B={K3_BATCH} N={K3_N} d={d} C=2")
     err = close(k4, pairwise_sq_dists_plain(xb, x), "K4 vs plain (f32)")[0]
     close(pairwise_sq_dists(xb.bfloat16(), x.bfloat16()),
@@ -667,19 +781,31 @@ def phase_ops(out) -> dict:
     print(f"  torch.cdist(use_mm)^2 vs K4: max_abs_diff="
           f"{float((dist.square() - k4).abs().max()):.3e} (not a check)")
     del dist
+    # kernel, cdist, kernel, cdist: the two are compared only in one run
+    def k4_run():
+        return pairwise_sq_dists(xb, x)
+
+    def cdist():
+        return torch.cdist(xb, x, compute_mode="use_mm_for_euclid_dist")
+
+    ms, lib_ms, ms2, lib_ms2 = (cuda_ms(fn, 10) for fn in (k4_run, cdist,
+                                                            k4_run, cdist))
     rows["K4"] = dict(
-        err=err, ms=cuda_ms(lambda: pairwise_sq_dists(xb, x), 10),
+        err=err, ms=ms, ms2=ms2, lib_ms=lib_ms, lib_ms2=lib_ms2,
         plain_ms=cuda_ms(lambda: pairwise_sq_dists_plain(xb, x), 5),
-        lib_ms=cuda_ms(lambda: torch.cdist(
-            xb, x, compute_mode="use_mm_for_euclid_dist"), 5),
-        bound=bound(2.0 * K4_ROWS * n * d,
-                    4.0 * (K4_ROWS * d + n * d + K4_ROWS * n)),
+        bound=tc_bound(K4_ROWS, n, d, 0,
+                       4.0 * (K4_ROWS * d + n * d + K4_ROWS * n)),
         shape=f"M={K4_ROWS} N={n} d={d} f32")
     for k, r in rows.items():
-        lib = f", torch.cdist {r['lib_ms']:.3f} ms" if "lib_ms" in r else ""
-        print(f"  {k} {r['shape']}: {r['ms']:.3f} ms per launch, plain "
-              f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound'][0]:.3f} ms "
-              f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.3f} of the bound")
+        lib = (f", torch.cdist {r['lib_ms']:.4f} / {r['lib_ms2']:.4f} ms "
+               f"(K4 / cdist {r['ms'] / r['lib_ms']:.3f})"
+               if "lib_ms" in r else "")
+        again = f" / {r['ms2']:.4f}" if "ms2" in r else ""
+        b_ms, by, f32_ms = r["bound"]
+        print(f"  {k} {r['shape']}: {r['ms']:.4f}{again} ms per launch, plain "
+              f"{r['plain_ms']:.3f} ms{lib}, bound {b_ms:.4f} ms ({by}; 3xTF32"
+              f" on the tensor cores), {b_ms / r['ms']:.3f} of it; float32 "
+              f"CUDA-core bound {f32_ms:.4f} ms, {f32_ms / r['ms']:.3f} of it")
     return dict(rows=rows, counts=counts)
 
 
@@ -1068,6 +1194,7 @@ def main() -> int:
     phase_build()
     phase_kernel_small()
     phase_k5_small()
+    gate = phase_gate()
     data = secstr_like(N_SECSTR, D_SECSTR, seed=3)
 
     reset_counts()
@@ -1076,6 +1203,7 @@ def main() -> int:
     check(main_counts["K1"] == 2 * EXACT_ITERS,
           f"main path launched K1 {main_counts['K1']} times, expected "
           f"{2 * EXACT_ITERS}")
+    check_tc_route(main_counts, ("K1",))
     after = phase_after(data, out)
 
     knn, graph = phase_knn(data, float(out["vdt"].sigma))
@@ -1094,6 +1222,7 @@ def main() -> int:
     print(f"  vdt grf path launches {vdt_counts}")
     check(vdt_counts["K1"] > 0 and vdt_counts["K5"] > 0,
           "vdt grf path: K1 or K5 not launched")
+    check_tc_route(vdt_counts, ("K1",))
     ops = phase_ops(out)
     phase_single_point()
     del out, data
@@ -1104,7 +1233,10 @@ def main() -> int:
     lm_f32_err, f32_counts = phase_lm_f32(lm.pop("params"))
     k6 = phase_k6_timing()
 
-    single = after["rows"][0]
+    single, batch8 = after["rows"]
+    tc = dict(tensor_core_route=TC_ROUTE,
+              headers=["src/repro_torch/kernels/csrc/tf32x3.cuh",
+                       "src/repro_torch/kernels/csrc/sm90.cuh"])
     kernels = [dict(
         name="K1 folded fused LP step", route="cuda",
         source="src/repro_torch/kernels/fused_lp/csrc/folded_lp.cu",
@@ -1113,7 +1245,11 @@ def main() -> int:
         ms=single["ms"], plain_ms=single["plain_ms"],
         bound_ms=single["bound_ms"], bound_by=single["by"], library_ms=None,
         shape=f"N={N_SECSTR} d={D_SECSTR} K={single['k']}",
-        batch8_ms=after["rows"][1]["ms"])]
+        ms2=single["ms2"],
+        launches_tf32x3=main_counts[f"K1 {TC_ROUTE}"],
+        batch8=dict(k=batch8["k"], ms=batch8["ms"], ms2=batch8["ms2"],
+                    plain_ms=batch8["plain_ms"], bound_ms=batch8["bound_ms"]),
+        gate={k: v for k, v in gate.items() if k.startswith("K1")}, **tc)]
     for k, name, source, replaces in (
             ("K2", "K2 fused LP matvec",
              "src/repro_torch/kernels/fused_lp/csrc/folded_lp.cu",
@@ -1130,7 +1266,10 @@ def main() -> int:
             launches=ops["counts"][k], max_abs_err=r["err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r.get("lib_ms"),
-            shape=r["shape"]))
+            shape=r["shape"],
+            launches_tf32x3=ops["counts"][f"{k} {TC_ROUTE}"], **tc,
+            **(dict(ms2=r["ms2"], library_ms2=r["lib_ms2"], gate=gate["K4"])
+               if k == "K4" else {})))
     r400 = next(r for r in k5["rows"] if r["m"] == 400 and r["k"] == 2)
     kernels.append(dict(
         name="K5 GRF walker-mean feature product", route="cuda",

@@ -11,9 +11,10 @@ without a card they raise instead of falling back (``_device.py``).
 
 Precision: float32 throughout, as in the reference.  Resolving a device sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False``, and the hand-written K1 kernel
-(``kernels/fused_lp/csrc/folded_lp.cu``) uses plain FP32 FMA: the distance
-cross-term ``|x|^2 + |y|^2 - 2 x.y`` cannot take TF32's rounding.
+``torch.backends.cudnn.allow_tf32 = False``: the distance cross-term
+``|x|^2 + |y|^2 - 2 x.y`` cannot take one TF32 product's rounding.  The
+hand-written K1-K4 put it on the tensor cores as three TF32 products of a
+split operand, which keeps float32 accuracy (``kernels/csrc/tf32x3.cuh``).
 """
 from repro_torch.core.convert import vdt_from_numpy
 from repro_torch.core.label_prop import ccr, one_hot_labels

@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` source has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/repro_torch/`` at
 the root of the checkout (listed in ``.gitignore``) at first use, and loaded
-with ``ctypes``.  The library's name carries a digest of the source and the
-flags, so an edited source builds anew and an unchanged one is reused.
+with ``ctypes``.  Sources include the shared headers of ``kernels/csrc/``
+(``INCLUDE_DIR``, passed as ``-I``).  The library's name carries a digest of
+the source, every header there and the flags, so an edited source or header
+builds anew and an unchanged one is reused.
 Sources build concurrently: each holds only its own lock.  Nothing here runs
 at import time.
 
@@ -29,10 +31,11 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "BuiltLibrary", "check_operand",
-           "launch", "load_library", "on_card"]
+__all__ = ["BUILD_DIR", "INCLUDE_DIR", "NVCC_FLAGS", "BuiltLibrary",
+           "check_operand", "digest", "launch", "load_library", "on_card"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"   # shared headers
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,17 +78,26 @@ def load_library(source: Path) -> BuiltLibrary:
         return _LOADED[source]
 
 
+def digest(source: Path, include_dir: Path = INCLUDE_DIR) -> str:
+    """The build's key: the source, every ``*.cuh`` in ``include_dir`` (name
+    and bytes) and the flags."""
+    h = hashlib.sha256(Path(source).read_bytes())
+    for header in sorted(Path(include_dir).glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _build(source: Path) -> BuiltLibrary:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}-{digest}.so"
+    out = BUILD_DIR / f"{source.stem}-{digest(source)}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(source)], capture_output=True, text=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR),
+                               "-o", str(tmp), str(source)],
+                              capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:

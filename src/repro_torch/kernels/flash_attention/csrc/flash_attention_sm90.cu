@@ -86,24 +86,22 @@
 // ping-ponging, and a TMA store of the output.
 //
 // The tensor maps are encoded on the host with libcuda's
-// cuTensorMapEncodeTiled, looked up in libcuda.so.1 with dlopen (the library
-// links only the CUDA runtime) and passed to the kernel as __grid_constant__
+// cuTensorMapEncodeTiled (../../csrc/sm90.cuh, which also holds the mbarrier,
+// TMA and wgmma helpers) and passed to the kernel as __grid_constant__
 // parameters.
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int BQ = 64;           // query rows per block: one wgmma M
 constexpr int BK = 64;           // keys per tile: the N of S = Q K^T
 constexpr int NCONS = 128;       // the consumer warpgroup
 constexpr int NT = NCONS + 32;   // and the producer warp
 constexpr float NEG_BIG = -1e30f;
-// error codes beside cudaError_t's (see cuda_error_string)
-constexpr int ERR_NO_ENCODER = -1, ERR_ENCODE = -2;
 
 template <int D>
 __host__ __device__ constexpr int stages() { return D == 64 ? 3 : 2; }
@@ -115,87 +113,6 @@ template <int D>
 __host__ __device__ constexpr int smem_bytes() {  // 1024 bytes of alignment slack, tiles, barriers
   return 1024 + BQ * D * 2 + 2 * stages<D>() * tile_bytes<D>() +
          (2 * stages<D>() + 1) * 8;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// a 64 x 64 box at (c0, c1, c2) of a 3-D tensor map into shared memory at
-// dst, completing `bar`'s transaction bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-// a wgmma shared-memory descriptor with the 128-byte swizzle
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
-         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pins registers an in-flight wgmma reads or writes: code after the wait
-// reads them only after it, and nothing reuses them before it.
-template <int N>
-__device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void hold(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // 2^x, with results below 2^-126 flushed to zero
@@ -384,7 +301,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(empty + 8 * s, NCONS);
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -393,7 +310,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_expect_tx(qbar, BQ * D * 2);
 #pragma unroll
       for (int c = 0; c < D / 64; ++c)
-        tma_load(sq + c * CHUNK, &qmap, qbar, 64 * c, q0, bh);
+        tma_load_3d(sq + c * CHUNK, &qmap, qbar, 64 * c, q0, bh);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % NS;
         if (it >= NS) mbar_wait(empty + 8 * s, (it / NS - 1) & 1);
@@ -401,10 +318,10 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         const int k0 = k_lo + it * BK;
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
-          tma_load(sk + s * TILE + c * CHUNK, &kmap, full + 8 * s, 64 * c, k0,
-                   bhk);
-          tma_load(sv + s * TILE + c * CHUNK, &vmap, full + 8 * s, 64 * c, k0,
-                   bhk);
+          tma_load_3d(sk + s * TILE + c * CHUNK, &kmap, full + 8 * s, 64 * c,
+                      k0, bhk);
+          tma_load_3d(sv + s * TILE + c * CHUNK, &vmap, full + 8 * s, 64 * c,
+                      k0, bhk);
         }
       }
     }
@@ -512,23 +429,6 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The 3-D map (D, S, heads) of a contiguous bfloat16 (heads, S, D) tensor:
 // 64 x 64 x 1 boxes with the 128-byte swizzle; rows past S read as zeros.
 int encode(CUtensorMap* map, const void* ptr, int D, int S, int heads) {
@@ -600,8 +500,5 @@ extern "C" int flash_attention_sm90(const void* q, const void* k,
 }
 
 extern "C" const char* cuda_error_string(int code) {
-  if (code == ERR_NO_ENCODER)
-    return "cuTensorMapEncodeTiled not found in libcuda.so.1";
-  if (code == ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
 }

@@ -48,7 +48,7 @@ def folded_step_plain(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
     points and their current labels; ``y0`` (M, K) the seed rows and
     ``alpha`` (K,) the per-column restart weight.  Returns (M, K).
     """
-    out = torch.empty((rows.shape[0], y.shape[1]), dtype=torch.float32,
+    out = torch.empty((rows.shape[0], y.shape[1]), dtype=y.dtype,
                       device=rows.device)
     for i0, i1, py in stream_rows(rows, cols, y, inv_two_sigma_sq, row_base,
                                   block_m, block_n):
@@ -67,7 +67,7 @@ def step_batched_perbatch_plain(x: torch.Tensor, y: torch.Tensor,
     each batch element streams the distance tiles anew; ``alpha`` is one
     float for the whole stack.
     """
-    out = torch.empty(y.shape, dtype=torch.float32, device=x.device)
+    out = torch.empty(y.shape, dtype=y.dtype, device=x.device)
     for b in range(y.shape[0]):
         for i0, i1, py in stream_rows(x, x, y[b], inv_two_sigma_sq, 0,
                                       block_m, block_n):

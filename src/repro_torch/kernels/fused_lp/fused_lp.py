@@ -6,7 +6,9 @@ label-propagation kernels run (the reference's ``stream_tile_update``), and
 ``fused_lp_matvec_kernel``): ``P @ Y`` with no eq.-15 epilogue.  The CUDA
 kernels in ``csrc/folded_lp.cu`` run the same recurrence with the same masks;
 this form is what the CPU path runs and what the kernels are held against on
-the card.
+the card.  The plain versions compute in the type of the labels ``y``:
+float32 on every path of the port, float64 for the float64 reference that
+the card's precision gate holds the kernels to.
 """
 from __future__ import annotations
 
@@ -85,9 +87,9 @@ def stream_rows(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
     for i0 in range(0, n_rows, block_m):
         i1 = min(i0 + block_m, n_rows)
         row_ids = row_base + torch.arange(i0, i1, device=dev)
-        m = torch.full((i1 - i0,), NEG_BIG, dtype=torch.float32, device=dev)
-        s = torch.zeros((i1 - i0,), dtype=torch.float32, device=dev)
-        acc = torch.zeros((i1 - i0, k), dtype=torch.float32, device=dev)
+        m = torch.full((i1 - i0,), NEG_BIG, dtype=y.dtype, device=dev)
+        s = torch.zeros((i1 - i0,), dtype=y.dtype, device=dev)
+        acc = torch.zeros((i1 - i0, k), dtype=y.dtype, device=dev)
         for j0 in range(0, n, block_n):
             j1 = min(j0 + block_n, n)
             m, s, acc = stream_tile_update(
@@ -103,7 +105,7 @@ def matvec_plain(x: torch.Tensor, y: torch.Tensor, inv_two_sigma_sq: float, *,
 
     The plain version of K2: the same online softmax, epilogue ``acc / s``.
     """
-    out = torch.empty(y.shape, dtype=torch.float32, device=x.device)
+    out = torch.empty(y.shape, dtype=y.dtype, device=x.device)
     for i0, i1, py in stream_rows(x, x, y, inv_two_sigma_sq, 0, block_m,
                                   block_n):
         out[i0:i1] = py

@@ -9,9 +9,13 @@ Wrappers of the three hand-written CUDA kernels in ``csrc/folded_lp.cu``:
   per-batch-recompute eq.-15 step over a ``(B, N, C)`` stack, one alpha.
 
 On a CUDA tensor each launches its kernel, counting the launch in its own
-``.launches``, or raises; none falls back.  On a CPU tensor each runs its
-plain-torch version (``batched.folded_step_plain``,
-``fused_lp.matvec_plain``, ``batched.step_batched_perbatch_plain``).
+``.launches`` and, under the route the entry point reports, in
+``.launches_by_route``, or raises; none falls back.  The route, ``"tf32x3"``,
+computes the distance tiles' cross term on Hopper's tensor cores as three
+TF32 products (``kernels/tf32x3.py``); the wrapper allocates the split pass's
+scratch.  On a CPU tensor each runs its plain-torch version
+(``batched.folded_step_plain``, ``fused_lp.matvec_plain``,
+``batched.step_batched_perbatch_plain``).
 
 The reference's public ops sit on top, with its signatures:
 ``fused_lp_matvec`` (K2), ``fused_lp_step_folded`` (K1),
@@ -36,6 +40,7 @@ from repro_torch.kernels.fused_lp.batched import (alpha_row, folded_step_plain,
                                                   step_batched_perbatch_plain)
 from repro_torch.kernels.fused_lp.fused_lp import (matvec_plain,
                                                    ref_padded_columns)
+from repro_torch.kernels.tf32x3 import count_route, split_scratch
 
 __all__ = ["KERNEL_SOURCE", "folded_step", "fused_lp_matvec",
            "fused_lp_matvec_batched", "fused_lp_scan_batched",
@@ -53,20 +58,42 @@ def kernel_library():
     lib = built.lib
     if lib.folded_lp_step.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.folded_lp_step.argtypes = [ptr] * 6 + [i32] * 5 + [f32, i32, ptr]
-        lib.fused_lp_matvec.argtypes = [ptr] * 3 + [i32] * 3 + [f32, i32, ptr]
-        lib.fused_lp_step_perbatch.argtypes = [ptr] * 4 + [i32] * 4 + [
-            f32, f32, i32, ptr]
+        out_i32 = ctypes.POINTER(ctypes.c_int)
+        lib.folded_lp_step.argtypes = [ptr] * 12 + [i32] * 6 + [
+            f32, i32, out_i32, ptr]
+        lib.fused_lp_matvec.argtypes = [ptr] * 6 + [i32] * 4 + [
+            f32, i32, out_i32, ptr]
+        lib.fused_lp_step_perbatch.argtypes = [ptr] * 7 + [i32] * 5 + [
+            f32, f32, i32, out_i32, ptr]
         for fn in (lib.folded_lp_step, lib.fused_lp_matvec,
                    lib.fused_lp_step_perbatch):
             fn.restype = ctypes.c_int
     return built
 
 
-def _launch(operands, out: torch.Tensor, fn_name: str, *args) -> None:
+def _launch(wrapper, operands, out: torch.Tensor, fn_name: str,
+            *args) -> None:
+    """Check the operands, launch ``fn_name`` and count the launch on
+    ``wrapper``, under the route the entry point reports."""
     for name, t, shape in operands:
         check_operand(name, t, shape, out.device)
-    launch(kernel_library(), fn_name, out.device, *args)
+    products = ctypes.c_int(0)
+    launch(kernel_library(), fn_name, out.device, *args,
+           ctypes.byref(products))
+    wrapper.launches += 1
+    count_route(wrapper, products)
+
+
+def _split(x: torch.Tensor):
+    """The split pass's scratch for ``x``: (hi, lo, norms), d_pad.  The caller
+    holds the tensors until the launch is enqueued; freed after it, their
+    memory goes only to work queued later on the same stream."""
+    hi, lo, nrm, d_pad = split_scratch(x)
+    return (hi, lo, nrm), d_pad
+
+
+def _ptrs(tensors):
+    return [t.data_ptr() for t in tensors]
 
 
 def folded_step(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
@@ -84,16 +111,23 @@ def folded_step(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
                                  row_base)
     (m, d), n, k = rows.shape, cols.shape[0], y.shape[1]
     out = torch.empty((m, k), dtype=torch.float32, device=rows.device)
-    _launch((("rows", rows, (m, d)), ("cols", cols, (n, d)), ("y", y, (n, k)),
+    row_scratch, d_pad = _split(rows)
+    # the rows are the columns (the scans' case): one split serves both
+    same = rows.data_ptr() == cols.data_ptr() and rows.shape == cols.shape
+    col_scratch = row_scratch if same else _split(cols)[0]
+    _launch(folded_step,
+            (("rows", rows, (m, d)), ("cols", cols, (n, d)), ("y", y, (n, k)),
              ("y0", y0, (m, k)), ("alpha", alpha, (k,))), out, "folded_lp_step",
             rows.data_ptr(), cols.data_ptr(), y.data_ptr(), y0.data_ptr(),
-            alpha.data_ptr(), out.data_ptr(), m, n, d, k, int(row_base),
+            alpha.data_ptr(), out.data_ptr(), *_ptrs(row_scratch),
+            *_ptrs(col_scratch), m, n, d, d_pad, k, int(row_base),
             float(inv_two_sigma_sq), ref_padded_columns(n))
-    folded_step.launches += 1
     return out
 
 
-folded_step.launches = 0  # kernel launches; the CPU path does not count
+# K1 launches, in all and by route; the CPU path does not count
+folded_step.launches = 0
+folded_step.launches_by_route = {"tf32x3": 0}
 
 
 def matvec_step(x: torch.Tensor, y: torch.Tensor,
@@ -106,14 +140,16 @@ def matvec_step(x: torch.Tensor, y: torch.Tensor,
         return matvec_plain(x, y, inv_two_sigma_sq)
     (n, d), c = x.shape, y.shape[1]
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
-    _launch((("x", x, (n, d)), ("y", y, (n, c))), out,
-            "fused_lp_matvec", x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
-            d, c, float(inv_two_sigma_sq), ref_padded_columns(n))
-    matvec_step.launches += 1
+    scratch, d_pad = _split(x)
+    _launch(matvec_step, (("x", x, (n, d)), ("y", y, (n, c))), out,
+            "fused_lp_matvec", x.data_ptr(), y.data_ptr(), out.data_ptr(),
+            *_ptrs(scratch), n, d, d_pad, c, float(inv_two_sigma_sq),
+            ref_padded_columns(n))
     return out
 
 
-matvec_step.launches = 0  # K2 launches
+matvec_step.launches = 0  # K2 launches, in all and by route
+matvec_step.launches_by_route = {"tf32x3": 0}
 
 
 def perbatch_step(x: torch.Tensor, y: torch.Tensor, y0: torch.Tensor,
@@ -128,16 +164,19 @@ def perbatch_step(x: torch.Tensor, y: torch.Tensor, y0: torch.Tensor,
                                            inv_two_sigma_sq)
     (n, d), (batch, _, c) = x.shape, y.shape
     out = torch.empty((batch, n, c), dtype=torch.float32, device=x.device)
-    _launch((("x", x, (n, d)), ("y", y, (batch, n, c)),
+    scratch, d_pad = _split(x)
+    _launch(perbatch_step,
+            (("x", x, (n, d)), ("y", y, (batch, n, c)),
              ("y0", y0, (batch, n, c))), out,
             "fused_lp_step_perbatch", x.data_ptr(), y.data_ptr(),
-            y0.data_ptr(), out.data_ptr(), batch, n, d, c, float(alpha),
-            float(inv_two_sigma_sq), ref_padded_columns(n))
-    perbatch_step.launches += 1
+            y0.data_ptr(), out.data_ptr(), *_ptrs(scratch), batch, n, d,
+            d_pad, c, float(alpha), float(inv_two_sigma_sq),
+            ref_padded_columns(n))
     return out
 
 
-perbatch_step.launches = 0  # K3 launches
+perbatch_step.launches = 0  # K3 launches, in all and by route
+perbatch_step.launches_by_route = {"tf32x3": 0}
 
 
 def _inv(sigma: float) -> float:

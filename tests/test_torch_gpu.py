@@ -30,6 +30,10 @@ RTOL, ATOL = 1e-4, 1e-5
 # recurrence and rounds p to bfloat16 as it does: elementwise rtol=atol, and
 # the RMS error of each 64-row block over the RMS of its output
 K6_BF16_PLAIN_TOL, K6_BLOCK_RMS = 1e-2, 1e-2
+# the precision gate that tells 3xTF32 from one TF32 product: a kernel's max
+# and RMS errors against float64 at most GATE_RATIO x the plain float32
+# version's, on dense Gaussian points at d = 315
+GATE_RATIO, GATE_D = 2.0, 315
 
 
 def _card():
@@ -48,6 +52,17 @@ def _assert_k6_bf16_matches_plain(got, want):
                 for t in (got.double() - want.double(), want.double()))
     ratio = err.norm(dim=-1) / ref.norm(dim=-1)
     assert float(ratio.max()) <= K6_BLOCK_RMS, float(ratio.max())
+
+
+def _assert_gate(got, plain, ref):
+    """K1-K4 against float64: no worse than 2 x the plain float32 version."""
+    def errors(t):
+        err = (t.double() - ref).abs()
+        return float(err.max()), float(err.square().mean().sqrt())
+
+    (k_max, k_rms), (p_max, p_rms) = errors(got), errors(plain)
+    assert k_max <= GATE_RATIO * p_max, (k_max, p_max)
+    assert k_rms <= GATE_RATIO * p_rms, (k_rms, p_rms)
 
 
 def _inputs(n, d, k, seed):
@@ -70,9 +85,11 @@ def test_cuda_kernel_matches_plain(n, d, k, row_base):
     rows, y0r = x[row_base:].contiguous(), y0[row_base:].contiguous()
     inv = 1.0 / (2.0 * d)
     before = folded_step.launches
+    on_route = folded_step.launches_by_route["tf32x3"]
     got = folded_step(rows, x, y, y0r, al, inv, row_base)
     torch.cuda.synchronize()
     assert folded_step.launches == before + 1
+    assert folded_step.launches_by_route["tf32x3"] == on_route + 1
     want = folded_step_plain(rows, x, y, y0r, al, inv, row_base)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     scan = fused_lp_scan_folded(x, y0, math.sqrt(d), al, 3)
@@ -90,9 +107,11 @@ def test_cuda_matvec_kernel_matches_plain(n, d, c):
     x, y, _, _ = (torch.as_tensor(v).cuda() for v in _inputs(n, d, c, seed=n))
     inv = 1.0 / (2.0 * d)
     before = matvec_step.launches
+    on_route = matvec_step.launches_by_route["tf32x3"]
     got = matvec_step(x, y, inv)
     torch.cuda.synchronize()
     assert matvec_step.launches == before + 1
+    assert matvec_step.launches_by_route["tf32x3"] == on_route + 1
     torch.testing.assert_close(got, matvec_plain(x, y, inv), rtol=RTOL,
                                atol=ATOL)
     ones = torch.ones((n, 1), device="cuda")
@@ -111,9 +130,11 @@ def test_cuda_perbatch_kernel_matches_plain(b, n, d, c):
              for _ in range(2))
     inv = 1.0 / (2.0 * d)
     before = perbatch_step.launches
+    on_route = perbatch_step.launches_by_route["tf32x3"]
     got = perbatch_step(x, y, y0, 0.3, inv)
     torch.cuda.synchronize()
     assert perbatch_step.launches == before + 1
+    assert perbatch_step.launches_by_route["tf32x3"] == on_route + 1
     torch.testing.assert_close(
         got, step_batched_perbatch_plain(x, y, y0, 0.3, inv), rtol=RTOL,
         atol=ATOL)
@@ -179,15 +200,50 @@ def test_cuda_pairwise_kernel_matches_plain(m, n, d, dtype):
     x = torch.as_tensor(r.randn(m, d).astype(np.float32)).to("cuda", dtype)
     y = torch.as_tensor(r.randn(n, d).astype(np.float32)).to("cuda", dtype)
     before = pairwise_sq_dists.launches
+    route = "tf32x3" if dtype == torch.float32 else "tf32x1_bf16"
+    on_route = pairwise_sq_dists.launches_by_route[route]
     got = pairwise_sq_dists(x, y)
     torch.cuda.synchronize()
     assert pairwise_sq_dists.launches == before + 1
+    assert pairwise_sq_dists.launches_by_route[route] == on_route + 1
     assert got.dtype == torch.float32
+    assert torch.equal(got, pairwise_sq_dists(x, y))
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got, pairwise_sq_dists_plain(x, y), rtol=tol,
                                atol=tol)
     torch.testing.assert_close(got, pairwise_sq_dists_ref(x, y), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_pairwise_kernel_precision_gate():
+    """K4 at the kNN block shape on Gaussian points, where one TF32 product
+    (not 3xTF32) would show: within 2 x float32's error against float64."""
+    _card()
+    r = np.random.RandomState(15)
+    x = torch.as_tensor(r.randn(2_048, GATE_D).astype(np.float32)).cuda()
+    y = torch.as_tensor(r.randn(83_679, GATE_D).astype(np.float32)).cuda()
+    xd, yd = x.double(), y.double()
+    ref = ((xd * xd).sum(1)[:, None] + (yd * yd).sum(1)[None, :]
+           - 2.0 * (xd @ yd.T)).clamp_min(0.0)
+    _assert_gate(pairwise_sq_dists(x, y), pairwise_sq_dists_plain(x, y), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 16])
+def test_cuda_kernel_precision_gate(k):
+    """K1 at N = 16,384 on Gaussian points with logits spanning tens of units
+    (1 / (2 sigma^2) = 0.1), against the plain recurrence in float64."""
+    _card()
+    r = np.random.RandomState(16 + k)
+    x = torch.as_tensor(r.randn(16_384, GATE_D).astype(np.float32)).cuda()
+    y = torch.as_tensor(r.rand(16_384, k).astype(np.float32)).cuda()
+    al = torch.as_tensor(r.rand(k).astype(np.float32)).cuda()
+    ref = folded_step_plain(x.double(), x.double(), y.double(), y.double(),
+                            al.double(), 0.1)
+    assert ref.dtype == torch.float64
+    _assert_gate(folded_step(x, x, y, y, al, 0.1),
+                 folded_step_plain(x, x, y, y, al, 0.1), ref)
 
 
 @pytest.mark.gpu
