@@ -6,15 +6,17 @@
 Phases (any failure exits non-zero):
 
 1. device and build: the card's name and power limit, and the five kernel
-   sources built at once with ``nvcc`` for ``sm_90a`` from the checkout, with
+   sources and K5's L2 probe built at once with ``nvcc`` for ``sm_90a`` from the checkout, with
    the shared headers of ``kernels/csrc`` (``fused_lp/csrc/folded_lp.cu``:
    K1 the folded exact LP step, K2 ``P @ Y``, K3 the per-batch-recompute
    step; ``pairwise/csrc/pairwise.cu``: K4; the four on Hopper's tensor
    cores as 3xTF32, ``kernels/csrc/tf32x3.cuh``;
    ``grf/csrc/grf_feature.cu``: K5 the GRF walker-mean feature product;
-   ``flash_attention/csrc/flash_attention.cu``: K6's float32 route on the
-   CUDA cores; ``flash_attention/csrc/flash_attention_sm90.cu``: K6's
-   bfloat16 route on the tensor cores), with their ``-Xptxas -v`` lines;
+   ``flash_attention/csrc/flash_attention_tf32x3.cu``: K6's float32 route,
+   3xTF32 on the tensor cores; ``flash_attention/csrc/flash_attention_sm90.cu``:
+   K6's bfloat16 route on the tensor cores; and ``tools/l2_gather_probe.cu``,
+   K5's L2 yardstick, no kernel of the port), with their ``-Xptxas -v``
+   lines;
 2. K1 against its plain-torch version on the card at small shapes: one
    step, a 5-step scan, a ``row_base`` stripe, and resume-from-carry equal to
    the monolithic scan bit for bit; K5 likewise, and a K = 16 column's bits
@@ -40,7 +42,11 @@ Phases (any failure exits non-zero):
    ``grf_label_propagate`` for 50 iterations with 64 and 400 walkers a point
    (5.36 M and 33.5 M walkers), one request and a batch of 8, every step
    through K5; held to the deterministic kNN walk, batched == solo and
-   repeat == first bit for bit; then K5's time at those shapes;
+   repeat == first bit for bit; then K5's time at those shapes, beside its
+   plain version and ``embedding_bag`` in turns, and the rate at which it
+   moves y's 32-byte sectors from L2 beside the L2's own rate for random
+   sectors (``tools/l2_gather_probe.cu`` on arrays of y's sizes, the
+   ``[L2 yardstick]`` line);
 6. the VDT entry point ``label_propagate(backend="grf")`` at validation size
    (``secstr_like(4_096, 315)``, dense ``grf_graph`` bridge) against
    ``backend="exact"``;
@@ -51,36 +57,43 @@ Phases (any failure exits non-zero):
    ``torch.cdist`` (yardstick only); and one point (N = 1, every column
    masked) through K1, K2 and K3;
 8. K6 (flash attention) against its plain version at small shapes, both
-   routes (float32: the FMA kernel; bfloat16: the tensor-core kernel), each
-   launch counted on its route: head widths 64, 128 and 256, GQA groups 1, 3
-   and 4, causal with and without a window, ragged S and bidirectional; two
-   launches equal bit for bit;
+   routes (float32: the 3xTF32 kernel, route ``sm90_tf32x3``; bfloat16: the
+   bf16 kernel, ``sm90_bf16``), each launch counted on its route: head widths
+   64, 128 and 256, GQA groups 1, 3 and 4, causal with and without a window,
+   ragged S and bidirectional; two launches equal bit for bit;
 9. the dense LM serving path at the full width of smollm-360m
    (``repro/configs/smollm_360m.py``: 32 layers, d_model 960, 15/5 heads of
    64, d_ff 2,560, vocab 49,152, bfloat16; seeded random weights): 4
-   requests of 2,048 prompt tokens through ``prefill`` (K6's tensor-core
-   route in every layer, no FMA launch), then 16 greedy ``decode_step``s;
+   requests of 2,048 prompt tokens through ``prefill`` (K6's bfloat16
+   route in every layer, no float32 launch), then 16 greedy
+   ``decode_step``s;
    decode logits held to ``lm_forward`` on S + 1 tokens at position S
    (``0.15``, the reference's own tolerance); K6's share of the prefill's
    device time;
-10. the same model in float32, one prefill through K6 (its FMA route in
+10. the same model in float32, one prefill through K6 (its 3xTF32 route in
    every layer) and one through K6's plain version, last-position logits at
    ``rtol=atol=2e-3``;
 11. K6 timed at smollm's attention shape (B = 4, 15/5 heads, S = 2,048,
    D = 64, causal) and at gemma3-1b's local layer (4/1 heads, D = 256,
-   window 1,024), each route at its type (bfloat16: tensor cores; float32:
-   FMA), beside its plain version, its bound and
-   ``scaled_dot_product_attention`` as the library yardstick.
+   window 1,024), each route at its type, beside its plain version, its
+   bound and ``scaled_dot_product_attention`` as the library yardstick, in
+   turns;
+12. K6's precision gate, which tells its float32 route's 3xTF32 from one
+   TF32 product: Gaussian q, k, v (numpy seed) at both timed shapes, the
+   kernel's max and RMS errors against the plain recurrence in float64 at
+   most 2 x the plain float32 version's.
 
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
-be on ``tf32x3``, the tensor-core route.  Prints the card (``nvidia-smi``),
+be on ``tf32x3``, the tensor-core route; every float32 K6 launch must be on
+``sm90_tf32x3``.  Prints the card (``nvidia-smi``),
 one JSON line with the kernel table, and as its last line ``{"ok": true,
 "device": {...}}``.  Tolerance:
 ``rtol=1e-4, atol=1e-5``, the reference package's own LP tolerance, for
 K1-K4 (``5e-2`` for K4 on bfloat16, as the reference's test); ``rtol=1e-5,
 atol=1e-6`` for K5, as the reference's ``test_feature_kernel_matches_ref``;
-``2e-4`` (float32) for K6, as the reference's flash-attention tests.  K6's
+``2e-4`` (float32) for K6, as the reference's flash-attention tests (its
+plain version repeats the kernel's tiles and recurrence, in float32).  K6's
 bfloat16 route is held to its plain version, which repeats its recurrence
 and rounds p to bfloat16 as it does, at ``rtol=atol=1e-2`` and, per block of
 64 query rows of one (b, h), an error of at most ``1e-2`` of the block's
@@ -124,6 +137,12 @@ K6_BF16_PLAIN_TOL, K6_BLOCK_RMS = 1e-2, 1e-2
 # float32 version's, max and RMS; K1's 1 / (2 sigma^2) on Gaussian d = 315
 GATE_SEED, GATE_N_K1, GATE_RATIO, GATE_INV_TSS = 15, 16_384, 2.0, 0.1
 TC_ROUTE = "tf32x3"          # K1-K4's tensor-core route
+K6_F32_ROUTE = "sm90_tf32x3"  # K6's float32 route: 3xTF32 on the tensor cores
+K6_ROUTES = {"float32": K6_F32_ROUTE, "bfloat16": "sm90_bf16"}
+K6_GATE_SEED = 16
+# K6's timed shapes: smollm-360m's attention and gemma3-1b's local layer
+K6_SHAPES = (("smollm-360m", 4, 15, 5, 2_048, 64, 0),
+             ("gemma3-1b local", 4, 4, 1, 2_048, 256, 1_024))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -179,7 +198,8 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Launches by kernel, and by route where a kernel has routes
-    (``K1 tf32x3``, ``K4 tf32x1_bf16``, ``K6 sm90_bf16``, ``K6 fma``, ...)."""
+    (``K1 tf32x3``, ``K4 tf32x1_bf16``, ``K6 sm90_bf16``, ``K6 sm90_tf32x3``,
+    ...)."""
     counts = {}
     for k, fn in counters().items():
         counts[k] = fn.launches
@@ -208,6 +228,13 @@ def tc_bound(m: int, n: int, d: int, k: int, nbytes: float) -> tuple:
     f32_ms = max(2.0 * m * n * (d + k) / PEAK_FP32_FLOPS, t_bytes) * 1e3
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", f32_ms)
+
+
+def k6_route_only(counts: dict, route: str, n: int) -> bool:
+    """``counts`` put ``n`` K6 launches on ``route`` and none on another."""
+    others = sum(v for k, v in counts.items()
+                 if k.startswith("K6 ") and k != f"K6 {route}")
+    return counts["K6"] == n and counts[f"K6 {route}"] == n and others == 0
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -252,9 +279,9 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.flash_attention.ops import \
-        kernel_library as lib_k6
-    from repro_torch.kernels.flash_attention.ops import \
         sm90_library as lib_k6_sm90
+    from repro_torch.kernels.flash_attention.ops import \
+        tf32x3_library as lib_k6
     from repro_torch.kernels.fused_lp import kernel_library as lib_k123
     from repro_torch.kernels.grf.ops import kernel_library as lib_k5
     from repro_torch.kernels.pairwise.ops import kernel_library as lib_k4
@@ -264,17 +291,34 @@ def phase_build():
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
-    names = ("K1-K3", "K4", "K5", "K6 fma", "K6 sm90_bf16")
+    names = ("K1-K3", "K4", "K5", f"K6 {K6_F32_ROUTE}", "K6 sm90_bf16",
+             "L2 yardstick")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(lambda f: f(), (lib_k123, lib_k4, lib_k5,
-                                               lib_k6, lib_k6_sm90)))
+                                               lib_k6, lib_k6_sm90,
+                                               l2_probe_library)))
     print(f"[build] {time.perf_counter() - t0:.2f} s for all sources")
     for name, lib in zip(names, built):
         print(f"  {name} {lib.path.name}: nvcc {lib.build_seconds:.2f} s")
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("    " + line.strip())
+
+
+def l2_probe_library():
+    """Build (at first use) and load ``tools/l2_gather_probe.cu``."""
+    import ctypes
+
+    from repro_torch.kernels._build import load_library
+
+    built = load_library(REPO / "tools" / "l2_gather_probe.cu")
+    fn = built.lib.l2_gather_probe
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return built
 
 
 def phase_kernel_small():
@@ -639,8 +683,47 @@ def phase_grf(out, knn, graph) -> None:
     check(ratio >= 2.0, f"grf error did not shrink with walkers: {ratio:.3f}")
 
 
+def l2_yardstick(n: int) -> list:
+    """The rate at which the card moves random 32- and 64-byte rows of an
+    L2-resident array, of y's sizes at K = 2 and 16, to the SMs
+    (``tools/l2_gather_probe.cu``): through L2 alone (``cg``) and through L1
+    and L2 as K5's loads go (``nc``); GB/s of 32-byte sectors, by case."""
+    import torch
+    from repro_torch.kernels._build import launch
+
+    built = l2_probe_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = 8 * sms, 256
+    sink = torch.empty(blocks * 256, device="cuda")
+    rows = []
+    for k, row_floats, l1 in ((2, 8, 0), (2, 8, 1), (16, 16, 0), (16, 16, 1),
+                              (16, 8, 0)):
+        y = torch.rand(n * k, device="cuda")       # y's bytes at this K
+        n_rows = y.numel() // row_floats
+
+        def probe():
+            launch(built, "l2_gather_probe", y.device, y.data_ptr(), n_rows,
+                   row_floats, l1, iters, sink.data_ptr(), blocks)
+
+        ms = cuda_ms(probe, 20)
+        sectors = blocks * 256.0 / (row_floats // 4) * iters \
+            * row_floats * 4 / 32
+        rate = sectors * 32 / ms / 1e6          # GB/s
+        path = "nc" if l1 else "cg"
+        print(f"[L2 yardstick] random {row_floats * 4}-byte rows of a "
+              f"{y.numel() * 4 / 1e6:.2f} MB array (y at K={k}), ld.global."
+              f"{path}: {ms:.4f} ms for {sectors / 1e6:.1f} M sectors, "
+              f"{rate:.0f} GB/s, {sectors / ms / 1e6:.2f} G sectors/s")
+        rows.append(dict(k=k, row_bytes=row_floats * 4, load=path,
+                         array_mb=y.numel() * 4 / 1e6, ms=ms,
+                         gb_per_s=rate))
+    return rows
+
+
 def phase_k5_timing(graph, out) -> dict:
-    """K5 at the GRF path's shapes, against its plain version and a library call."""
+    """K5 at the GRF path's shapes, against its plain version and a library
+    call (in turns), with the L2 sector rate it reaches beside the L2's own
+    rate for random sectors."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.matvec import fold_batch
@@ -650,6 +733,7 @@ def phase_k5_timing(graph, out) -> dict:
 
     print("[K5 at the GRF path's shapes: walkers after 3 steps]")
     n, rows = graph.n, []
+    yard = l2_yardstick(n)
     for m in (64, 400):
         pos, load, alive = start_state(n, m, graph.device)
         draw = default_draw(7, n * m, graph.device)
@@ -662,21 +746,38 @@ def phase_k5_timing(graph, out) -> dict:
             got = grf_feature_matvec(pos, load, y)
             err = close(got, grf_feature_plain(pos, load, y),
                         f"S={n} m={m} K={k}", K5_RTOL, K5_ATOL)[0]
+            check(torch.equal(got, grf_feature_matvec(pos, load, y)),
+                  f"K5 S={n} m={m} K={k}: two launches differ")
             call_ms = cuda_ms(lambda: grf_feature_matvec(pos, load, y), 20)
-            ms = graph_ms(lambda: grf_feature_matvec(pos, load, y), 20)
+
+            def kernel():
+                return graph_ms(lambda: grf_feature_matvec(pos, load, y), 20)
+
+            def library():
+                return graph_ms(lambda: F.embedding_bag(
+                    pos, y, per_sample_weights=load, mode="sum"), 20)
+
+            # kernel, library, kernel, library: compared only in one run
+            ms, lib_ms, ms2, lib_ms2 = kernel(), library(), kernel(), library()
             plain_ms = graph_ms(lambda: grf_feature_plain(pos, load, y), 3)
-            lib_ms = graph_ms(lambda: F.embedding_bag(
-                pos, y, per_sample_weights=load, mode="sum"), 20)
             bound_ms, by = bound(2.0 * n * m * k,
                                  n * m * 8.0 + n * k * 4.0 + n * k * 4.0)
-            print(f"  m={m} K={k}: K5 {ms:.4f} ms on the device ({call_ms:.4f}"
-                  f" ms per call with its host launch path), plain "
-                  f"{plain_ms:.3f} ms, embedding_bag {lib_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({by}), {bound_ms / ms:.3f} of the bound")
-            rows.append(dict(m=m, k=k, ms=ms, call_ms=call_ms,
+            # y's 32-byte sectors a walker's row spans, moved from L2
+            l2_bytes = n * m * (-(-4 * k // 32)) * 32.0
+            l2_rate = l2_bytes / ms / 1e6      # GB/s
+            print(f"  m={m} K={k}: K5 {ms:.4f} / {ms2:.4f} ms on the device "
+                  f"({call_ms:.4f} ms per call with its host launch path), "
+                  f"plain {plain_ms:.3f} ms, embedding_bag {lib_ms:.4f} / "
+                  f"{lib_ms2:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+                  f"{bound_ms / ms:.3f} of the bound; L2 sectors "
+                  f"{l2_bytes / 1e9:.3f} GB, {l2_rate:.0f} GB/s")
+            rows.append(dict(m=m, k=k, ms=ms, ms2=ms2, call_ms=call_ms,
                              plain_ms=plain_ms, lib_ms=lib_ms,
-                             bound_ms=bound_ms, by=by, err=err))
-    return dict(rows=rows, max_abs_err=max(r["err"] for r in rows))
+                             lib_ms2=lib_ms2, bound_ms=bound_ms, by=by,
+                             err=err, l2_gb=l2_bytes / 1e9,
+                             l2_gb_per_s=l2_rate))
+    return dict(rows=rows, max_abs_err=max(r["err"] for r in rows),
+                l2_yardstick=yard)
 
 
 def phase_vdt_grf() -> None:
@@ -874,9 +975,11 @@ def phase_k6_small() -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
-    print("[K6 vs plain, small shapes: float32 -> fma, bfloat16 -> sm90_bf16]")
+    print(f"[K6 vs plain, small shapes: float32 -> {K6_F32_ROUTE}, bfloat16 ->"
+          " sm90_bf16]")
     g = torch.Generator().manual_seed(6)
-    errs, ratios = {"fma": [], "sm90_bf16": []}, {"fma": [], "sm90_bf16": []}
+    errs = {route: [] for route in K6_ROUTES.values()}
+    ratios = {route: [] for route in K6_ROUTES.values()}
     for b, hq, hkv, s, d, causal, window in (
             (2, 3, 3, 64, 64, True, 0), (2, 3, 1, 65, 64, True, 16),
             (1, 15, 5, 130, 64, True, 0), (2, 4, 1, 97, 128, True, 0),
@@ -886,11 +989,12 @@ def phase_k6_small() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
                        for h in (hq, hkv, hkv))
-            route = "sm90_bf16" if dtype == torch.bfloat16 else "fma"
+            route = K6_ROUTES[str(dtype).split(".")[1]]
             before = dict(flash_attention.launches_by_route)
             got = flash_attention(q, k, v, causal=causal, window=window)
             after = flash_attention.launches_by_route
-            check(after[route] == before[route] + 1 and sum(after.values())
+            check(after.get(route, 0) == before.get(route, 0) + 1
+                  and sum(after.values())
                   == sum(before.values()) + 1,
                   f"K6 {dtype}: launched {after} after {before}, expected one "
                   f"launch on {route}")
@@ -948,11 +1052,9 @@ def phase_lm_serve() -> dict:
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_counts = read_counts()
-    check(prefill_counts["K6"] == cfg.n_layers
-          and prefill_counts["K6 sm90_bf16"] == cfg.n_layers
-          and prefill_counts["K6 fma"] == 0,
+    check(k6_route_only(prefill_counts, "sm90_bf16", cfg.n_layers),
           f"prefill launched K6 {prefill_counts}, expected {cfg.n_layers} "
-          "times on the tensor-core route and never on the FMA route")
+          "times on the bfloat16 route and never on another")
     check(tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab)
           and bool(torch.isfinite(logits.float()).all()), "prefill: bad logits")
     check(tuple(state.kv.k.shape) == (cfg.n_layers, LM_BATCH,
@@ -983,8 +1085,9 @@ def phase_lm_serve() -> dict:
     print(f"  cold prefill + 1 decode step (not counted): {cold_ms:.1f} ms")
     print(f"  prefill {LM_BATCH} x {LM_PROMPT} tokens: {prefill_ms:.1f} ms "
           f"({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} tokens/s), K6 "
-          f"launches {prefill_counts['K6']} (tensor cores "
-          f"{prefill_counts['K6 sm90_bf16']}, fma {prefill_counts['K6 fma']})"
+          f"launches {prefill_counts['K6']} (sm90_bf16 "
+          f"{prefill_counts['K6 sm90_bf16']}, {K6_F32_ROUTE} "
+          f"{prefill_counts[f'K6 {K6_F32_ROUTE}']})"
           f"; decode {DECODE_SLACK} greedy "
           f"steps: {decode_ms:.2f} ms per step ({LM_BATCH / decode_ms * 1e3:.0f}"
           f" tokens/s; steps between device events: min {min(step_ms):.2f}, "
@@ -1017,9 +1120,10 @@ def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             name = e.key
-            # K6's two kernels: flash_attention_kernel (fma) and
-            # flash_attention_sm90_kernel (tensor cores)
-            kind = ("K6" if "flash_attention" in name else
+            # K6's kernels: flash_attention_tf32x3_kernel and its
+            # prepare_kv_kernel (float32), flash_attention_sm90_kernel
+            kind = ("K6" if "flash_attention" in name
+                    or "prepare_kv" in name else
                     "matmul" if any(w in name.lower() for w in (
                         "gemm", "gemv", "cutlass", "xmma", "nvjet"))
                     else "other")
@@ -1065,7 +1169,7 @@ def _leaves(tree):
 
 
 def phase_lm_f32(params) -> tuple[float, dict]:
-    """The same model in float32: one prefill through K6 (its FMA route,
+    """The same model in float32: one prefill through K6 (its 3xTF32 route,
     counted from 0), one through K6's plain version (swapped into the
     attention module for that call); returns the logits' max error and the
     K6 prefill's launch counts."""
@@ -1089,9 +1193,9 @@ def phase_lm_f32(params) -> tuple[float, dict]:
     k6_s = time.perf_counter() - t0
     counts = read_counts()
     before = flash_attention.launches
-    check(counts["K6"] == cfg.n_layers and counts["K6 fma"] == cfg.n_layers,
+    check(k6_route_only(counts, K6_F32_ROUTE, cfg.n_layers),
           f"f32 prefill launched K6 {counts}, expected once per layer on "
-          "the FMA route")
+          f"{K6_F32_ROUTE} and never on another route")
     attention.flash_attention = flash_attention_plain
     try:
         t0 = time.perf_counter()
@@ -1110,9 +1214,9 @@ def phase_lm_f32(params) -> tuple[float, dict]:
 
 def phase_k6_timing() -> list:
     """K6 at the LM path's attention shapes, each route at its type (bfloat16:
-    the tensor-core kernel; float32: the FMA kernel), against its plain
-    version, its bound and ``scaled_dot_product_attention`` (yardstick
-    only)."""
+    the bf16 tensor-core kernel; float32: the 3xTF32 one), against its plain
+    version, its bound and ``scaled_dot_product_attention`` (yardstick only),
+    kernel and SDPA in turns."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -1123,16 +1227,14 @@ def phase_k6_timing() -> list:
     rows = []
     for (name, b, hq, hkv, s, d, window), dtype in (
             (shape, dtype) for dtype in (torch.bfloat16, torch.float32)
-            for shape in (("smollm-360m", 4, 15, 5, 2_048, 64, 0),
-                          ("gemma3-1b local", 4, 4, 1, 2_048, 256, 1_024))):
-        route = "sm90_bf16" if dtype == torch.bfloat16 else "fma"
+            for shape in K6_SHAPES):
         tname = str(dtype).split(".")[1]
-        tol = K6_TOL[tname]
+        route, tol = K6_ROUTES[tname], K6_TOL[tname]
         q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
                    for h in (hq, hkv, hkv))
-        before = flash_attention.launches_by_route[route]
+        before = flash_attention.launches_by_route.get(route, 0)
         got = flash_attention(q, k, v, window=window)
-        check(flash_attention.launches_by_route[route] == before + 1,
+        check(flash_attention.launches_by_route.get(route, 0) == before + 1,
               f"K6 {tname} did not launch on {route}")
         err, ratio = close_k6(got, flash_attention_plain(q, k, v, True,
                                                          window),
@@ -1158,22 +1260,58 @@ def phase_k6_timing() -> list:
                                                          window), 3)
         flops, nbytes = attention_work(b, hq, hkv, s, d, window,
                                        q.element_size())
-        # bfloat16 on the tensor cores; float32 on the CUDA cores (the FMA
-        # route keeps float32 arithmetic, so TF32 is not its peak)
-        bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS
-                             if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+        # bfloat16: one product on the tensor cores; float32: three TF32
+        # products on the tensor cores, with the CUDA cores' bound beside
+        if dtype == torch.bfloat16:
+            bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            f32_ms = None
+            extra = ""
+        else:
+            bound_ms, by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+            f32_ms = bound(flops, nbytes, PEAK_FP32_FLOPS)[0]
+            extra = (f"; float32 CUDA-core bound {f32_ms:.4f} ms, "
+                     f"{f32_ms / ms:.4f} of it")
         print(f"  {name} {tname} B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
               f"window={window}: K6 ({route}) {ms:.4f} / {ms2:.4f} ms per "
               f"launch ({flops / ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} / {lib_ms2:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({by}), {bound_ms / ms:.4f} of the "
-              f"bound, K6 / SDPA {ms / lib_ms:.3f}")
+              f"bound{extra}, K6 / SDPA {ms / lib_ms:.3f}")
         rows.append(dict(name=name, route=route, shape=f"B={b} Hq={hq} "
                          f"Hkv={hkv} S={s} D={d} window={window} {tname}",
                          ms=ms, ms2=ms2, plain_ms=plain_ms, lib_ms=lib_ms,
-                         lib_ms2=lib_ms2, bound_ms=bound_ms, by=by, err=err,
-                         block_rms=ratio))
+                         lib_ms2=lib_ms2, bound_ms=bound_ms, by=by,
+                         f32_bound_ms=f32_ms, err=err, block_rms=ratio))
     return rows
+
+
+def phase_k6_gate() -> dict:
+    """K6's float32 route against the plain recurrence in float64 on Gaussian
+    q, k, v at both timed shapes, beside the plain float32 version: the gate
+    that tells 3xTF32 from one TF32 product."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the plain float32 version needs float32 matrix products")
+    print(f"[K6 precision gate] Gaussian q, k, v, seed {K6_GATE_SEED}: float32"
+          f" kernel vs float64 within {GATE_RATIO} x the plain float32 "
+          "version's error")
+    rng = np.random.RandomState(K6_GATE_SEED)
+    out = {}
+    for name, b, hq, hkv, s, d, window in K6_SHAPES:
+        q, k, v = (torch.as_tensor(rng.randn(b, h, s, d).astype(np.float32),
+                                   device="cuda") for h in (hq, hkv, hkv))
+        ref = flash_attention_plain(q.double(), k.double(), v.double(), True,
+                                    window)
+        out[name] = gate_check(f"K6 f32 {name}", flash_attention(
+            q, k, v, window=window), flash_attention_plain(q, k, v, True,
+                                                           window), ref)
+    failed = [k for k, v in out.items() if not v["ok"]]
+    check(not failed, f"K6 precision gate failed for {failed}: error over "
+                      f"{GATE_RATIO} x the plain float32 version's")
+    return out
 
 
 def main() -> int:
@@ -1232,6 +1370,7 @@ def main() -> int:
     lm_counts = lm["counts"]
     lm_f32_err, f32_counts = phase_lm_f32(lm.pop("params"))
     k6 = phase_k6_timing()
+    k6_gate = phase_k6_gate()
 
     single, batch8 = after["rows"]
     tc = dict(tensor_core_route=TC_ROUTE,
@@ -1279,22 +1418,26 @@ def main() -> int:
         ms=r400["ms"], plain_ms=r400["plain_ms"], bound_ms=r400["bound_ms"],
         bound_by=r400["by"], library_ms=r400["lib_ms"],
         shape=f"S={N_SECSTR} m=400 K=2",
-        call_ms=r400["call_ms"],
+        call_ms=r400["call_ms"], ms2=r400["ms2"],
+        l2_gb_per_s=r400["l2_gb_per_s"],
+        l2_yardstick=k5["l2_yardstick"],
         by_shape={f"m={r['m']} K={r['k']}": dict(
-            ms=r["ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
-            library_ms=r["lib_ms"], bound_ms=r["bound_ms"])
+            ms=r["ms"], ms2=r["ms2"], call_ms=r["call_ms"],
+            plain_ms=r["plain_ms"], library_ms=r["lib_ms"],
+            library_ms2=r["lib_ms2"], bound_ms=r["bound_ms"],
+            l2_gb=r["l2_gb"], l2_gb_per_s=r["l2_gb_per_s"])
             for r in k5["rows"]}))
     # K6: one entry per route, each timed at smollm-360m's shape in its type;
-    # launches are the bf16 prefill's (tensor cores) and the f32 twin's (FMA)
+    # launches are the bf16 prefill's and the f32 twin's
     k6_dir = "src/repro_torch/kernels/flash_attention/csrc/"
     k6_sources = {"sm90_bf16": k6_dir + "flash_attention_sm90.cu",
-                  "fma": k6_dir + "flash_attention.cu"}
+                  K6_F32_ROUTE: k6_dir + "flash_attention_tf32x3.cu"}
     prefill_share = lm["profile"].get("prefill", {})
     for route, name, launches in (
             ("sm90_bf16", "K6 flash attention, bfloat16 (tensor cores)",
              lm_counts["K6 sm90_bf16"]),
-            ("fma", "K6 flash attention, float32 (FMA)",
-             f32_counts["K6 fma"])):
+            (K6_F32_ROUTE, "K6 flash attention, float32 (3xTF32 tensor "
+             "cores)", f32_counts[f"K6 {K6_F32_ROUTE}"])):
         rows = [r for r in k6 if r["route"] == route]
         kernels.append(dict(
             name=name, route="cuda", source=k6_sources[route],
@@ -1310,6 +1453,7 @@ def main() -> int:
                                       library_ms=r["lib_ms"],
                                       library_ms2=r["lib_ms2"],
                                       bound_ms=r["bound_ms"],
+                                      f32_bound_ms=r["f32_bound_ms"],
                                       max_abs_err=r["err"],
                                       max_block_rms=r["block_rms"],
                                       shape=r["shape"]) for r in rows},
@@ -1318,7 +1462,9 @@ def main() -> int:
                     prefill_device_ms=prefill_share.get("total"),
                     prefill_k6_device_ms=prefill_share.get("K6"))
                if route == "sm90_bf16" else
-               dict(lm_f32_logits_max_abs_err=lm_f32_err))))
+               dict(lm_f32_logits_max_abs_err=lm_f32_err, gate=k6_gate,
+                    tensor_core_route=K6_F32_ROUTE,
+                    headers=tc["headers"]))))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

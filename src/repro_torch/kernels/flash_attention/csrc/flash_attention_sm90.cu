@@ -11,8 +11,8 @@
 // (one fused multiply-add), l = l * alpha + sum p, acc = acc * alpha +
 // bf16(p) v; m starts at -1e30, so a masked p is 0 and alpha is never
 // 2^(inf - inf); the output is acc / max(l, 1e-38), rounded to bfloat16
-// once.  m, l and acc are float32.  The float32 route stays on the CUDA-core
-// kernel csrc/flash_attention.cu.
+// once.  m, l and acc are float32.  The float32 route is
+// flash_attention_tf32x3.cu, 3xTF32 on the tensor cores.
 //
 // Deliberate departure from the reference's arithmetic: p is rounded to
 // bfloat16 before the p v product (the tensor cores take bfloat16 operands),
@@ -57,9 +57,9 @@
 //     N-major B operand (the transpose bit), so it is never transposed in
 //     memory: LBO is the 64-column chunk stride (BK x 128 bytes), SBO 1024
 //     bytes, a k-step of 16 keys advances 2048 bytes.
-//   * Tiles wholly masked for the block are skipped, as in the float32
-//     kernel: up to the diagonal when causal, from q0 - window + 1 with a
-//     window; on a skipped tile a row's p would all be 0, so no bit changes.
+//   * Tiles wholly masked for the block are skipped: up to the diagonal
+//     when causal, from q0 - window + 1 with a window; on a skipped tile a
+//     row's p would all be 0, so no bit changes.
 //     Query tiles go out last-first over every (b, h), so the long causal
 //     rows start in the first wave.
 //   * Shared memory: 64 D 2 + NS 2 (64 D 2) bytes, NS = 3 at D = 64 (56 KB,

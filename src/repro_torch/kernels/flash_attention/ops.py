@@ -5,18 +5,23 @@ picked by the operands' type:
 
 - bfloat16, the served models' type: ``csrc/flash_attention_sm90.cu``, on
   Hopper's tensor cores (``wgmma``, K/V staged by TMA), route ``"sm90_bf16"``;
-- float32: ``csrc/flash_attention.cu``, FP32 FMA on the CUDA cores, route
-  ``"fma"``.
+- float32: ``csrc/flash_attention_tf32x3.cu``, also on the tensor cores,
+  float32-accurate as three TF32 products of split operands (3xTF32, the
+  scheme of K1-K4, ``kernels/csrc/tf32x3.cuh``), route ``"sm90_tf32x3"``.
+  One launch of its entry point runs a pre-pass that writes the split K and
+  the split, transposed V (TF32 ``wgmma`` takes only K-major operands) into
+  scratch this wrapper allocates, then the attention kernel.  The entry point
+  reports the TF32 products a product takes, and the launch is counted under
+  ``"sm90_tf32x<products>"``, so a build with one product shows off the route.
 
 On CUDA tensors it launches one of them, counting the launch in
 ``flash_attention.launches`` and in ``flash_attention.launches_by_route``, or
-raises; it never falls back, and a bfloat16 tensor never reaches the FMA
-kernel.  On CPU tensors it runs the plain version
-``flash_attention.flash_attention_plain``, which walks the tiles of the route
-the operands' type selects.  Both kernels take head widths 64, 128 and 256,
-those of the ported dense configurations, with q, k and v of one type.  The
-reference's ``block_q``/``block_k`` arguments are TPU tile sizes and are not
-taken: the kernels' tiles are fixed (``kv_tile``).
+raises; it never falls back.  On CPU tensors it runs the plain version
+``flash_attention.flash_attention_plain``, which walks the kernels' tiles and
+recurrence.  Both kernels take head widths 64, 128 and 256, those of the
+ported dense configurations, with q, k and v of one type.  The reference's
+``block_q``/``block_k`` arguments are TPU tile sizes and are not taken: the
+kernels' tiles are fixed (``KV_TILE``).
 """
 from __future__ import annotations
 
@@ -28,26 +33,26 @@ import torch
 from repro_torch.kernels._build import (check_operand, launch, load_library,
                                         on_card)
 from repro_torch.kernels.flash_attention.flash_attention import (
-    LOG2E, flash_attention_plain)
+    KV_TILE, LOG2E, flash_attention_plain)
 
-__all__ = ["HEAD_DIMS", "KERNEL_SOURCE", "SM90_SOURCE", "flash_attention",
-           "kernel_library", "sm90_library"]
+__all__ = ["HEAD_DIMS", "SM90_SOURCE", "TF32X3_SOURCE", "flash_attention",
+           "sm90_library", "tf32x3_library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCE = _CSRC / "flash_attention.cu"        # float32, route "fma"
-SM90_SOURCE = _CSRC / "flash_attention_sm90.cu"     # bfloat16, "sm90_bf16"
+SM90_SOURCE = _CSRC / "flash_attention_sm90.cu"       # bfloat16, "sm90_bf16"
+TF32X3_SOURCE = _CSRC / "flash_attention_tf32x3.cu"   # float32, "sm90_tf32x3"
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def kernel_library():
-    """Build (at first use) and load the float32 kernel; returns a
-    ``_build.BuiltLibrary``."""
-    built = load_library(KERNEL_SOURCE)
-    fn = built.lib.flash_attention
+def tf32x3_library():
+    """Build (at first use) and load the float32 tensor-core kernel; returns
+    a ``_build.BuiltLibrary``."""
+    built = load_library(TF32X3_SOURCE)
+    fn = built.lib.flash_attention_tf32x3
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return built
 
@@ -95,22 +100,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operand("k", k, (b, hkv, s, d), q.device, _DTYPES)
     check_operand("v", v, (b, hkv, s, d), q.device, _DTYPES)
     out = torch.empty_like(q)
+    scale_log2 = float(d) ** -0.5 * LOG2E
     if q.dtype == torch.bfloat16:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
         route = "sm90_bf16"
         launch(sm90_library(), "flash_attention_sm90", q.device, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
-               int(bool(causal)), int(window), float(d) ** -0.5 * LOG2E)
+               int(bool(causal)), int(window), scale_log2)
     else:
-        route = "fma"
-        launch(kernel_library(), "flash_attention", q.device, q.data_ptr(),
-               k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
-               int(bool(causal)), int(window), float(d) ** -0.5)
+        q = _aligned(q)
+        # the pre-pass's output: split K (B, Hkv, S, D), split V^T
+        # (B, Hkv, D, S rounded up to the 64-key tile)
+        khi, klo = torch.empty_like(k), torch.empty_like(k)
+        vthi = torch.empty((b, hkv, d, -(-s // KV_TILE) * KV_TILE),
+                           dtype=torch.float32, device=q.device)
+        vtlo = torch.empty_like(vthi)
+        products = ctypes.c_int(0)
+        launch(tf32x3_library(), "flash_attention_tf32x3", q.device,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               khi.data_ptr(), klo.data_ptr(), vthi.data_ptr(),
+               vtlo.data_ptr(), b, hq, hkv, s, d, int(bool(causal)),
+               int(window), scale_log2, ctypes.addressof(products))
+        route = f"sm90_tf32x{products.value}"
     flash_attention.launches += 1
-    flash_attention.launches_by_route[route] += 1
+    by_route = flash_attention.launches_by_route
+    by_route[route] = by_route.get(route, 0) + 1
     return out
 
 
 # K6 launches, in all and by route; the CPU path does not count
 flash_attention.launches = 0
-flash_attention.launches_by_route = {"sm90_bf16": 0, "fma": 0}
+flash_attention.launches_by_route = {"sm90_bf16": 0, "sm90_tf32x3": 0}

@@ -7,10 +7,12 @@ reference's ``repro.kernels.flash_attention.flash_attention`` (the Pallas
 kernel, interpreted off the TPU, as ``tests/test_kernels.py`` runs it) and
 against ``flash_attention_ref``, on the same numpy inputs and the shapes of
 the reference's own tests, at the reference's tolerances: ``2e-4`` in
-float32, ``5e-2`` in bfloat16.  In bfloat16 the plain version walks the
-tensor-core route's recurrence (64-key tiles at every head width, the scale
-on the float32 logits, ``exp2``, p rounded to bfloat16 before ``p @ v``).  The
-CUDA kernels themselves run only on a card (``tests/test_torch_gpu.py``).
+float32, ``5e-2`` in bfloat16.  The plain version walks the recurrence of
+both tensor-core kernels (64-key tiles at every head width, the scale on the
+float32 logits, ``exp2``), and in bfloat16 rounds p to bfloat16 before
+``p @ v``.  The CUDA kernels themselves run only on a card
+(``tests/test_torch_gpu.py``); the float32 kernel's 3xTF32 arithmetic is
+emulated in ``tests/test_torch_tf32_split.py``.
 """
 import math
 
@@ -23,7 +25,7 @@ from repro.kernels.flash_attention import flash_attention as r_flash
 from repro.kernels.flash_attention import flash_attention_ref as r_flash_ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
-                                                 flash_attention_ref, kv_tile)
+                                                 flash_attention_ref, KV_TILE)
 
 
 def _qkv(seed, b, hq, hkv, s, d, dtype=np.float32):
@@ -89,7 +91,7 @@ def test_cpu_tensors_run_the_plain_version_and_do_not_count():
     assert torch.equal(flash_attention(tq, tk, tv, window=5),
                        flash_attention_plain(tq, tk, tv, window=5))
     assert flash_attention.launches == before
-    assert [kv_tile(d) for d in (64, 128, 256)] == [64, 64, 32]
+    assert KV_TILE == 64
 
 
 def test_other_devices_raise():
@@ -116,6 +118,52 @@ def test_plain_bf16_recurrence_matches_reference_kernel(b, hq, hkv, s, d,
     _close(got, flash_attention_ref(tq, tk, tv, window=window).float(), 5e-2)
 
 
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (1, 2, 2, 64, 64, 0), (2, 3, 1, 97, 64, 16), (1, 3, 1, 80, 128, 0),
+    (1, 6, 2, 130, 128, 40), (1, 2, 1, 72, 256, 0), (1, 3, 1, 100, 256, 24)])
+def test_plain_f32_recurrence_matches_reference_kernel(b, hq, hkv, s, d,
+                                                       window):
+    """The float32 route's tile walk (64-key tiles, the scale on the float32
+    logits, ``exp2``) against the reference's kernel and both oracles at the
+    reference's float32 tolerance, 2e-4: head widths 64, 128 and 256, GQA
+    ratios 1, 2 and 3, windows narrower than the tile, ragged S."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s * d + window + 1, b, hq, hkv,
+                                            s, d))
+    got = flash_attention(tq, tk, tv, window=window)
+    assert got.dtype == torch.float32 and got.shape == tq.shape
+    _close(got, r_flash(jq, jk, jv, window=window, block_q=32, block_k=32),
+           2e-4)
+    _close(got, r_flash_ref(jq, jk, jv, window=window), 2e-4)
+    _close(got, flash_attention_ref(tq, tk, tv, window=window), 2e-4)
+
+
+@pytest.mark.parametrize("s,d,window", [(65, 64, 0), (33, 128, 0),
+                                        (97, 256, 7), (130, 64, 63)])
+def test_plain_f32_non_causal_ragged_matches_oracle(s, d, window):
+    """``causal=False`` at a ragged S, in float32, against ``ref.py`` only
+    (the reference kernel pads keys into the softmax there)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s + d + 1, 1, 3, 1, s, d))
+    got = flash_attention(tq, tk, tv, causal=False, window=window)
+    _close(got, r_flash_ref(jq, jk, jv, causal=False, window=window), 2e-4)
+    _close(got, flash_attention_ref(tq, tk, tv, causal=False,
+                                    window=window), 2e-4)
+
+
+def test_plain_float64_is_the_gate_reference():
+    """float64 operands walk the same recurrence in float64 (the card's
+    precision gate holds the float32 kernel to it): far closer to the naive
+    float64 attention than float32 is."""
+    q, k, v = (torch.as_tensor(a).double() for a in _qkv(2, 1, 2, 1, 150,
+                                                         64))
+    got = flash_attention_plain(q, k, v, window=40)
+    assert got.dtype == torch.float64
+    logits = (q @ k.transpose(-1, -2)) * 64 ** -0.5
+    i, j = torch.arange(150)[:, None], torch.arange(150)[None, :]
+    logits = logits.masked_fill(~((j <= i) & (i - j < 40)), float("-inf"))
+    want = torch.softmax(logits, -1) @ v
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("s,d,window", [(65, 64, 0), (33, 128, 0),
                                         (97, 256, 7), (130, 64, 63)])
 def test_plain_bf16_non_causal_ragged_matches_oracle(s, d, window):
@@ -134,7 +182,7 @@ def test_plain_bf16_one_tile_is_softmax_with_p_rounded(d):
     """At S <= 64 the bfloat16 route is one tile: t = (q k^T) D^-1/2 log2 e,
     p = 2^(t - max t), out = bf16(p) v / sum p, computed here in float64 from
     the same bfloat16 inputs; the kernel's tile is 64 keys at every width."""
-    assert kv_tile(d, torch.bfloat16) == 64
+    assert KV_TILE == 64
     tq, tk, tv = (torch.as_tensor(a).to(torch.bfloat16)
                   for a in _qkv(d, 1, 2, 1, 40, d))
     got = flash_attention(tq, tk, tv, causal=False)

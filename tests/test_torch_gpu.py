@@ -332,7 +332,8 @@ def test_cuda_flash_attention_sm90_route(b, hq, hkv, s, d, causal, window):
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches_by_route == {
-        "sm90_bf16": routes["sm90_bf16"] + 1, "fma": routes["fma"]}
+        "sm90_bf16": routes["sm90_bf16"] + 1,
+        "sm90_tf32x3": routes["sm90_tf32x3"]}
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     _assert_k6_bf16_matches_plain(
         got, flash_attention_plain(q, k, v, causal, window))
@@ -345,7 +346,7 @@ def test_cuda_flash_attention_sm90_route(b, hq, hkv, s, d, causal, window):
 
 @pytest.mark.gpu
 def test_cuda_flash_attention_routes_by_dtype():
-    """float32 goes to the FMA kernel, bfloat16 to the tensor-core kernel;
+    """float32 goes to the 3xTF32 kernel, bfloat16 to the bfloat16 kernel;
     ``launches`` counts both."""
     _card()
     q = torch.randn(1, 2, 70, 64, device="cuda")
@@ -356,7 +357,8 @@ def test_cuda_flash_attention_routes_by_dtype():
     flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), causal=False)
     assert flash_attention.launches == before + 3
     assert flash_attention.launches_by_route == {
-        "sm90_bf16": routes["sm90_bf16"] + 2, "fma": routes["fma"] + 1}
+        "sm90_bf16": routes["sm90_bf16"] + 2,
+        "sm90_tf32x3": routes["sm90_tf32x3"] + 1}
 
 
 @pytest.mark.gpu
@@ -394,3 +396,97 @@ def test_cuda_flash_attention_sm90_rejects_what_it_does_not_take():
         flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, q, q, window=-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 1, 1, 64, 64, True, 0), (2, 3, 1, 33, 64, True, 0),
+    (1, 4, 1, 130, 64, False, 0), (2, 3, 3, 200, 64, True, 16),
+    (1, 6, 2, 257, 64, True, 63), (1, 2, 1, 1100, 64, True, 1024),
+    (1, 2, 2, 64, 128, False, 0), (2, 3, 1, 97, 128, True, 63),
+    (1, 8, 2, 300, 128, True, 1024), (1, 4, 4, 33, 128, False, 16),
+    (1, 1, 1, 64, 256, True, 0), (1, 3, 1, 130, 256, True, 16),
+    (2, 4, 1, 70, 256, False, 63), (1, 4, 1, 1100, 256, True, 1024)])
+def test_cuda_flash_attention_tf32x3_route(b, hq, hkv, s, d, causal, window):
+    """K6's float32 route (3xTF32 on the tensor cores) against its plain
+    version and the naive oracle at the reference's float32 tolerance,
+    2e-4: head widths 64, 128 and 256; GQA ratios 1, 3 and 4; causal and
+    not; windows of 16, BK - 1 = 63 and 1,024; S below, at and past the
+    64-key tile and the 128-row block.  One launch, counted on
+    ``sm90_tf32x3`` alone; a second launch equal to the first bit for bit."""
+    _card()
+    r = np.random.RandomState(11 * s + d)
+    q, k, v = (torch.as_tensor(r.randn(b, h, s, d).astype(np.float32))
+               .cuda() for h in (hq, hkv, hkv))
+    routes = dict(flash_attention.launches_by_route)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {
+        "sm90_bf16": routes["sm90_bf16"],
+        "sm90_tf32x3": routes["sm90_tf32x3"] + 1}
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    for want in (flash_attention_plain(q, k, v, causal, window),
+                 flash_attention_ref(q, k, v, causal, window)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,s,d,window", [(15, 5, 2_048, 64, 0),
+                                               (4, 1, 2_048, 256, 1_024)])
+def test_cuda_flash_attention_tf32x3_precision_gate(hq, hkv, s, d, window):
+    """K6's float32 route at the LM path's shapes (smollm-360m, gemma3-1b's
+    local layer) on Gaussian q, k, v, against the plain recurrence in float64:
+    within 2 x the plain float32 version's error, which one TF32 product
+    (not 3xTF32) would fail."""
+    _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    r = np.random.RandomState(s + d)
+    q, k, v = (torch.as_tensor(r.randn(2, h, s, d).astype(np.float32))
+               .cuda() for h in (hq, hkv, hkv))
+    ref = flash_attention_plain(q.double(), k.double(), v.double(), True,
+                                window)
+    assert ref.dtype == torch.float64
+    _assert_gate(flash_attention(q, k, v, window=window),
+                 flash_attention_plain(q, k, v, True, window), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,m,n", [(83, 64, 500), (77, 400, 300),
+                                   (130, 33, 64), (9, 1, 5)])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 16, 17])
+def test_cuda_grf_feature_kernel_ragged_and_fold_parity(s, m, n, k):
+    """K5 at ragged m (one walker, a round and one, 64 and 400, the path's)
+    and K (every vector width and column grouping the kernel picks) against
+    its plain version; every column's bits equal a one-column call's, and a
+    second launch the first's."""
+    _card()
+    r = np.random.RandomState(7 * s + m + k)
+    pos = torch.as_tensor(r.randint(-2, n + 2, (s, m)).astype(np.int32)) \
+        .cuda()
+    load = torch.as_tensor(r.rand(s, m).astype(np.float32)).cuda()
+    y = torch.as_tensor(r.randn(n, k).astype(np.float32)).cuda()
+    got = grf_feature_matvec(pos, load, y)
+    torch.testing.assert_close(got, grf_feature_plain(pos, load, y),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, grf_feature_matvec(pos, load, y))
+    for c in range(k):
+        assert torch.equal(got[:, c:c + 1], grf_feature_matvec(
+            pos, load, y[:, c:c + 1].contiguous()))
+
+
+@pytest.mark.gpu
+def test_cuda_grf_feature_kernel_takes_an_unaligned_y():
+    """y whose storage is not 16-byte aligned gets narrower vector loads."""
+    _card()
+    r = np.random.RandomState(4)
+    base = torch.as_tensor(r.randn(50 * 16 + 1).astype(np.float32)).cuda()
+    y = base[1:].view(50, 16)
+    assert y.data_ptr() % 16 != 0
+    pos = torch.as_tensor(r.randint(0, 50, (40, 64)).astype(np.int32)).cuda()
+    load = torch.as_tensor(r.rand(40, 64).astype(np.float32)).cuda()
+    got = grf_feature_matvec(pos, load, y)
+    torch.testing.assert_close(got, grf_feature_plain(pos, load, y),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, grf_feature_matvec(pos, load, y.clone()))

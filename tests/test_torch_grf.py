@@ -33,7 +33,8 @@ from repro_torch.core.label_prop import (AUTO_EXACT_MAX_N,
                                          AUTO_GRF_MIN_RTOL, CONCRETE_BACKENDS,
                                          route_backend)
 from repro_torch.kernels.grf import (dense_lp_ref, dense_power_action_ref,
-                                     grf_feature_matvec, grf_feature_plain,
+                                     grf_feature_matvec,
+                                     grf_feature_matvec_ref, grf_feature_plain,
                                      walk_step)
 from repro_torch.kernels.grf.walkers import default_draw, start_state
 from test_torch_fit import port_of
@@ -167,7 +168,8 @@ def test_label_propagate_matches_reference(graph, ref_graph, impl, case):
 
 
 @pytest.mark.parametrize("s,m,n,k", [(24, 16, 24, 2), (50, 7, 33, 5),
-                                     (10, 400, 40, 3), (9, 33, 300, 1)])
+                                     (10, 400, 40, 3), (9, 33, 300, 1),
+                                     (40, 64, 50, 16), (6, 65, 70, 17)])
 def test_feature_plain_matches_reference_kernel(s, m, n, k):
     """K5's plain version against the reference's Pallas kernel, interpreted."""
     rng = np.random.RandomState(s + m)
@@ -193,6 +195,25 @@ def test_feature_plain_column_bits_do_not_depend_on_width():
         assert torch.equal(wide[:, c:c + 1],
                            grf_feature_plain(pos, load, y[:, c:c + 1]))
     assert torch.equal(wide[:, 4:6], grf_feature_plain(pos, load, y[:, 4:6]))
+
+
+@pytest.mark.parametrize("m", [64, 400])
+def test_feature_plain_fold_parity_at_the_path_widths(m):
+    """A folded batch of 8 two-column requests (K = 16, the GRF path's batch)
+    gives each request's columns the bits of its K = 2 call, as the kernel
+    must; both against the gather-and-mean oracle."""
+    rng = np.random.RandomState(m)
+    pos = rng.randint(-1, 61, (20, m)).astype(np.int32)
+    load = rng.rand(20, m).astype(np.float32)
+    y = rng.randn(60, 16).astype(np.float32)
+    tp, tl, ty = (torch.as_tensor(a) for a in (pos, load, y))
+    wide = grf_feature_plain(tp, tl, ty)
+    for b in range(8):
+        assert torch.equal(wide[:, 2 * b:2 * b + 2], grf_feature_plain(
+            tp, tl, ty[:, 2 * b:2 * b + 2].contiguous()))
+    valid = (pos >= 0) & (pos < 60)
+    want = grf_feature_matvec_ref(pos * valid, load * valid, y)
+    np.testing.assert_allclose(_np(wide), _np(want), rtol=RTOL, atol=ATOL)
 
 
 def test_csr_arrays_match_reference(csr, graph, ref_graph):

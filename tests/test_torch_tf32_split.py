@@ -10,14 +10,21 @@ truncates (round toward zero, the worst case for the tensor cores' float32
 sums), and the chunk is added to a float32 master with round-to-nearest.
 Against float64, that stays within 1.5 x a float32 product's error, while
 one TF32 product is at least 50 x worse: the card's precision gate (2 x)
-tells the two apart.  The build digest test checks that an edited shared
-header rebuilds the kernels.
+tells the two apart.  K6's float32 route (``flash_attention_tf32x3.cu``)
+uses the same split for both of its products; its emulation here sums each
+32-wide chunk of D of ``q k^T`` and each key tile of ``p v`` into a fresh
+truncating accumulator, the two small products first, and holds the result
+to the same limits against the plain recurrence in float64.  The build
+digest test checks that an edited shared header rebuilds the kernels.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention.flash_attention import (KV_TILE,
+                                                                 LOG2E)
 from repro_torch.kernels.pairwise import pairwise_sq_dists_plain
 from repro_torch.kernels.tf32x3 import (padded_width, tf32_round,
                                         tf32_split_plain)
@@ -65,19 +72,36 @@ def _rz32(v):
     return f.astype(np.float64)
 
 
-def _emulated_cross(x, y, terms):
-    """x.y^T as the kernels compute it, from ``terms`` TF32 products."""
-    xh, xl, _ = (t.double().numpy() for t in tf32_split_plain(x))
-    yh, yl, _ = (t.double().numpy() for t in tf32_split_plain(y))
-    prods = [(xh, yh), (xh, yl), (xl, yh)][:terms]
+def _split64(x):
+    """float32 ``x`` (rows, n) -> its TF32 hi and lo as float64 arrays."""
+    hi, lo, _ = tf32_split_plain(torch.as_tensor(x))
+    n = x.shape[1]
+    return hi[:, :n].double().numpy(), lo[:, :n].double().numpy()
+
+
+def _emulated_cross(x, y, terms, chunk=32, small_first=False):
+    """x.y^T, float32 (M, n) by (N, n), as the tensor-core kernels sum it from
+    ``terms`` TF32 products: per ``chunk`` of n a fresh accumulator that
+    truncates after every k-step of 8, the chunks added to a float32 master
+    with round-to-nearest, in order.  K1-K4 take each k-step's hi.hi, hi.lo
+    and lo.hi in turn; K6's float32 kernel (``small_first``) takes the
+    chunk's hi.lo and lo.hi first, interleaved by k-step, then its hi.hi."""
+    xh, xl = _split64(x)
+    yh, yl = _split64(y)
+    big, small = (xh, yh), [(xh, yl), (xl, yh)][:terms - 1]
     master = np.zeros((x.shape[0], y.shape[0]), np.float32)
-    for c0 in range(0, xh.shape[1], 32):
+    for c0 in range(0, x.shape[1], chunk):
+        steps = range(c0, c0 + chunk, 8)
+        if small_first:
+            order = [(k, a, b) for k in steps for a, b in small]
+            order += [(k, *big) for k in steps]
+        else:
+            order = [(k, a, b) for k in steps for a, b in [big, *small]]
         acc = np.zeros(master.shape)
-        for k0 in range(c0, c0 + 32, 8):
-            for a, b in prods:
-                acc = _rz32(acc + a[:, k0:k0 + 8] @ b[:, k0:k0 + 8].T)
+        for k, a, b in order:
+            acc = _rz32(acc + a[:, k:k + 8] @ b[:, k:k + 8].T)
         master = master + acc.astype(np.float32)
-    return torch.as_tensor(master)
+    return master
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +121,7 @@ def gaussian_errors():
         return float(err.max()), float(err.square().mean().sqrt())
 
     def emulated(terms):
-        cross = _emulated_cross(x, y, terms)
+        cross = torch.as_tensor(_emulated_cross(x, y, terms))
         return errors(torch.clamp_min(xx[:, None] + yy[None, :] - 2.0 * cross,
                                       0.0))
 
@@ -116,6 +140,74 @@ def test_three_tf32_products_keep_float32_accuracy(gaussian_errors, which):
 def test_one_tf32_product_fails_the_gate(gaussian_errors, which):
     i = ["max", "rms"].index(which)
     f32, x1 = gaussian_errors["f32"][i], gaussian_errors["x1"][i]
+    assert x1 >= 50.0 * f32, (x1, f32)
+
+
+def _emulated_attention(q, k, v, terms, window):
+    """One causal head (S, D) through K6's float32 kernel's arithmetic."""
+    s, d = q.shape
+    c = np.float32(d ** -0.5 * LOG2E)
+    m = np.full(s, -1e30, np.float32)
+    tot = np.zeros(s, np.float32)
+    acc = np.zeros((s, d), np.float32)
+    i = np.arange(s)[:, None]
+    for k0 in range(0, s, KV_TILE):
+        j = np.arange(k0, k0 + KV_TILE)[None, :]
+        logits = _emulated_cross(q, k[k0:k0 + KV_TILE], terms,
+                                 small_first=True)
+        keep = (j <= i) & ((i - j < window) if window else True)
+        logits = np.where(keep, logits, -np.inf).astype(np.float32)
+        m_new = np.maximum(m, logits.max(1) * c)
+        alpha = np.exp2(m - m_new).astype(np.float32)
+        # one fused multiply-add, then 2^x rounded to float32
+        p = np.exp2((logits.astype(np.float64) * c - m_new[:, None])
+                    .astype(np.float32)).astype(np.float32)
+        tot = tot * alpha + p.sum(1, dtype=np.float32)
+        part = _emulated_cross(p, np.ascontiguousarray(v[k0:k0 + KV_TILE].T),
+                               terms, KV_TILE, small_first=True)
+        acc = (acc.astype(np.float64) * alpha[:, None] + part).astype(
+            np.float32)
+        m = m_new
+    return acc / np.maximum(tot, 1e-38)[:, None]
+
+
+@pytest.fixture(scope="module")
+def attention_errors():
+    """Max and RMS errors against the plain recurrence in float64, Gaussian
+    q, k, v, causal: smollm-360m's head width (S = 256, D = 64) and
+    gemma3-1b's local layer's (S = 192, D = 256, window 96); the plain
+    float32 version's, 3xTF32's and one TF32 product's."""
+    r = np.random.RandomState(16)
+    out = {"f32": [], "x3": [], "x1": []}
+    for s, d, window in ((256, 64, 0), (192, 256, 96)):
+        for _ in range(2):
+            q, k, v = (r.randn(s, d).astype(np.float32) for _ in range(3))
+            tq, tk, tv = (torch.as_tensor(a)[None, None] for a in (q, k, v))
+            ref = flash_attention_plain(tq.double(), tk.double(), tv.double(),
+                                        True, window)[0, 0].numpy()
+            out["f32"].append(flash_attention_plain(tq, tk, tv, True, window)
+                              [0, 0].numpy() - ref)
+            for name, terms in (("x3", 3), ("x1", 1)):
+                out[name].append(_emulated_attention(q, k, v, terms, window)
+                                 - ref)
+    flat = {name: np.concatenate([x.ravel() for x in e])
+            for name, e in out.items()}
+    return {name: (float(np.abs(e).max()), float(np.sqrt(np.square(e).mean())))
+            for name, e in flat.items()}
+
+
+@pytest.mark.parametrize("which", ["max", "rms"])
+def test_attention_three_tf32_products_keep_float32_accuracy(
+        attention_errors, which):
+    i = ["max", "rms"].index(which)
+    f32, x3 = attention_errors["f32"][i], attention_errors["x3"][i]
+    assert x3 <= 1.5 * f32, (x3, f32)
+
+
+@pytest.mark.parametrize("which", ["max", "rms"])
+def test_attention_one_tf32_product_fails_the_gate(attention_errors, which):
+    i = ["max", "rms"].index(which)
+    f32, x1 = attention_errors["f32"][i], attention_errors["x1"][i]
     assert x1 >= 50.0 * f32, (x1, f32)
 
 
