@@ -50,6 +50,24 @@ Phases (any failure exits non-zero):
 6. the VDT entry point ``label_propagate(backend="grf")`` at validation size
    (``secstr_like(4_096, 315)``, dense ``grf_graph`` bridge) against
    ``backend="exact"``;
+6b. the label-propagation serving engine (``repro_torch.serving``) over the
+   fitted SecStr model of phase 3: (a) 6 requests of widths 1-3 coalesced
+   into one dispatch, equal to a direct batched ``label_propagate`` on the
+   engine's padded stack (bit for bit through K1; for ``vdt`` bit for bit
+   only if two direct calls on the card agree, as ``index_add_`` reduces with
+   atomics) and within rtol=1e-4, atol=1e-5 of each request's solo call;
+   (b) under ``edf`` with ``segment_iters=5``, an urgent request injected at
+   the first segment boundary of a 50-iteration exact walk is served before
+   the walk ends, and the walk equals the monolithic scan bit for bit; (c)
+   the reference's ``benchmarks/serving.py`` ``uniform`` scenario at full
+   scale (96 requests, widths 1-8, 50 iterations, vdt): requests/s against
+   the serial loop of direct calls, occupancy, p50/p95 and the dispatches'
+   device time (CUDA events) over wall time, at 1, 4 and 16 closed-loop
+   clients; (d) 8 requests of width 8 through the exact engine, folded
+   K = 64, ms per iteration beside K1's K = 16 time; (e) a grf group on the
+   model of phase 6 runs at its largest walker budget and equals a direct
+   call bit for bit; (f) the phase's K1 and K5 launches, every K1 on
+   ``tf32x3``;
 7. the reference's remaining op entry points, each at its shape: K2
    (``fused_lp_matvec``, N = 83,679), K3 (``fused_lp_step_batched(
    reuse=False)``, B = 8, N = 16,384), K4 (``pairwise_sq_dists``, one kNN
@@ -140,6 +158,12 @@ TC_ROUTE = "tf32x3"          # K1-K4's tensor-core route
 K6_F32_ROUTE = "sm90_tf32x3"  # K6's float32 route: 3xTF32 on the tensor cores
 K6_ROUTES = {"float32": K6_F32_ROUTE, "bfloat16": "sm90_bf16"}
 K6_GATE_SEED = 16
+# the serving engine phase: checks at 10 iterations, a preempted 50-iteration
+# walk, and the reference's `uniform` serving scenario (benchmarks/serving.py)
+LP_ALPHAS, LP_CHECK_ITERS = (0.01, 0.05, 0.2), 10
+PREEMPT_ITERS, PREEMPT_SEGMENT, PREEMPT_DEADLINE_MS = 50, 5, 1_000.0
+TP_REQUESTS, TP_WIDTHS, TP_ITERS = 96, (1, 2, 3, 4, 6, 8), 50
+TP_CLIENTS, TP_MAX_BATCH, TP_MAX_WAIT_MS = (1, 4, 16), 32, 25.0
 # K6's timed shapes: smollm-360m's attention and gemma3-1b's local layer
 K6_SHAPES = (("smollm-360m", 4, 15, 5, 2_048, 64, 0),
              ("gemma3-1b local", 4, 4, 1, 2_048, 256, 1_024))
@@ -780,8 +804,9 @@ def phase_k5_timing(graph, out) -> dict:
                 l2_yardstick=yard)
 
 
-def phase_vdt_grf() -> None:
-    """``label_propagate(backend="grf")`` through the VDT entry point."""
+def phase_vdt_grf():
+    """``label_propagate(backend="grf")`` through the VDT entry point; returns
+    the model."""
     import torch
     from repro_torch import VariationalDualTree, one_hot_labels
     from repro_torch.data.synthetic import secstr_like
@@ -822,6 +847,366 @@ def phase_vdt_grf() -> None:
     mean = torch.stack(ests).mean(0)
     print(f"  mean of 4 seeds: max_err={float((mean - exact).abs().max()):.3e}"
           f" mean_err={float((mean - exact).abs().mean()):.3e}")
+    return vdt
+
+
+def lp_engine_class():
+    """``PropagateEngine`` that brackets every scan and resumed segment with
+    CUDA events on the scheduler thread's stream (``device_ms``: their
+    summed spans), and with ``keep=True`` keeps a copy of each monolithic
+    scan's padded stack, alphas and output."""
+    import torch
+    from repro_torch.serving import PropagateEngine
+
+    class Recorded(PropagateEngine):
+        def __init__(self, *args, keep: bool = False, **kwargs):
+            self.keep, self.scans, self.events = keep, [], []
+            super().__init__(*args, **kwargs)
+
+        def _timed(self, fn, *args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def _scan(self, vdt, stack, alphas, n_iters, backend, *,
+                  n_walkers=None):
+            out = self._timed(super()._scan, vdt, stack, alphas, n_iters,
+                              backend, n_walkers=n_walkers)
+            if self.keep:
+                self.scans.append((stack.clone(), np.array(alphas),
+                                   out.clone(), int(n_iters), n_walkers))
+            return out
+
+        def _scan_resume(self, vdt, carry, y0, alphas, n_iters, backend):
+            return self._timed(super()._scan_resume, vdt, carry, y0, alphas,
+                               n_iters, backend)
+
+        def device_ms(self) -> float:
+            torch.cuda.synchronize()
+            return sum(s.elapsed_time(e) for s, e in self.events)
+
+    return Recorded
+
+
+def lp_requests(n: int, count: int, widths, seed: int, n_iters: int,
+                **extra) -> list:
+    """Seeded requests: 10 % of the rows labeled in each column."""
+    from repro_torch.serving import PropagateRequest
+
+    rng = np.random.RandomState(seed)
+    return [PropagateRequest(
+        (rng.rand(n, int(rng.choice(widths))) > 0.9).astype(np.float32),
+        alpha=float(rng.choice(LP_ALPHAS)), n_iters=n_iters, **extra)
+        for _ in range(count)]
+
+
+def engine_vs_direct(vdt, backend: str, bitwise: bool) -> float:
+    """(a): 6 requests through the engine (one group) against a direct
+    batched call on the engine's padded stack and against each request's
+    solo call; returns the largest error against the solo calls."""
+    import torch
+    from repro_torch.kernels.fused_lp import folded_step
+    from repro_torch.serving import DEFAULT_WIDTH_BUCKETS
+    from repro_torch.serving._batching import bucket_width
+
+    n = vdt.tree.n_points
+    reqs = lp_requests(n, 6, (1, 2, 3), 21, LP_CHECK_ITERS)
+    cb = bucket_width(max(r.y0.shape[1] for r in reqs), DEFAULT_WIDTH_BUCKETS)
+    eng = lp_engine_class()(vdt, start=False, max_batch=8, backend=backend,
+                            keep=True)
+    futs = [eng.submit(r) for r in reqs]
+    k1 = folded_step.launches
+    eng.flush()
+    k1 = folded_step.launches - k1
+    check(len(eng.scans) == 1, f"{backend}: {len(eng.scans)} dispatches")
+    stack, alphas, out, n_iters, _ = eng.scans[0]
+    check(stack.device.type == "cuda" and tuple(stack.shape) == (8, n, cb),
+          f"{backend}: stack {tuple(stack.shape)} on {stack.device}")
+    if backend == "exact":
+        check(k1 == LP_CHECK_ITERS, f"exact: {k1} K1 launches")
+    direct = vdt.label_propagate(stack, alpha=alphas, n_iters=n_iters,
+                                 batched=True, backend=backend)
+    same = torch.equal(out, direct)
+    what = "bit for bit" if bitwise else "within rtol=1e-4, atol=1e-5"
+    print(f"  {backend}: one dispatch of {len(reqs)} requests, (8, {n}, {cb})"
+          f" stack, K={8 * cb}; engine == direct call on the same stack: "
+          f"{'bit for bit' if same else 'not bit for bit'} (held {what})")
+    if bitwise:
+        check(same, f"{backend}: engine differs from the direct call")
+    else:
+        close(out, direct, f"{backend} engine vs direct")
+    worst = 0.0
+    for k, (f, r) in enumerate(zip(futs, reqs)):
+        got = f.result(timeout=0)
+        check(isinstance(got, np.ndarray) and got.shape == r.y0.shape,
+              f"{backend}: answer {k} is {type(got)} {np.shape(got)}")
+        solo = vdt.label_propagate(torch.as_tensor(r.y0, device="cuda"),
+                                   alpha=r.alpha, n_iters=r.n_iters,
+                                   backend=backend)
+        worst = max(worst, close(torch.as_tensor(got), solo,
+                                 f"{backend} request {k} (C={r.y0.shape[1]},"
+                                 f" alpha={r.alpha}) vs its solo call")[0])
+    return worst
+
+
+class _InjectingModel:
+    """The fitted model, with an urgent request submitted to ``engine`` as
+    the first resumed segment of a walk returns (a mid-flight arrival)."""
+
+    def __init__(self, inner, request):
+        self._inner, self._request = inner, request
+        self.engine = self.urgent = None
+        self.done = {}
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def label_propagate_resume(self, *args, **kwargs):
+        out = self._inner.label_propagate_resume(*args, **kwargs)
+        if self.urgent is None:
+            self.urgent = self.engine.submit(self._request)
+            self.urgent.add_done_callback(
+                lambda f: self.done.setdefault("urgent", time.perf_counter()))
+        return out
+
+
+def engine_preempt(vdt) -> dict:
+    """(b): one 50-iteration exact request in segments of 5 under edf, an
+    urgent one injected at the first segment boundary."""
+    import torch
+    from repro_torch.kernels.fused_lp import folded_step
+    from repro_torch.serving import PropagateRequest
+
+    n = vdt.tree.n_points
+    (bulk_req,) = lp_requests(n, 1, (2,), 22, PREEMPT_ITERS,
+                              deadline_ms=600_000.0)
+    (urgent_req,) = lp_requests(n, 1, (1,), 23, LP_CHECK_ITERS // 2,
+                                deadline_ms=PREEMPT_DEADLINE_MS)
+    model = _InjectingModel(vdt, urgent_req)
+    eng = lp_engine_class()(model, start=False, policy="edf",
+                            segment_iters=PREEMPT_SEGMENT, backend="exact")
+    model.engine = eng
+    bulk = eng.submit(bulk_req)
+    bulk.add_done_callback(
+        lambda f: model.done.setdefault("bulk", time.perf_counter()))
+    k1 = folded_step.launches
+    t0 = time.perf_counter()
+    eng.step()
+    wall = time.perf_counter() - t0
+    k1 = folded_step.launches - k1
+    m = eng.metrics()
+    urgent = model.urgent.result(timeout=0)
+    print(f"  edf, segment_iters={PREEMPT_SEGMENT}: a {PREEMPT_ITERS}-"
+          f"iteration exact request, an urgent one (deadline "
+          f"{PREEMPT_DEADLINE_MS:.0f} ms, {urgent_req.n_iters} iterations) "
+          f"injected after the first segment: preemptions {m.preemptions}, "
+          f"preempt_iters {m.preempt_iters}, completed {m.completed}, "
+          f"expired {m.expired}, deadline_missed {m.deadline_missed}; urgent "
+          f"answered {1e3 * (model.done['urgent'] - t0):.0f} ms into the "
+          f"dispatch, the walk {1e3 * (model.done['bulk'] - t0):.0f} ms "
+          f"({wall:.2f} s wall); K1 launches {k1}")
+    check(m.preemptions >= 1, "preempt: the walk never yielded")
+    check(m.completed == 2 and m.expired == 0 and m.deadline_missed == 0,
+          f"preempt: completed {m.completed}, expired {m.expired}, missed "
+          f"{m.deadline_missed}")
+    check(urgent.shape == urgent_req.y0.shape and np.isfinite(urgent).all(),
+          "preempt: bad urgent answer")
+    check(model.done["urgent"] < model.done["bulk"],
+          "preempt: the urgent request waited for the walk")
+    check(k1 == PREEMPT_ITERS + urgent_req.n_iters,
+          f"preempt: {k1} K1 launches")
+    stack = np.zeros((1, n, 2), np.float32)
+    stack[0] = bulk_req.y0
+    mono = vdt.label_propagate(torch.as_tensor(stack, device="cuda"),
+                               alpha=np.array([bulk_req.alpha], np.float32),
+                               n_iters=PREEMPT_ITERS, batched=True,
+                               backend="exact")
+    same = np.array_equal(bulk.result(timeout=0), mono[0].cpu().numpy())
+    print(f"  the suspended walk == the monolithic exact scan: "
+          f"{'bit for bit' if same else 'NOT bit for bit'}")
+    check(same, "preempt: the segmented walk differs from the monolithic one")
+    return dict(preemptions=m.preemptions, preempt_iters=m.preempt_iters,
+                urgent_ms=1e3 * (model.done["urgent"] - t0))
+
+
+def engine_throughput(vdt) -> dict:
+    """(c): the reference benchmark's ``uniform`` scenario at full scale:
+    the serial loop of direct calls, then 1, 4 and 16 closed-loop clients
+    against a fresh warmed engine."""
+    import threading
+
+    import torch
+
+    n = vdt.tree.n_points
+    reqs = lp_requests(n, TP_REQUESTS, TP_WIDTHS, 24, TP_ITERS)
+    for c in sorted(set(r.y0.shape[1] for r in reqs)):   # warm each shape
+        vdt.label_propagate(torch.zeros((n, c), device="cuda"), alpha=0.01,
+                            n_iters=TP_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        vdt.label_propagate(torch.as_tensor(r.y0, device="cuda"),
+                            alpha=r.alpha, n_iters=r.n_iters).cpu()
+    serial_s = time.perf_counter() - t0
+    serial_rps = TP_REQUESTS / serial_s
+    print(f"  serial loop of direct calls: {serial_s:.2f} s, "
+          f"{serial_rps:.1f} requests/s")
+    levels = []
+    for k in TP_CLIENTS:
+        with lp_engine_class()(vdt, max_batch=TP_MAX_BATCH,
+                               max_wait_ms=TP_MAX_WAIT_MS,
+                               max_queue=4 * TP_MAX_BATCH) as eng:
+            warmed = eng.warmup(widths=TP_WIDTHS, n_iters=(TP_ITERS,))
+            eng.device_ms()
+            eng.events.clear()
+
+            def client(cid):
+                for r in reqs[cid::k]:
+                    eng.submit(r).result(timeout=600)
+
+            before = eng.metrics()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(k)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            m = eng.metrics()
+            device_s = eng.device_ms() / 1e3
+        dispatches = m.dispatches - before.dispatches
+        row = dict(clients=k, wall_s=wall, rps=TP_REQUESTS / wall,
+                   speedup=TP_REQUESTS / wall / serial_rps,
+                   occupancy=(m.batched_requests - before.batched_requests)
+                   / max(1, dispatches),
+                   dispatches=dispatches, p50_ms=m.latency_p50_ms,
+                   p95_ms=m.latency_p95_ms, device_share=device_s / wall,
+                   warmed=warmed)
+        check(m.completed - before.completed == TP_REQUESTS and m.failed == 0,
+              f"throughput: {m.completed} completed, {m.failed} failed")
+        print(f"  {k:2d} clients: {row['rps']:.1f} requests/s "
+              f"({row['speedup']:.2f} x serial), occupancy "
+              f"{row['occupancy']:.1f}, {dispatches} dispatches, p50 "
+              f"{row['p50_ms']:.1f} ms, p95 {row['p95_ms']:.1f} ms, "
+              f"device time (CUDA events around each dispatch) / wall "
+              f"{row['device_share']:.3f}; warmup {warmed} shapes")
+        levels.append(row)
+    return dict(serial_s=serial_s, serial_rps=serial_rps, levels=levels)
+
+
+def engine_wide_exact(vdt, k1_k16_ms: float) -> dict:
+    """(d): 8 requests of width 8 (folded K = 64) through the exact engine,
+    beside K1's K = 16 time from this run and a direct K1 launch at K = 64."""
+    import torch
+    from repro_torch.kernels.fused_lp import alpha_row, folded_step
+
+    n = vdt.tree.n_points
+    reqs = lp_requests(n, 8, (8,), 25, LP_CHECK_ITERS)
+    eng = lp_engine_class()(vdt, start=False, max_batch=8, backend="exact")
+    futs = [eng.submit(r) for r in reqs]
+    k1 = folded_step.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.flush()
+    wall = time.perf_counter() - t0
+    k1 = folded_step.launches - k1
+    ms = eng.device_ms() / LP_CHECK_ITERS
+    check(k1 == LP_CHECK_ITERS and all(f.done() for f in futs),
+          f"wide exact: {k1} K1 launches")
+    x = vdt.x_rows
+    y = torch.rand((n, 64), device="cuda")
+    al = alpha_row(torch.full((64,), 0.05), 64, "cuda")
+    inv = float(1.0 / (2.0 * float(vdt.sigma) ** 2))
+    direct_ms = cuda_ms(lambda: folded_step(x, x, y, y, al, inv), 2)
+    d = x.shape[1]
+    bound_ms, by, _ = tc_bound(n, n, d, 64, 4.0 * (n * d + 3 * n * 64 + 64))
+    print(f"  exact, 8 requests of width 8 (K=64), {LP_CHECK_ITERS} "
+          f"iterations: {ms:.2f} ms per iteration on the device "
+          f"({wall / LP_CHECK_ITERS * 1e3:.2f} ms wall), K1 launches {k1}; "
+          f"a direct K1 launch at K=64 {direct_ms:.2f} ms, bound "
+          f"{bound_ms:.2f} ms ({by}), {bound_ms / direct_ms:.3f} of it; K1 "
+          f"at K=16 {k1_k16_ms:.2f} ms in this run: {ms / k1_k16_ms:.2f} x")
+    return dict(ms_per_iter=ms, wall_ms_per_iter=wall / LP_CHECK_ITERS * 1e3,
+                k1_k64_ms=direct_ms, k1_k64_bound_ms=bound_ms,
+                k1_k16_ms=k1_k16_ms, ratio=ms / k1_k16_ms)
+
+
+def engine_grf(vdt) -> dict:
+    """(e): one grf group (an explicit budget, an rtol-sized one, the
+    default) on the VDT -> GRF bridge model: the dispatch runs at the
+    largest budget and equals a direct call bit for bit."""
+    import torch
+    from repro_torch.core.grf import walkers_for_rtol
+    from repro_torch.kernels.grf import grf_feature_matvec
+
+    n = vdt.tree.n_points
+    reqs = (lp_requests(n, 1, (2,), 26, VDT_GRF_ITERS, n_walkers=96)
+            + lp_requests(n, 1, (1,), 27, VDT_GRF_ITERS, rtol=0.1)
+            + lp_requests(n, 1, (3,), 28, VDT_GRF_ITERS))
+    eng = lp_engine_class()(vdt, start=False, backend="grf", n_walkers=64,
+                            grf_seed=GRF_SEED, keep=True)
+    futs = [eng.submit(r) for r in reqs]
+    k5 = grf_feature_matvec.launches
+    eng.flush()
+    k5 = grf_feature_matvec.launches - k5
+    budgets = [eng._walker_budget(r) for r in reqs]
+    (stack, alphas, out, n_iters, used), = eng.scans
+    want = max(96, walkers_for_rtol(0.1), 64)
+    direct = vdt.label_propagate(stack, alpha=alphas, n_iters=n_iters,
+                                 batched=True, backend="grf", n_walkers=used,
+                                 seed=GRF_SEED)
+    same = torch.equal(out, direct)
+    print(f"  grf at N={n}: budgets {budgets}, the dispatch ran {used} "
+          f"walkers a point (metrics: {eng.metrics().n_walkers}); K5 "
+          f"launches {k5}; engine == direct call (n_walkers={used}, "
+          f"seed={GRF_SEED}): {'bit for bit' if same else 'NOT bit for bit'}")
+    check(used == max(budgets) == want, f"grf: ran {used} walkers")
+    check(k5 == VDT_GRF_ITERS, f"grf: {k5} K5 launches")
+    check(same, "grf: engine differs from the direct call")
+    for k, (f, r) in enumerate(zip(futs, reqs)):
+        got = f.result(timeout=0)
+        check(np.array_equal(got, out[k, :, :r.y0.shape[1]].cpu().numpy()),
+              f"grf: answer {k} is not its slot of the dispatch")
+    return dict(n_walkers=used, budgets=budgets)
+
+
+def phase_lp_engine(out, after, vdt_grf) -> dict:
+    """The label-propagation serving engine on the card: (a) engine vs
+    direct calls on both backends, (b) preemption, (c) throughput, (d) the
+    exact dispatch at folded K > 16, (e) grf through the engine."""
+    import torch
+
+    vdt = out["vdt"]
+    print(f"[lp engine] PropagateEngine over the fitted SecStr model "
+          f"(N={vdt.tree.n_points}), on the card")
+    stack = torch.as_tensor(np.stack([r.y0[:, :1] for r in lp_requests(
+        vdt.tree.n_points, 4, (1,), 20, 1)]), device="cuda")
+    first, second = (vdt.label_propagate(stack, alpha=0.05,
+                                         n_iters=LP_CHECK_ITERS, batched=True)
+                     for _ in range(2))
+    vdt_bitwise = torch.equal(first, second)
+    agree = "bit for bit" if vdt_bitwise else \
+        "only within tolerance (index_add_ reduces with atomics)"
+    print(f"  (a) two direct vdt calls on the card agree {agree}")
+    err = {be: engine_vs_direct(vdt, be, be == "exact" or vdt_bitwise)
+           for be in ("exact", "vdt")}
+    print("  (b) preemption")
+    pre = engine_preempt(vdt)
+    print(f"  (c) throughput: {TP_REQUESTS} requests, widths {TP_WIDTHS}, "
+          f"alphas {LP_ALPHAS}, {TP_ITERS} iterations, backend vdt, "
+          f"max_batch={TP_MAX_BATCH}, max_wait_ms={TP_MAX_WAIT_MS:.0f}")
+    tp = engine_throughput(vdt)
+    print("  (d) the exact dispatch at folded K = 64")
+    wide = engine_wide_exact(vdt, after["rows"][1]["ms"])
+    print("  (e) grf through the engine")
+    grf = engine_grf(vdt_grf)
+    return dict(vdt_bitwise=vdt_bitwise, max_abs_err=err, preempt=pre,
+                throughput=tp, wide_exact=wide, grf=grf)
 
 
 def phase_ops(out) -> dict:
@@ -1355,12 +1740,24 @@ def main() -> int:
     del knn, graph
 
     reset_counts()
-    phase_vdt_grf()
+    vdt_grf = phase_vdt_grf()
     vdt_counts = read_counts()
     print(f"  vdt grf path launches {vdt_counts}")
     check(vdt_counts["K1"] > 0 and vdt_counts["K5"] > 0,
           "vdt grf path: K1 or K5 not launched")
     check_tc_route(vdt_counts, ("K1",))
+
+    reset_counts()
+    engine = phase_lp_engine(out, after, vdt_grf)
+    engine_counts = read_counts()
+    print(f"  (f) lp engine launches: K1 {engine_counts['K1']} (on "
+          f"{TC_ROUTE}: {engine_counts[f'K1 {TC_ROUTE}']}), K5 "
+          f"{engine_counts['K5']}; all counts {engine_counts}")
+    check(engine_counts["K1"] > 0 and engine_counts["K5"] > 0,
+          "lp engine: K1 or K5 not launched")
+    check_tc_route(engine_counts, ("K1",))
+    print(f"[lp engine] summary {json.dumps(engine)}")
+    del vdt_grf
     ops = phase_ops(out)
     phase_single_point()
     del out, data
@@ -1388,6 +1785,9 @@ def main() -> int:
         launches_tf32x3=main_counts[f"K1 {TC_ROUTE}"],
         batch8=dict(k=batch8["k"], ms=batch8["ms"], ms2=batch8["ms2"],
                     plain_ms=batch8["plain_ms"], bound_ms=batch8["bound_ms"]),
+        lp_engine=dict(launches=engine_counts["K1"],
+                       launches_tf32x3=engine_counts[f"K1 {TC_ROUTE}"],
+                       k64=engine["wide_exact"]),
         gate={k: v for k, v in gate.items() if k.startswith("K1")}, **tc)]
     for k, name, source, replaces in (
             ("K2", "K2 fused LP matvec",
@@ -1419,6 +1819,7 @@ def main() -> int:
         bound_by=r400["by"], library_ms=r400["lib_ms"],
         shape=f"S={N_SECSTR} m=400 K=2",
         call_ms=r400["call_ms"], ms2=r400["ms2"],
+        lp_engine_launches=engine_counts["K5"],
         l2_gb_per_s=r400["l2_gb_per_s"],
         l2_yardstick=k5["l2_yardstick"],
         by_shape={f"m={r['m']} K={r['k']}": dict(

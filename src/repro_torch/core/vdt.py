@@ -136,6 +136,11 @@ class VariationalDualTree:
     def device(self) -> torch.device:
         return self.tree.device
 
+    @property
+    def divergence_name(self) -> str:
+        """Registry name of the fitted divergence (serving dispatch keys)."""
+        return self.stats.divergence
+
     def to(self, device) -> "VariationalDualTree":
         """A copy of the fitted model with its tensors on ``device``."""
         dev = resolve_device(device)

@@ -10,9 +10,14 @@ a sliding-window ring for pure-SWA archs.  ``prefill`` computes each layer's
 K/V once and takes them from its self-attention (the reference computes
 them a second time, to the same values).  Attention in ``prefill`` goes
 through K6; ``decode_step`` runs the reference's one-query attention in plain
-torch.  The label-propagation names the reference re-exports from here, and
-its deprecation warning, belong to the serving engine (ROADMAP Queue 1 item
-7); the SSM, hybrid and audio caches to item 12.
+torch.  The SSM, hybrid and audio caches are not ported yet (ROADMAP Queue 1
+item 12).
+
+Deprecated as a serving entry point, as in the reference: the
+label-propagation names it re-exports (``PropagateEngine``,
+``PropagateRequest``, ...) live on the blessed :mod:`repro_torch.serving`
+surface; importing this module emits a once-per-process
+:class:`DeprecationWarning`.
 """
 from __future__ import annotations
 
@@ -27,9 +32,25 @@ from repro_torch.models.attention import (KVCache, attn_decode, init_cache,
 from repro_torch.models.layers import Dtypes, mlp_apply, rms_norm
 from repro_torch.models.transformer import (layer_params, layer_windows,
                                             require_dense, unembedding)
+# Label-propagation requests ride the same serving layer: propagate_many
+# pads/buckets variable-width label matrices into batched VDT dispatches,
+# and PropagateEngine serves a live queue of them with continuous batching.
+from repro_torch.serving._batching import PropagateRequest
+from repro_torch.serving._deprecation import warn_once
+from repro_torch.serving._engine import PropagateEngine
+from repro_torch.serving._metrics import MetricsSnapshot
+from repro_torch.serving._propagate import propagate_many
+from repro_torch.serving._queue import DeadlineExceeded, QueueFull
+
+warn_once(
+    "repro_torch.serving.decode",
+    "import the serving names (PropagateEngine, PropagateRequest, "
+    "propagate_many, ...) from repro_torch.serving")
 
 __all__ = ["DECODE_SLACK", "DecodeState", "decode_step", "init_state",
-           "prefill"]
+           "prefill", "DeadlineExceeded", "MetricsSnapshot",
+           "PropagateEngine", "PropagateRequest", "QueueFull",
+           "propagate_many"]
 
 # non-ring caches reserve this many slots beyond the prefilled context
 DECODE_SLACK = 16

@@ -4,6 +4,7 @@ Run them on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 This file imports neither JAX nor the reference package, so it runs where
 only the port's dependencies are installed.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -490,3 +491,122 @@ def test_cuda_grf_feature_kernel_takes_an_unaligned_y():
     torch.testing.assert_close(got, grf_feature_plain(pos, load, y),
                                rtol=1e-5, atol=1e-6)
     assert torch.equal(got, grf_feature_matvec(pos, load, y.clone()))
+
+
+# ------------------------------------------------- the serving engine
+@pytest.fixture(scope="module")
+def card_vdt():
+    """A small model fitted on the card (the engine runs where it lies)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch import VariationalDualTree
+
+    x = np.random.RandomState(40).randn(700, 12).astype(np.float32)
+    return VariationalDualTree.fit(x, max_blocks=4 * 700)
+
+
+def _engine_requests(n, seed, count=6, widths=(1, 2, 3), **extra):
+    from repro_torch.serving import PropagateRequest
+
+    rng = np.random.RandomState(seed)
+    return [PropagateRequest(
+        (rng.rand(n, int(rng.choice(widths))) > 0.7).astype(np.float32),
+        alpha=float(rng.choice((0.01, 0.05, 0.2))), n_iters=10, **extra)
+        for _ in range(count)]
+
+
+def _capturing_engine(vdt, **kw):
+    """A ``PropagateEngine`` that keeps a copy of every monolithic scan's
+    padded stack, alphas and output."""
+    from repro_torch.serving import PropagateEngine
+
+    class Capturing(PropagateEngine):
+        def _scan(self, vdt, stack, alphas, n_iters, backend, *,
+                  n_walkers=None):
+            out = super()._scan(vdt, stack, alphas, n_iters, backend,
+                                n_walkers=n_walkers)
+            self.scans.append((stack.clone(), np.array(alphas), out.clone(),
+                               int(n_iters), n_walkers))
+            return out
+
+    eng = Capturing(vdt, start=False, **kw)
+    eng.scans = []
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["exact", "grf"])
+def test_cuda_engine_equals_direct_call_bit_for_bit(card_vdt, backend):
+    """K1 (exact) and K5 (grf) have no atomics: the engine's answers are a
+    direct batched call on the same padded stack, bit for bit."""
+    extra = dict(n_walkers=16) if backend == "grf" else {}
+    eng = _capturing_engine(card_vdt, max_batch=8, backend=backend,
+                            n_walkers=8, grf_seed=3)
+    futs = [eng.submit(r) for r in
+            _engine_requests(card_vdt.tree.n_points, 1, **extra)]
+    launches = (folded_step if backend == "exact"
+                else grf_feature_matvec).launches
+    eng.flush()
+    assert len(eng.scans) == 1
+    stack, alphas, out, n_iters, n_walkers = eng.scans[0]
+    assert stack.is_cuda and out.is_cuda
+    assert (folded_step if backend == "exact"
+            else grf_feature_matvec).launches - launches == n_iters
+    kw = dict(n_walkers=n_walkers, seed=3) if backend == "grf" else {}
+    direct = card_vdt.label_propagate(stack, alpha=alphas, n_iters=n_iters,
+                                      batched=True, backend=backend, **kw)
+    torch.testing.assert_close(out, direct, rtol=0, atol=0)
+    for k, f in enumerate(futs):
+        got = f.result(timeout=0)
+        assert isinstance(got, np.ndarray)
+        np.testing.assert_array_equal(got, out[k, :, :got.shape[1]].cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_segmented_edf_exact_equals_monolithic(card_vdt):
+    from repro_torch.serving import PropagateEngine
+
+    reqs = _engine_requests(card_vdt.tree.n_points, 2, count=3, widths=(2,))
+    seg = PropagateEngine(card_vdt, start=False, max_batch=4, policy="edf",
+                          segment_iters=3, backend="exact")
+    mono = PropagateEngine(card_vdt, start=False, max_batch=4,
+                           backend="exact")
+    got = [seg.submit(r) for r in reqs]
+    want = [mono.submit(r) for r in reqs]
+    seg.flush()
+    mono.flush()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.result(timeout=0), w.result(timeout=0))
+
+
+@pytest.mark.gpu
+def test_cuda_vdt_engine_matches_a_cpu_copy(card_vdt):
+    from repro_torch.serving import PropagateEngine
+
+    reqs = _engine_requests(card_vdt.tree.n_points, 3)
+    futs = {}
+    for name, vdt in (("card", card_vdt), ("cpu", card_vdt.to("cpu"))):
+        eng = PropagateEngine(vdt, start=False, max_batch=8)
+        futs[name] = [eng.submit(r) for r in reqs]
+        eng.flush()
+    for g, w in zip(futs["card"], futs["cpu"]):
+        np.testing.assert_allclose(g.result(timeout=0), w.result(timeout=0),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_cuda_background_engine_answers(card_vdt):
+    """``start=True``: CUDA work launched from the scheduler thread."""
+    from repro_torch.serving import PropagateEngine, propagate_many
+
+    reqs = _engine_requests(card_vdt.tree.n_points, 4, count=5)
+    with PropagateEngine(card_vdt, max_batch=4, max_wait_ms=1.0,
+                         backend="exact") as eng:
+        futs = [eng.submit(r) for r in reqs]
+        got = [f.result(timeout=120) for f in futs]
+    want = propagate_many(card_vdt, [dataclasses.replace(r, backend="exact")
+                                     for r in reqs])
+    for g, w, r in zip(got, want, reqs):
+        assert g.shape == r.y0.shape
+        np.testing.assert_allclose(g, w.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    assert eng.metrics().completed == 5

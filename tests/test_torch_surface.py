@@ -1,6 +1,8 @@
 """The port's surface: isolation from JAX and the reference, the device rule,
 and the parts of the reference that are not ported yet."""
 import ast
+import importlib
+import json
 import pathlib
 import subprocess
 import sys
@@ -28,13 +30,22 @@ def _imported_roots(path: pathlib.Path) -> set:
     return roots
 
 
+SERVING_PRIVATE = ("_batching", "_deprecation", "_engine", "_metrics",
+                   "_propagate", "_queue", "engine_api", "fleet")
+# the deprecated deep modules: each warns once per process on import
+SERVING_SHIMS = ("engine", "metrics", "propagate", "queue", "decode")
+
+
 def test_import_pulls_neither_jax_nor_reference_and_is_warning_free():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels."
             "fused_lp, repro_torch.data.synthetic, repro_torch.core.grf, "
             "repro_torch.core.baselines, repro_torch.kernels.grf, "
             "repro_torch.kernels.pairwise, repro_torch.models, "
-            "repro_torch.configs.registry, repro_torch.serving.decode, "
-            "repro_torch.kernels.flash_attention\n"
+            "repro_torch.configs.registry, repro_torch.serving, "
+            + "".join(f"repro_torch.serving.{m}, " for m in SERVING_PRIVATE)
+            + "repro_torch.kernels.flash_attention\n"
+            "from repro_torch.serving import (PropagateEngine, "
+            "PropagateRequest, EngineFleet, propagate_many)\n"
             "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
             "[get_config(a) for a in ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -52,7 +63,9 @@ def test_no_port_file_imports_jax_or_reference():
     assert len(files) > 15
     for new in ("models/attention.py", "models/transformer.py",
                 "serving/decode.py", "configs/registry.py",
-                "configs/gemma3_1b.py", "kernels/flash_attention/ops.py"):
+                "configs/gemma3_1b.py", "kernels/flash_attention/ops.py",
+                "serving/__init__.py", "serving/_engine.py",
+                "serving/fleet.py", "serving/_queue.py"):
         assert PORT / new in files, new
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
@@ -132,3 +145,85 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_state(cfg, 1, 8)
     assert init_lm(cfg, device="cpu")["embed"].device.type == "cpu"
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-W", "error", "-c", code],
+                          capture_output=True, text=True,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"})
+
+
+def test_serving_surface_is_the_reference_minus_the_sharded_engine():
+    """``repro_torch.serving.__all__`` is the reference's blessed surface
+    without ``ShardedPropagateEngine``, whose import names its ROADMAP
+    item."""
+    import repro.serving as r_serving
+    import repro_torch.serving as t_serving
+
+    assert sorted(t_serving.__all__) == sorted(
+        set(r_serving.__all__) - {"ShardedPropagateEngine"})
+    for name in t_serving.__all__:
+        assert getattr(t_serving, name) is not None
+    with pytest.raises(ImportError, match="Queue 1 item 10"):
+        from repro_torch.serving import ShardedPropagateEngine  # noqa: F401
+    with pytest.raises(AttributeError):
+        t_serving.NoSuchName
+
+
+@pytest.fixture(scope="module")
+def shim_report():
+    """One fresh process: the blessed import first (it must leave the
+    deprecation ledger empty), then each deep module imported, reloaded and
+    imported again under ``warnings.simplefilter('always')``."""
+    code = (
+        "import importlib, json, warnings\n"
+        "import repro_torch.serving as s\n"
+        "from repro_torch.serving._deprecation import _WARNED\n"
+        "report = {'ledger_after_blessed_import': sorted(_WARNED)}\n"
+        f"for shim in {SERVING_SHIMS!r}:\n"
+        "    name = 'repro_torch.serving.' + shim\n"
+        "    with warnings.catch_warnings(record=True) as w:\n"
+        "        warnings.simplefilter('always')\n"
+        "        m = importlib.import_module(name)\n"
+        "        importlib.reload(m)\n"
+        "        importlib.import_module(name)\n"
+        "    report[shim] = dict(\n"
+        "        warnings=[str(x.message) for x in w\n"
+        "                  if issubclass(x.category, DeprecationWarning)],\n"
+        "        all=sorted(m.__all__),\n"
+        "        not_canonical=[n for n in m.__all__ if hasattr(s, n)\n"
+        "                       and getattr(m, n) is not getattr(s, n)])\n"
+        "print(json.dumps(report))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout)
+
+
+@pytest.mark.parametrize("shim", SERVING_SHIMS)
+def test_deprecated_serving_modules_warn_once_with_canonical_objects(
+        shim, shim_report):
+    """Each deep module warns once per process, naming itself; a reload or
+    a second import stays silent; its names are the reference module's, and
+    those on the blessed surface are its canonical objects."""
+    ref_mod = importlib.import_module(f"repro.serving.{shim}")
+    got = shim_report[shim]
+    assert len(got["warnings"]) == 1, got["warnings"]
+    assert got["warnings"][0].startswith(
+        f"repro_torch.serving.{shim} is deprecated; import ")
+    assert got["all"] == sorted(ref_mod.__all__)
+    assert not got["not_canonical"]
+
+
+def test_blessed_serving_import_never_warns(shim_report):
+    assert shim_report["ledger_after_blessed_import"] == []
+
+
+def test_divergence_name_is_the_fitted_divergence(small_fitted_vdt):
+    ref = small_fitted_vdt[-1]
+    port = port_of(ref)
+    assert port.divergence_name == ref.divergence_name == "sqeuclidean"
+    x = np.random.RandomState(2).randn(12, 3).astype(np.float32)
+    own = VariationalDualTree.fit(x, max_blocks=48, device="cpu",
+                                  divergence=None)
+    assert own.divergence_name == own.stats.divergence == "sqeuclidean"
