@@ -21,6 +21,10 @@ Phases (any failure exits non-zero):
    step, a 5-step scan, a ``row_base`` stripe, and resume-from-carry equal to
    the monolithic scan bit for bit; K5 likewise, and a K = 16 column's bits
    equal to a K = 2 call's;
+2a. K1 on each divergence route (the ``kl`` and ``itakura_saito`` tiles,
+   and the squared-Euclidean tile on points mapped by a 315-long Mahalanobis
+   scale) against its plain version at small odd shapes and a ``row_base``
+   stripe;
 2b. the precision gate, which tells 3xTF32 from one TF32 product: on dense
    Gaussian points (numpy seed, d = 315) K4 at its timing shape, 2,048 x
    83,679, and K1 at N = 16,384 with K = 2 and K = 16 (logits spanning
@@ -29,7 +33,9 @@ Phases (any failure exits non-zero):
    must each be at most 2 x the plain float32 version's on the same inputs.
    The SecStr-like data of the main path has 0/1 features, so its distances
    are integers, exact in any order and in one TF32 product: the checks on it
-   cannot see a precision loss;
+   cannot see a precision loss; the same gate per divergence route on
+   positive points (|N(0,1)| + 0.1, d = 315, N = 16,384, K = 2 and 16,
+   logits spanning 37 units a row), then K1's time on every tile in turns;
 3. the main path, at the scale of the paper's SecStr benchmark
    (``secstr_like(83_679, 315, seed=3)``, ``|B| = 4N``): ``fit`` on the card,
    VDT label propagation (one request and a batch of 8 with per-request
@@ -68,12 +74,31 @@ Phases (any failure exits non-zero):
    model of phase 6 runs at its largest walker budget and equals a direct
    call bit for bit; (f) the phase's K1 and K5 launches, every K1 on
    ``tf32x3``;
+6c. ``[streaming]`` on the fitted model of phase 3: 4,096 points
+   (``secstr_like`` seed 7) inserted into its 47,393 free leaf slots, then
+   4,096 rows deleted, each timed by stage (mirror build, host patch,
+   host->device freeze, ``optimize_q_from_g``) and held to ``recompute`` on
+   the card (the reference harness's limits) and to the same mutation of a
+   CPU copy (update and tree bit for bit, q-state and LP at rtol=1e-4,
+   atol=1e-5); exact LP on the streamed epoch through K1 against plain; the
+   epoch published into a running engine while its first dispatch is in
+   flight (the queued answers equal an engine's that never saw it, bit for
+   bit through K1, within tolerance on vdt); then ``refine`` by 1 % of the
+   blocks, every block it refined a stale one;
 7. the reference's remaining op entry points, each at its shape: K2
    (``fused_lp_matvec``, N = 83,679), K3 (``fused_lp_step_batched(
    reuse=False)``, B = 8, N = 16,384), K4 (``pairwise_sq_dists``, one kNN
    block 2,048 x 83,679), against their plain versions and timed, K4 beside
    ``torch.cdist`` (yardstick only); and one point (N = 1, every column
    masked) through K1, K2 and K3;
+7b. ``[divergences]``: a ``kl`` fit at SecStr scale on x + 0.1 (|B| = 4N)
+   with VDT LP and 50 exact iterations through K1's kl tile; ``itakura_saito``
+   and the Mahalanobis scale fitted at N = 16,384 (``secstr_like`` seed 5,
+   + 0.1) with 10 exact iterations each; then each route's first 2 exact
+   iterations against the plain version, the kl model's VDT LP against a
+   CPU copy, K1's time at each route's shape in turns with the
+   squared-Euclidean tile on the same points, and K2 and K3 on each route
+   at their [ops] shapes, once each, against plain;
 8. K6 (flash attention) against its plain version at small shapes, both
    routes (float32: the 3xTF32 kernel, route ``sm90_tf32x3``; bfloat16: the
    bf16 kernel, ``sm90_bf16``), each launch counted on its route: head widths
@@ -103,7 +128,7 @@ Phases (any failure exits non-zero):
 
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
-be on ``tf32x3``, the tensor-core route; every float32 K6 launch must be on
+be on ``tf32x3``, the tensor-core route (K1-K3 also by divergence tile); every float32 K6 launch must be on
 ``sm90_tf32x3``.  Prints the card (``nvidia-smi``),
 one JSON line with the kernel table, and as its last line ``{"ok": true,
 "device": {...}}``.  Tolerance:
@@ -158,6 +183,14 @@ TC_ROUTE = "tf32x3"          # K1-K4's tensor-core route
 K6_F32_ROUTE = "sm90_tf32x3"  # K6's float32 route: 3xTF32 on the tensor cores
 K6_ROUTES = {"float32": K6_F32_ROUTE, "bfloat16": "sm90_bf16"}
 K6_GATE_SEED = 16
+# the divergences: kl at SecStr scale on x + 0.1 with 50 exact
+# iterations; itakura_saito and a 315-long Mahalanobis scale (drawn from
+# DIV_SCALE_SEED) at N = 16,384 with 10; gates on |N(0,1)| + 0.1 with logits
+# spanning GATE_SPAN units a row, as GATE_INV_TSS gives the Gaussian gate
+DIV_SHIFT, DIV_ITERS, DIV_SMALL_ITERS = 0.1, 50, 10
+DIV_N, DIV_DATA_SEED, DIV_SCALE_SEED, GATE_SPAN = 16_384, 5, 18, 37.0
+# streaming on the main path's model: 4,096 points in, 4,096 rows out
+STREAM_K, STREAM_SEED, STREAM_LP_ITERS, STREAM_EXACT_ITERS = 4_096, 7, 8, 5
 # the serving engine phase: checks at 10 iterations, a preempted 50-iteration
 # walk, and the reference's `uniform` serving scenario (benchmarks/serving.py)
 LP_ALPHAS, LP_CHECK_ITERS = (0.01, 0.05, 0.2), 10
@@ -216,19 +249,22 @@ def counters():
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
-        for route in getattr(fn, "launches_by_route", {}):
-            fn.launches_by_route[route] = 0
+        for by in ("launches_by_route", "launches_by_tile"):
+            for key in getattr(fn, by, {}):
+                getattr(fn, by)[key] = 0
 
 
 def read_counts() -> dict:
-    """Launches by kernel, and by route where a kernel has routes
-    (``K1 tf32x3``, ``K4 tf32x1_bf16``, ``K6 sm90_bf16``, ``K6 sm90_tf32x3``,
-    ...)."""
+    """Launches by kernel, by route where a kernel has routes (``K1
+    tf32x3``, ``K4 tf32x1_bf16``, ``K6 sm90_bf16``, ``K6 sm90_tf32x3``, ...)
+    and by divergence tile for K1-K3 (``K1 tile kl``, ...)."""
     counts = {}
     for k, fn in counters().items():
         counts[k] = fn.launches
         for route, n in getattr(fn, "launches_by_route", {}).items():
             counts[f"{k} {route}"] = n
+        for tile, n in getattr(fn, "launches_by_tile", {}).items():
+            counts[f"{k} tile {tile}"] = n
     return counts
 
 
@@ -1320,6 +1356,587 @@ def phase_single_point() -> None:
               f"{name} vs the reference's value")
 
 
+def positive_gaussian(rng, n: int, d: int) -> np.ndarray:
+    """|N(0, 1)| + 0.1: the reference streaming tests' positive points."""
+    return (np.abs(rng.randn(n, d)) + 0.1).astype(np.float32)
+
+
+def div_routes(d: int) -> list:
+    """(label, divergence) of the three new K1 routes: ``kl``,
+    ``itakura_saito`` and a Mahalanobis scale of length d drawn from
+    ``DIV_SCALE_SEED`` (so its digest-named path runs)."""
+    from repro_torch.core.divergence import mahalanobis
+
+    scale = np.random.RandomState(DIV_SCALE_SEED).uniform(0.5, 2.0, d)
+    return [("kl", "kl"), ("itakura_saito", "itakura_saito"),
+            ("mahalanobis", mahalanobis(scale))]
+
+
+def tile_inputs(spec, x):
+    """``x`` (a card tensor) under the route's point pre-map, its tile and
+    the tile's plain form (``None``: the squared-Euclidean tile)."""
+    from repro_torch.kernels.fused_lp import tile_config
+
+    tile, _, transform = tile_config(spec)
+    if transform is not None:
+        x = transform(x).contiguous()
+    return x, tile, None if tile is None else tile.tile
+
+
+def span_inv(xd, tile_fn) -> float:
+    """1 / (2 sigma^2) that makes a row of logits span ``GATE_SPAN`` units on
+    average (first 64 rows, float64), as ``GATE_INV_TSS`` does for the
+    squared-Euclidean gate."""
+    import torch
+
+    head = xd[:64]
+    if tile_fn is None:
+        d2 = ((head * head).sum(1)[:, None] + (xd * xd).sum(1)[None, :]
+              - 2.0 * (head @ xd.T))
+    else:
+        d2 = tile_fn(head, xd)
+    idx = torch.arange(head.shape[0], device=xd.device)
+    d2[idx, idx] = float("nan")
+    span = float((d2.nan_to_num(-1.0).amax(1)
+                  - d2.nan_to_num(1e30).amin(1)).mean())
+    return GATE_SPAN / span
+
+
+def phase_div_small() -> dict:
+    """K1 on each divergence route against its plain version at small odd
+    shapes (a ``row_base`` stripe among them); K2 and K3 are held per route
+    at their [ops] shapes (``phase_div_ops``)."""
+    import torch
+    from repro_torch.kernels.fused_lp import (alpha_row, folded_step,
+                                              folded_step_plain, kernel_tile)
+
+    print("[divergences: K1 vs plain on each route, small shapes]")
+    rng = np.random.RandomState(DIV_SCALE_SEED + 1)
+    errs = {}
+    for label, spec in div_routes(D_SECSTR):
+        worst = 0.0
+        for n, k, row_base in ((1_000, 2, 0), (4_099, 16, 0), (257, 33, 0),
+                               (300, 5, 37)):
+            x = torch.as_tensor(positive_gaussian(rng, n, D_SECSTR),
+                                device="cuda")
+            x, tile, fn = tile_inputs(spec, x)
+            inv = span_inv(x.double(), fn)
+            y = torch.as_tensor(rng.rand(n, k).astype(np.float32),
+                                device="cuda")
+            al = alpha_row(torch.as_tensor(rng.rand(k).astype(np.float32)),
+                           k, "cuda")
+            rows, y0 = x[row_base:].contiguous(), y[row_base:].contiguous()
+            before = folded_step.launches_by_tile[kernel_tile(tile)]
+            got = folded_step(rows, x, y, y0, al, inv, row_base, tile=tile)
+            check(folded_step.launches_by_tile[kernel_tile(tile)]
+                  == before + 1, f"{label}: K1 not counted on its tile")
+            worst = max(worst, close(
+                got, folded_step_plain(rows, x, y, y0, al, inv, row_base,
+                                       tile_fn=fn),
+                f"{label} K1 N={n} K={k} row_base={row_base}")[0])
+        errs[label] = worst
+    return errs
+
+
+def phase_div_gate() -> dict:
+    """The float64 gate per route, and K1's time on every tile in turns: on
+    positive Gaussian points (d = 315) at N = 16,384, K = 2 and 16."""
+    import torch
+    from repro_torch.kernels.fused_lp import folded_step, folded_step_plain
+
+    print(f"[divergence gate] |N(0,1)| + 0.1, d={D_SECSTR}, N={GATE_N_K1}: "
+          f"K1 vs float64 within {GATE_RATIO} x the plain float32 version's"
+          f" error; logits spanning {GATE_SPAN} units a row")
+    rng = np.random.RandomState(GATE_SEED + 1)
+    x0 = torch.as_tensor(positive_gaussian(rng, GATE_N_K1, D_SECSTR),
+                         device="cuda")
+    routes = [("sqeuclidean", None)] + div_routes(D_SECSTR)
+    inputs, gate = {}, {}
+    for label, spec in routes:
+        x, tile, fn = tile_inputs(spec, x0)
+        xd = x.double()
+        inv = span_inv(xd, fn)
+        inputs[label] = (x, tile, fn, inv)
+        if spec is None:
+            continue
+        for k in (2, 16):
+            y = torch.as_tensor(rng.rand(GATE_N_K1, k).astype(np.float32),
+                                device="cuda")
+            al = torch.as_tensor(rng.rand(k).astype(np.float32),
+                                 device="cuda")
+            ref = folded_step_plain(xd, xd, y.double(), y.double(),
+                                    al.double(), inv, tile_fn=fn)
+            gate[f"{label} K={k}"] = gate_check(
+                f"K1 {label} N={GATE_N_K1} K={k}",
+                folded_step(x, x, y, y, al, inv, tile=tile),
+                folded_step_plain(x, x, y, y, al, inv, tile_fn=fn), ref)
+    failed = [k for k, v in gate.items() if not v["ok"]]
+    check(not failed, f"divergence gate failed for {failed}")
+
+    print(f"[K1 timing per tile] N={GATE_N_K1} d={D_SECSTR}, in turns "
+          f"(squared Euclidean first and last)")
+    timing = {}
+    n, d = GATE_N_K1, D_SECSTR
+    for k in (2, 16):
+        y = torch.as_tensor(rng.rand(n, k).astype(np.float32), device="cuda")
+        al = torch.as_tensor(rng.rand(k).astype(np.float32), device="cuda")
+        order = [r[0] for r in routes]
+        ms = {label: [] for label in order}
+        for label in order + order[::-1]:
+            x, tile, _, inv = inputs[label]
+            ms[label].append(cuda_ms(
+                lambda: folded_step(x, x, y, y, al, inv, tile=tile), 5))
+        for label in order:
+            x, _, fn, inv = inputs[label]
+            plain_ms = cuda_ms(lambda: folded_step_plain(
+                x, x, y, y, al, inv, tile_fn=fn), 1)
+            bound_ms, by, _ = tc_bound(n, n, d, k,
+                                       4.0 * (n * d + 3 * n * k + k))
+            rel = ms[label][0] / ms["sqeuclidean"][0]
+            print(f"  K={k} {label}: K1 {ms[label][0]:.3f} / "
+                  f"{ms[label][1]:.3f} ms, {rel:.3f} x squared Euclidean; "
+                  f"plain {plain_ms:.2f} ms; bound {bound_ms:.3f} ms ({by}),"
+                  f" {bound_ms / ms[label][0]:.3f} of it")
+            timing[f"{label} K={k}"] = dict(
+                ms=ms[label][0], ms2=ms[label][1], plain_ms=plain_ms,
+                bound_ms=bound_ms, by=by, vs_sqeuclidean=rel)
+    return dict(gate=gate, timing=timing)
+
+
+def phase_divergences(data) -> dict:
+    """[divergences], the routes' main path: a ``kl`` fit at SecStr scale on
+    the positive orthant (x + 0.1, |B| = 4N) with 50 exact iterations
+    through K1; ``itakura_saito`` and the Mahalanobis scale fitted at
+    N = 16,384, d = 315, with 10 exact iterations each."""
+    import torch
+    from repro_torch import VariationalDualTree, one_hot_labels
+    from repro_torch.core.divergence import resolve_divergence
+    from repro_torch.data.synthetic import secstr_like
+    from repro_torch.kernels.fused_lp import folded_step, kernel_tile, \
+        tile_config
+
+    small = secstr_like(DIV_N, D_SECSTR, seed=DIV_DATA_SEED)
+    runs = {}
+    for (label, spec), d_set, iters in zip(
+            div_routes(D_SECSTR), (data, small, small),
+            (DIV_ITERS, DIV_SMALL_ITERS, DIV_SMALL_ITERS)):
+        x = d_set.x + DIV_SHIFT
+        n = x.shape[0]
+        print(f"[divergences: {label}] fit N={n} d={x.shape[1]} |B|=4N on "
+              f"x + {DIV_SHIFT}, then {iters} exact iterations through K1")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vdt = VariationalDualTree.fit(x, max_blocks=4 * n, refine_batch=512,
+                                      sigma_iters=3, divergence=spec)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        s = vdt.stats
+        print(f"  fit {fit_s:.2f} s: build_tree {s.build_tree_s:.2f} s, "
+              f"sigma+q {s.init_qopt_s:.2f} s ({s.sigma_iters} sigma iters),"
+              f" refine {s.refine_s:.2f} s; divergence {vdt.divergence_name},"
+              f" n_blocks={vdt.n_blocks} sigma={s.sigma:.6f} bound="
+              f"{s.bound:.6e}; max_memory_allocated="
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(vdt.device.type == "cuda" and np.isfinite(s.bound)
+              and vdt.n_blocks >= 4 * n, f"{label}: bad fit")
+        check(vdt.divergence_name == resolve_divergence(spec).name,
+              f"{label}: fitted {vdt.divergence_name}")
+        mask = np.random.RandomState(11).rand(n) < 0.10
+        y0 = one_hot_labels(d_set.labels, mask, d_set.n_classes)
+        res_vdt = vdt.label_propagate(y0, alpha=0.01, n_iters=VDT_ITERS)
+        check(bool(torch.isfinite(res_vdt).all()), f"{label}: vdt non-finite")
+        tile = kernel_tile(tile_config(spec)[0])
+        before, before_tile = folded_step.launches, \
+            folded_step.launches_by_tile[tile]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = vdt.label_propagate(y0, alpha=0.01, n_iters=iters,
+                                  backend="exact")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = folded_step.launches - before
+        check(launches == iters and folded_step.launches_by_tile[tile]
+              - before_tile == iters,
+              f"{label}: {launches} K1 launches for {iters} iterations")
+        check(bool(torch.isfinite(res).all()), f"{label}: exact non-finite")
+        agree = float((res.argmax(-1) == res_vdt.argmax(-1)).float().mean())
+        print(f"  exact: {sec / iters * 1e3:.1f} ms per iteration, K1 "
+              f"launches {launches} on the {tile} tile, argmax agreement "
+              f"with vdt {agree:.4f}")
+        runs[label] = dict(vdt=vdt, y0=y0, res_vdt=res_vdt, spec=spec,
+                           launches=launches, tile=tile, fit_s=fit_s,
+                           refine_s=s.refine_s, exact_ms=sec / iters * 1e3,
+                           n=n)
+    return runs
+
+
+def phase_div_after(runs) -> dict:
+    """The routes' first 2 exact iterations against the plain version on the
+    card, the kl model's VDT LP against a CPU copy, and K1's time at each
+    route's path shape (K = 2)."""
+    import torch
+    from repro_torch.kernels.fused_lp import (alpha_row, folded_step,
+                                              folded_step_plain)
+
+    print("[divergences: first 2 exact iterations, K1 vs plain on the card; "
+          "K1 timing at the path's shapes]")
+    rows = {}
+    for label, r in runs.items():
+        vdt, y0 = r["vdt"], r["y0"]
+        x, tile, fn = tile_inputs(r["spec"], vdt.x_rows)
+        sigma = float(vdt.sigma)
+        inv = float(1.0 / (2.0 * sigma * sigma))
+        al = alpha_row(0.01, y0.shape[1], "cuda")
+        got = vdt.label_propagate(y0, alpha=0.01, n_iters=2, backend="exact")
+        want = y0
+        for _ in range(2):
+            want = folded_step_plain(x, x, want, y0, al, inv, tile_fn=fn)
+        err = close(got, want, f"{label} N={r['n']} K={y0.shape[1]}")[0]
+        n, d = x.shape
+        k = y0.shape[1]
+        plain_ms = cuda_ms(lambda: folded_step_plain(x, x, y0, y0, al, inv,
+                                                     tile_fn=fn), 1)
+        # in turns with the squared-Euclidean tile on the same points, once
+        # with the rows as the columns (one split, as a scan launches it) and
+        # once with the columns a copy (two splits, two operand arrays in
+        # L2, as the kl and itakura_saito tiles always have)
+        xc = x.clone()
+        fns = {"tile": lambda: folded_step(x, x, y0, y0, al, inv, tile=tile),
+               "sq": lambda: folded_step(x, x, y0, y0, al, inv),
+               "sq_two_operands": lambda: folded_step(x, xc, y0, y0, al, inv)}
+        turns = {name: [] for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            turns[name].append(cuda_ms(fns[name], 3))
+        del xc
+        ms, ms2 = turns["tile"]
+        print(f"  {label} at N={n} K={k}, in turns (ms per launch): its tile "
+              f"{ms:.2f} / {ms2:.2f}; squared-Euclidean tile on the same "
+              f"points {turns['sq'][0]:.2f} / {turns['sq'][1]:.2f}, with the "
+              f"columns a copy {turns['sq_two_operands'][0]:.2f} / "
+              f"{turns['sq_two_operands'][1]:.2f}")
+        bound_ms, by, f32_ms = tc_bound(n, n, d, k,
+                                        4.0 * (n * d + 3 * n * k + k))
+        print(f"  {label} K1 at N={n} K={k}: {ms:.2f} / {ms2:.2f} ms per "
+              f"launch, plain {plain_ms:.2f} ms, bound {bound_ms:.2f} ms "
+              f"({by}), {bound_ms / ms:.3f} of it; float32 CUDA-core bound "
+              f"{f32_ms:.2f} ms")
+        rows[label] = dict(err=err, ms=ms, ms2=ms2, plain_ms=plain_ms,
+                           bound_ms=bound_ms, by=by, shape=f"N={n} d={d} "
+                           f"K={k}", launches=r["launches"], tile=r["tile"],
+                           sq_ms=turns["sq"],
+                           sq_two_operands_ms=turns["sq_two_operands"],
+                           fit_s=r["fit_s"], refine_s=r["refine_s"],
+                           exact_ms_per_iter=r["exact_ms"],
+                           divergence=vdt.divergence_name)
+    kl = runs["kl"]
+    cpu = kl["vdt"].to("cpu")
+    close(kl["res_vdt"], cpu.label_propagate(kl["y0"].cpu(), alpha=0.01,
+                                             n_iters=VDT_ITERS),
+          "kl vdt LP on the card vs a CPU copy")
+    return rows
+
+
+def phase_div_ops(data) -> dict:
+    """K2 and K3 on each divergence route through the reference's op entry
+    points at their [ops] shapes (K2: N = 83,679, C = 2; K3: B = 8,
+    N = 16,384, C = 2) on the SecStr points + 0.1: one launch each, counted,
+    against the plain version on the same mapped points, timed."""
+    import torch
+    from repro_torch.kernels.fused_lp import (fused_lp_matvec,
+                                              fused_lp_step_batched,
+                                              kernel_tile, matvec_plain,
+                                              step_batched_perbatch_plain)
+
+    print(f"[divergences: K2 and K3 at the [ops] shapes] K2 N={N_SECSTR} "
+          f"C=2, K3 B={K3_BATCH} N={K3_N} C=2, on x + {DIV_SHIFT}")
+    x = torch.as_tensor(data.x + DIV_SHIFT, device="cuda")
+    xs = x[:K3_N].contiguous()
+    rng = np.random.RandomState(DIV_SCALE_SEED + 2)
+    y = torch.as_tensor((rng.rand(N_SECSTR, 2) > 0.9).astype(np.float32),
+                        device="cuda")
+    ys = torch.as_tensor((rng.rand(K3_BATCH, K3_N, 2) > 0.9)
+                         .astype(np.float32), device="cuda")
+    n, d = x.shape
+    rows = {}
+    for label, spec in div_routes(D_SECSTR):
+        xt, tile, fn = tile_inputs(spec, x)
+        xst = xt[:K3_N].contiguous()
+        inv = span_inv(xst.double(), fn)
+        sigma = (0.5 / inv) ** 0.5
+        reset_counts()
+        k2 = fused_lp_matvec(x, y, sigma, divergence=spec)
+        k3 = fused_lp_step_batched(xs, ys, ys, sigma, 0.01, reuse=False,
+                                   divergence=spec)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        name = kernel_tile(tile)
+        for k in ("K2", "K3"):
+            check(counts[k] == 1 and counts[f"{k} tile {name}"] == 1,
+                  f"{label}: {k} launched {counts[k]} times")
+        check_tc_route(counts, ("K2", "K3"))
+        cases = (
+            ("K2", k2, f"N={n} d={d} C=2",
+             lambda: fused_lp_matvec(x, y, sigma, divergence=spec),
+             lambda: matvec_plain(xt, y, inv, tile_fn=fn),
+             tc_bound(n, n, d, 2, 4.0 * (n * d + 2 * n * 2))),
+            ("K3", k3, f"B={K3_BATCH} N={K3_N} d={d} C=2",
+             lambda: fused_lp_step_batched(xs, ys, ys, sigma, 0.01,
+                                           reuse=False, divergence=spec),
+             lambda: step_batched_perbatch_plain(xst, ys, ys, 0.01, inv,
+                                                 tile_fn=fn),
+             tc_bound(K3_BATCH * K3_N, K3_N, d, 2,
+                      4.0 * (K3_N * d + 3 * K3_BATCH * K3_N * 2))))
+        rows[label] = {}
+        for k, got, shape, kernel, plain, (b_ms, by, _) in cases:
+            err = close(got, plain(), f"{label} {k} {shape} vs plain")[0]
+            ms, plain_ms = cuda_ms(kernel, 2), cuda_ms(plain, 1)
+            print(f"  {label} {k}: {ms:.3f} ms per launch, plain "
+                  f"{plain_ms:.2f} ms, bound {b_ms:.3f} ms ({by}), "
+                  f"{b_ms / ms:.3f} of it")
+            rows[label][k] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, by=by, shape=shape,
+                                  launches=counts[k], tile=name)
+    return rows
+
+
+def recompute_check(what: str, vdt) -> None:
+    """A streamed epoch against ``recompute`` on the card, at the limits of
+    the reference's harness (``tests/test_streaming.py``)."""
+    import torch
+    from repro_torch.core.streaming import recompute
+
+    ora = recompute(vdt)
+    w_scale = max(1.0, float(ora.tree.W.abs().max()))
+    for name in ("W", "S1", "S2"):
+        close(getattr(vdt.tree, name), getattr(ora.tree, name),
+              f"{what} {name} vs recompute", 2e-4, 1e-3 * w_scale)
+    check(np.array_equal(vdt.bp.active, ora.bp.active),
+          f"{what}: active differs from recompute")
+    lq, lq_ora = vdt.qstate.log_q, ora.qstate.log_q
+    fin = torch.isfinite(lq_ora)
+    check(torch.equal(torch.isfinite(lq), fin),
+          f"{what}: log_q -inf pattern differs from recompute")
+    close(lq[fin], lq_ora[fin], f"{what} log_q vs recompute", 1e-3, 5e-4)
+    y0 = torch.as_tensor((np.random.RandomState(5).rand(
+        vdt.tree.n_points, 2) > 0.8).astype(np.float32), device="cuda")
+    close(vdt.label_propagate(y0, alpha=0.1, n_iters=STREAM_LP_ITERS),
+          ora.label_propagate(y0, alpha=0.1, n_iters=STREAM_LP_ITERS),
+          f"{what} vdt LP vs recompute", 0.0, 2e-3)
+
+
+def cpu_copy_check(what: str, upd, cpu_upd) -> None:
+    """The card's epoch against the same mutation of a CPU copy: the same
+    update, the same host-built tree (bit for bit), q-state and LP within
+    the LP tolerance."""
+    import torch
+
+    check(np.array_equal(upd.rows, cpu_upd.rows)
+          and (upd.row_map is None) == (cpu_upd.row_map is None)
+          and (upd.row_map is None
+               or np.array_equal(upd.row_map, cpu_upd.row_map))
+          and (upd.touched_blocks, upd.stale_blocks)
+          == (cpu_upd.touched_blocks, cpu_upd.stale_blocks),
+          f"{what}: the update differs from the CPU copy's")
+    for name in ("x_leaf", "w_leaf", "slot_of", "leaf_of", "W", "S1", "S2"):
+        check(torch.equal(getattr(upd.vdt.tree, name).cpu(),
+                          getattr(cpu_upd.vdt.tree, name)),
+              f"{what}: tree {name} differs from the CPU copy's")
+    check(np.array_equal(upd.vdt.bp.active, cpu_upd.vdt.bp.active),
+          f"{what}: active differs from the CPU copy's")
+    lq, lq_cpu = upd.vdt.qstate.log_q.cpu(), cpu_upd.vdt.qstate.log_q
+    fin = torch.isfinite(lq_cpu)
+    check(torch.equal(torch.isfinite(lq), fin),
+          f"{what}: log_q -inf pattern differs from the CPU copy's")
+    close(lq[fin], lq_cpu[fin], f"{what} log_q vs the CPU copy")
+    y0 = (np.random.RandomState(6).rand(upd.vdt.tree.n_points, 2)
+          > 0.8).astype(np.float32)
+    close(upd.vdt.label_propagate(y0, alpha=0.1, n_iters=STREAM_LP_ITERS),
+          cpu_upd.vdt.label_propagate(y0, alpha=0.1,
+                                      n_iters=STREAM_LP_ITERS),
+          f"{what} vdt LP vs the CPU copy")
+    print(f"  {what}: update, tree (bit for bit) and partition equal the CPU"
+          f" copy's")
+
+
+def stream_publish(vdt0, upd) -> dict:
+    """A streamed epoch published into a running ``PropagateEngine`` while
+    its first dispatch is in flight: the entries queued before the publish
+    resolve as on an engine that never saw it (bit for bit through K1,
+    within the LP tolerance on vdt), those after it as on an engine of the
+    new epoch."""
+    import threading
+
+    import torch
+    from repro_torch.serving import PropagateEngine
+
+    class Signalling(PropagateEngine):
+        def __init__(self, *args, **kwargs):
+            self.started = threading.Event()
+            super().__init__(*args, **kwargs)
+
+        def _scan(self, *args, **kwargs):
+            self.started.set()
+            return super()._scan(*args, **kwargs)
+
+    vdt1 = upd.vdt
+    n0, n1 = vdt0.tree.n_points, vdt1.tree.n_points
+    out = {}
+    for backend, iters in (("exact", STREAM_EXACT_ITERS),
+                           ("vdt", VDT_ITERS)):
+        reqs_old = lp_requests(n0, 4, (2,), 31, iters)
+        reqs_new = lp_requests(n1, 4, (2,), 32, iters)
+
+        def control(vdt, reqs):
+            eng = PropagateEngine(vdt, start=False, max_batch=2,
+                                  backend=backend)
+            futs = [eng.submit(q) for q in reqs]
+            eng.flush()
+            res = [f.result(timeout=0) for f in futs]
+            eng.shutdown()
+            return res
+
+        want_old, want_new = control(vdt0, reqs_old), control(vdt1, reqs_new)
+        eng = Signalling(vdt0, max_batch=2, max_wait_ms=1.0, backend=backend)
+        futs_old = [eng.submit(q) for q in reqs_old]
+        check(eng.started.wait(120), f"publish {backend}: no dispatch began")
+        eid = eng.publish(vdt1, patched_points=upd.patched_points,
+                          stale_blocks=upd.stale_blocks)
+        live = eng.metrics().live_epochs
+        futs_new = [eng.submit(q) for q in reqs_new]
+        got_old = [f.result(timeout=300) for f in futs_old]
+        got_new = [f.result(timeout=300) for f in futs_new]
+        eng.shutdown()
+        m = eng.metrics()
+        check(eid == 1 and live == 2 and m.epochs_published == 1
+              and m.epochs_retired == 1 and m.live_epochs == 1,
+              f"publish {backend}: epoch {eid}, live {live} then "
+              f"{m.live_epochs}, retired {m.epochs_retired}")
+        check([g.shape[0] for g in got_old] == [n0] * 4
+              and [g.shape[0] for g in got_new] == [n1] * 4,
+              f"publish {backend}: an answer of the wrong epoch")
+        same = all(np.array_equal(g, w) for g, w in zip(got_old + got_new,
+                                                       want_old + want_new))
+        if backend == "exact":
+            check(same, "publish exact: old or new answers differ from the "
+                        "control engines' bit for bit")
+        for g, w in zip(got_old + got_new, want_old + want_new):
+            close(torch.as_tensor(g), torch.as_tensor(w),
+                  f"publish {backend} answer vs control")
+        print(f"  publish mid-flight, {backend}: epoch {eid} published while"
+              f" dispatch 1 ran (live epochs {live}), 4 old + 4 new answers"
+              f" == control engines {'bit for bit' if same else 'within '}"
+              f"{'' if same else 'rtol=1e-4, atol=1e-5'}; retired "
+              f"{m.epochs_retired}, patched_points {m.patched_points}, "
+              f"stale_blocks {m.stale_blocks}")
+        out[backend] = dict(bitwise=same, live_epochs_at_publish=live)
+    return out
+
+
+def phase_streaming(out) -> dict:
+    """[streaming] on the fitted SecStr model of the main path: insert 4,096
+    points into its ghost headroom, delete 4,096 rows, each epoch held to
+    ``recompute`` on the card and to a CPU copy; exact LP on the streamed
+    epoch through K1 against plain; a publish into a running engine; then
+    stale-first refinement by 1 % of the blocks."""
+    import torch
+    from repro_torch.data.synthetic import secstr_like
+    from repro_torch.kernels.fused_lp import (alpha_row, folded_step,
+                                              folded_step_plain)
+
+    vdt0 = out["vdt"]
+    tree = vdt0.tree
+    n0 = tree.n_points
+    print(f"[streaming] the main path's model: N={n0}, L={tree.L}, "
+          f"{tree.n_leaves} leaf slots, {tree.n_leaves - n0} free; insert "
+          f"{STREAM_K} (secstr_like seed {STREAM_SEED}), delete {STREAM_K}")
+    x_new = secstr_like(STREAM_K, D_SECSTR, seed=STREAM_SEED).x
+    cpu0 = vdt0.to("cpu")
+    timings = {}
+    t0 = time.perf_counter()
+    ins = vdt0.insert_points(x_new)
+    wall = time.perf_counter() - t0
+    timings["insert"] = dict(wall_s=wall, **ins.seconds)
+    print(f"  insert {STREAM_K}: {wall:.3f} s wall: mirrors "
+          f"{ins.seconds['mirrors']:.3f} s, host patch "
+          f"{ins.seconds['patch']:.3f} s, freeze {ins.seconds['freeze']:.3f}"
+          f" s, optimize_q_from_g {ins.seconds['qopt']:.3f} s; touched "
+          f"{ins.touched_blocks} blocks, stale {ins.stale_blocks}, n_blocks "
+          f"{ins.vdt.n_blocks}")
+    check(ins.vdt.tree.n_points == n0 + STREAM_K
+          and np.array_equal(ins.rows, n0 + np.arange(STREAM_K)),
+          "insert: bad rows")
+    check(ins.vdt.device.type == "cuda", "insert: the epoch left the card")
+    recompute_check("insert", ins.vdt)
+    cpu_ins = cpu0.insert_points(x_new)
+    cpu_copy_check("insert", ins, cpu_ins)
+
+    rows = np.sort(np.random.RandomState(STREAM_SEED).choice(
+        n0 + STREAM_K, STREAM_K, replace=False))
+    t0 = time.perf_counter()
+    dele = ins.vdt.delete_points(rows)
+    wall = time.perf_counter() - t0
+    timings["delete"] = dict(wall_s=wall, **dele.seconds)
+    print(f"  delete {STREAM_K}: {wall:.3f} s wall: mirrors "
+          f"{dele.seconds['mirrors']:.3f} s, host patch "
+          f"{dele.seconds['patch']:.3f} s, freeze "
+          f"{dele.seconds['freeze']:.3f} s, optimize_q_from_g "
+          f"{dele.seconds['qopt']:.3f} s; touched {dele.touched_blocks} "
+          f"blocks, stale {dele.stale_blocks}, n_blocks {dele.vdt.n_blocks}")
+    check(dele.vdt.tree.n_points == n0 and int((dele.row_map >= 0).sum())
+          == n0, "delete: bad row map")
+    recompute_check("delete", dele.vdt)
+    cpu_copy_check("delete", dele, cpu_ins.vdt.delete_points(rows))
+    del cpu0, cpu_ins
+
+    vdt = dele.vdt
+    x = vdt.x_rows
+    sigma = float(vdt.sigma)
+    inv = float(1.0 / (2.0 * sigma * sigma))
+    y0 = torch.as_tensor((np.random.RandomState(8).rand(n0, 2) > 0.9)
+                         .astype(np.float32), device="cuda")
+    al = alpha_row(0.01, 2, "cuda")
+    before = folded_step.launches
+    got = vdt.label_propagate(y0, alpha=0.01, n_iters=2, backend="exact")
+    check(folded_step.launches - before == 2, "streamed exact: K1 launches")
+    want = y0
+    for _ in range(2):
+        want = folded_step_plain(x, x, want, y0, al, inv)
+    err = close(got, want, "streamed epoch exact LP (2 iterations) K1 vs "
+                           "plain")[0]
+
+    publish = stream_publish(vdt0, dele)
+
+    stream = vdt._stream
+    check(stream is not None and stream.owner() is vdt,
+          "the streamed epoch lost its mirrors")
+    stale = stream.stale[:vdt.bp.n].copy()
+    refined_before = vdt.bp.refined[:vdt.bp.n].copy()
+    nb0, b0 = vdt.n_blocks, vdt.bound
+    budget = int(nb0 * 1.01)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vdt.refine(max_blocks=budget, batch=512)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    picked = vdt.bp.refined[:refined_before.size] & ~refined_before
+    frac = float(stale[picked].mean()) if picked.any() else 0.0
+    print(f"  refine to {budget} blocks (+1 %): {refine_s:.2f} s, "
+          f"{nb0} -> {vdt.n_blocks} blocks, {int(stale.sum())} stale before,"
+          f" {int(picked.sum())} refined, {frac:.4f} of them stale; bound "
+          f"{b0:.6e} -> {vdt.bound:.6e}")
+    check(vdt.n_blocks >= budget and np.isfinite(vdt.bound)
+          and vdt.bound >= b0 - 1e-6 * abs(b0), "refine: bad state")
+    check(picked.any() and frac == 1.0,
+          "refine: the budget went to blocks no mutation touched first")
+    check(vdt._stream is None, "refine kept stale mirrors")
+    return dict(timings=timings, exact_err=err, publish=publish,
+                refine=dict(seconds=refine_s, blocks=[nb0, vdt.n_blocks],
+                            stale=int(stale.sum()), refined=int(picked.sum()),
+                            stale_fraction=frac),
+                touched=[ins.touched_blocks, dele.touched_blocks],
+                stale_blocks=[ins.stale_blocks, dele.stale_blocks])
+
+
 def close_k6(got, want, what: str) -> tuple[float, float]:
     """Hold K6 to its plain version: elementwise (``2e-4`` for float32,
     ``K6_BF16_PLAIN_TOL`` for bfloat16), then each block of 64 query rows of
@@ -1716,8 +2333,10 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     phase_kernel_small()
+    div_small_err = phase_div_small()
     phase_k5_small()
     gate = phase_gate()
+    div_gate = phase_div_gate()
     data = secstr_like(N_SECSTR, D_SECSTR, seed=3)
 
     reset_counts()
@@ -1758,9 +2377,31 @@ def main() -> int:
     check_tc_route(engine_counts, ("K1",))
     print(f"[lp engine] summary {json.dumps(engine)}")
     del vdt_grf
+
+    reset_counts()
+    stream = phase_streaming(out)
+    stream_counts = read_counts()
+    print(f"  streaming path launches {stream_counts}")
+    check(stream_counts["K1"] > 0, "streaming: K1 not launched")
+    check_tc_route(stream_counts, ("K1",))
+    print(f"[streaming] summary {json.dumps(stream)}")
     ops = phase_ops(out)
     phase_single_point()
-    del out, data
+    del out
+
+    reset_counts()
+    divs = phase_divergences(data)
+    div_counts = read_counts()
+    print(f"  divergence path launches {div_counts}")
+    for label, r in divs.items():
+        check(div_counts[f"K1 tile {r['tile']}"] >= r["launches"] > 0,
+              f"{label}: K1 launched {r['launches']} times on its tile")
+    check(div_counts["K1"] == sum(r["launches"] for r in divs.values()),
+          f"divergence path: {div_counts['K1']} K1 launches")
+    check_tc_route(div_counts, ("K1",))
+    div_after = phase_div_after(divs)
+    div_ops = phase_div_ops(data)
+    del divs, data
 
     k6_small_err = phase_k6_small()
     lm = phase_lm_serve()
@@ -1788,7 +2429,31 @@ def main() -> int:
         lp_engine=dict(launches=engine_counts["K1"],
                        launches_tf32x3=engine_counts[f"K1 {TC_ROUTE}"],
                        k64=engine["wide_exact"]),
-        gate={k: v for k, v in gate.items() if k.startswith("K1")}, **tc)]
+        gate={k: v for k, v in gate.items() if k.startswith("K1")},
+        streaming_launches=stream_counts["K1"],
+        by_tile_n16384={k: v for k, v in div_gate["timing"].items()
+                        if k.startswith("sqeuclidean")}, **tc)]
+    # K1's divergence routes: the same kernel on the kl and
+    # itakura_saito tiles, and on the squared-Euclidean tile after the
+    # Mahalanobis pre-map; launches from the [divergences] path
+    for label, r in div_after.items():
+        kernels.append(dict(
+            name=f"K1 folded fused LP step, {label} route", route="cuda",
+            source="src/repro_torch/kernels/fused_lp/csrc/folded_lp.cu",
+            replaces="src/repro/kernels/fused_lp/batched.py:231",
+            launches=r["launches"], max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["by"],
+            library_ms=None, shape=r["shape"], ms2=r["ms2"],
+            divergence=r["divergence"], kernel_tile=r["tile"],
+            sqeuclidean_tile_ms_in_turns=r["sq_ms"],
+            sqeuclidean_two_operands_ms_in_turns=r["sq_two_operands_ms"],
+            launches_tf32x3=r["launches"],  # the window was all on tf32x3
+            fit_s=r["fit_s"], exact_ms_per_iter=r["exact_ms_per_iter"],
+            small_shapes_max_abs_err=div_small_err[label],
+            gate={k: v for k, v in div_gate["gate"].items()
+                  if k.startswith(label)},
+            by_tile_n16384={k: v for k, v in div_gate["timing"].items()
+                            if k.startswith(label)}, **tc))
     for k, name, source, replaces in (
             ("K2", "K2 fused LP matvec",
              "src/repro_torch/kernels/fused_lp/csrc/folded_lp.cu",
@@ -1807,6 +2472,8 @@ def main() -> int:
             bound_by=r["bound"][1], library_ms=r.get("lib_ms"),
             shape=r["shape"],
             launches_tf32x3=ops["counts"][f"{k} {TC_ROUTE}"], **tc,
+            **({} if k == "K4" else dict(divergence_routes={
+                label: r[k] for label, r in div_ops.items()})),
             **(dict(ms2=r["ms2"], library_ms2=r["lib_ms2"], gate=gate["K4"])
                if k == "K4" else {})))
     r400 = next(r for r in k5["rows"] if r["m"] == 400 and r["k"] == 2)

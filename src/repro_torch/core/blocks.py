@@ -2,8 +2,7 @@
 
 Host numpy, copied from the reference; the only changes are reading tree
 tensors back to the host (``_host``) and :func:`device_blocks`, which hands
-the partition to the device.  ``complete_forest`` and ``refresh_active``
-come with the streaming slice.
+the partition to the device.
 
 Block partitions of the transition matrix over the shared partition tree.
 
@@ -27,9 +26,9 @@ import torch
 
 from repro_torch.core.tree import PartitionTree, leaf_range, node_level
 
-__all__ = ["BlockPartition", "coarsest_partition", "densify_q",
-           "device_blocks", "mirror_invariant_ok", "levels_of",
-           "validate_partition"]
+__all__ = ["BlockPartition", "coarsest_partition", "complete_forest",
+           "densify_q", "device_blocks", "mirror_invariant_ok", "levels_of",
+           "refresh_active", "validate_partition"]
 
 
 def _host(t) -> np.ndarray:
@@ -123,6 +122,54 @@ def coarsest_partition(tree: PartitionTree, cap: int | None = None) -> BlockPart
     w = _host(tree.W)
     bp.active[:n0] = (w[bp.a[:n0]] > 0) & (w[bp.b[:n0]] > 0)
     return bp
+
+
+def complete_forest(bp: BlockPartition) -> BlockPartition:
+    """Copy ``bp`` with every refined slot's missing children restored.
+
+    ``refine_topk`` drops a refined block's child when its kernel side is
+    all-ghost: the child covers no real pair at fit time.  Streaming
+    mutations can later put mass INTO such a subtree, so before any
+    weight-driven coverage math (:func:`refresh_active`) the streaming layer
+    appends the missing children here, inactive, with no mirror.  Always
+    returns a fresh copy-on-write partition; on an already-complete forest
+    the copy has nothing appended.
+    """
+    n = bp.n
+    have = set(zip(bp.a[:n].tolist(), bp.b[:n].tolist()))
+    miss_a, miss_b = [], []
+    for i in np.flatnonzero(bp.refined[:n]):
+        ai, bi = int(bp.a[i]), int(bp.b[i])
+        for bc in (2 * bi + 1, 2 * bi + 2):
+            if (ai, bc) not in have:
+                miss_a.append(ai)
+                miss_b.append(bc)
+    out = BlockPartition(
+        a=bp.a.copy(), b=bp.b.copy(), mirror=bp.mirror.copy(),
+        active=bp.active.copy(), n=bp.n, cap=bp.cap,
+        refined=bp.refined.copy())
+    if miss_a:
+        out.append_pairs(
+            np.asarray(miss_a, np.int32), np.asarray(miss_b, np.int32),
+            np.full(len(miss_a), -1, np.int32),
+            active_new=np.zeros(len(miss_a), bool))
+    return out
+
+
+def refresh_active(bp: BlockPartition, W) -> np.ndarray:
+    """Recompute ``active`` from per-node weights ``W`` (streaming updates).
+
+    Requires a *complete* refinement forest (:func:`complete_forest`): the
+    unrefined slots then tile every off-diagonal leaf pair exactly once, so
+    ``active = ~refined & (W[a] > 0) & (W[b] > 0)`` is the unique correct
+    coverage for any weight vector.  Returns the new (cap,) active array
+    without mutating ``bp``.
+    """
+    W = _host(W)
+    n = bp.n
+    active = np.zeros(bp.cap, bool)
+    active[:n] = (~bp.refined[:n]) & (W[bp.a[:n]] > 0) & (W[bp.b[:n]] > 0)
+    return active
 
 
 def validate_partition(bp: BlockPartition, tree: PartitionTree) -> bool:

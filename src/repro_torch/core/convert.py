@@ -4,6 +4,9 @@
 plain numpy arrays — for instance the reference package's fit, so that the
 port's later stages can be held against the reference on the reference's
 own tree (the port's own tree build may order near-tied points differently).
+The optional ``divergence`` key names the fitted divergence: a registry name,
+or a ``mahalanobis`` scale vector; without it the model is ``sqeuclidean``.
+The port binds it to the carried tree, computing its own Bregman stats.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core import divergence as div_mod
 from repro_torch.core.blocks import BlockPartition
 from repro_torch.core.qopt import QState
 from repro_torch.core.tree import PartitionTree
@@ -30,8 +34,16 @@ STATE_KEYS = (
 )
 
 
+def _divergence(spec) -> div_mod.Divergence:
+    """A registry name, or the scale vector of a ``mahalanobis`` divergence."""
+    if spec is None or isinstance(spec, str):
+        return div_mod.resolve_divergence(spec)
+    return div_mod.mahalanobis(spec)
+
+
 def vdt_from_numpy(arrays: dict, *, device) -> VariationalDualTree:
-    """A :class:`VariationalDualTree` on ``device`` from ``STATE_KEYS`` arrays."""
+    """A :class:`VariationalDualTree` on ``device`` from ``STATE_KEYS`` arrays
+    and, optionally, ``divergence`` (see the module docstring)."""
     missing = [k for k in STATE_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"fitted state lacks {missing}")
@@ -55,7 +67,9 @@ def vdt_from_numpy(arrays: dict, *, device) -> VariationalDualTree:
                     log_z=tensor("log_z"), log_zt=tensor("log_zt"),
                     bound=tensor("bound"))
     sigma = tensor("sigma")
+    bound = div_mod.bind_divergence(_divergence(arrays.get("divergence")),
+                                    tree)
     stats = VdtStats(n_blocks=bp.n_active, bound=float(arrays["bound"]),
-                     sigma=float(arrays["sigma"]))
+                     sigma=float(arrays["sigma"]), divergence=bound.name)
     return VariationalDualTree(tree=tree, bp=bp, qstate=qstate, sigma=sigma,
-                               stats=stats)
+                               stats=stats, divergence=bound)

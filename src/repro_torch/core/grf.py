@@ -63,11 +63,6 @@ DEFAULT_N_WALKERS = 64
 # wanting that much accuracy should use "exact"/"vdt" instead
 MAX_RTOL_WALKERS = 4096
 
-# divergences whose kernel rows need the dual tree's subtree statistics at
-# every visited node, which a walker does not carry
-_POSITIVE_DOMAIN = ("kl", "itakura_saito")
-
-
 def walkers_for_rtol(rtol: float) -> int:
     """Walker budget for a target relative tolerance: ``ceil(1 / rtol^2)``.
 
@@ -84,8 +79,8 @@ def walkers_for_rtol(rtol: float) -> int:
 def _check_divergence(divergence) -> None:
     from repro_torch.core.divergence import resolve_divergence
 
-    div = resolve_divergence(divergence)  # unported ones raise here first
-    if div.name in _POSITIVE_DOMAIN:
+    div = resolve_divergence(divergence)
+    if not div.euclidean_after_transform:
         raise ValueError(
             f"backend='grf' does not support divergence {div.name!r}: "
             f"positive-domain Bregman kernels (kl, itakura_saito) need the "
@@ -197,14 +192,16 @@ class CSRGraph:
 
         Materializes the row-softmax transition matrix once on ``device``
         (O(N^2): validation and analysis sizes), so GRF estimates converge to
-        exactly the matrix the ``"exact"`` backend walks.
+        exactly the matrix the ``"exact"`` backend walks.  Takes divergences
+        that are squared Euclidean after their point pre-map (Mahalanobis);
+        raises ``ValueError`` for positive-domain ones (KL, Itakura-Saito).
         """
         from repro_torch.kernels.fused_lp.ref import dense_transition_ref
 
         _check_divergence(divergence)
         dev = resolve_device(device)
         x = torch.as_tensor(x).to(device=dev, dtype=torch.float32)
-        p = dense_transition_ref(x, float(sigma))
+        p = dense_transition_ref(x, float(sigma), divergence=divergence)
         return cls.from_dense(p, device=dev)
 
     def dense_p(self) -> np.ndarray:

@@ -156,13 +156,16 @@ def _check_request_alpha(alpha, batch: int) -> None:
 
 
 def lp_scan_fused_resume(x: torch.Tensor, y: torch.Tensor, y0: torch.Tensor,
-                         sigma: float, alpha=0.01,
-                         n_iters: int = 500) -> torch.Tensor:
+                         sigma: float, alpha=0.01, n_iters: int = 500,
+                         divergence=None) -> torch.Tensor:
     """``n_iters`` exact eq.-15 steps from the carry ``y`` (shape of ``y0``).
 
     ``y0`` is (N,), (N, C) or (batch, N, C); ``alpha`` a scalar, per-column
     ``(C,)`` (2-D ``y0``) or per-request ``(batch,)`` (3-D ``y0``).
+    ``divergence`` (a name, ``Divergence`` or ``BoundDivergence``) selects
+    the tile of the exact matrix, ``exp(-d(x_i, x_j) / 2 sigma^2)``.
     """
+    from repro_torch.core.divergence import resolve_divergence
     from repro_torch.kernels.fused_lp import (fused_lp_scan_batched_resume,
                                               fused_lp_scan_folded_resume)
 
@@ -172,31 +175,37 @@ def lp_scan_fused_resume(x: torch.Tensor, y: torch.Tensor, y0: torch.Tensor,
         raise ValueError(f"carry shape {tuple(y.shape)} must match seed "
                          f"shape {tuple(y0.shape)}")
     sigma = float(sigma)
+    divergence = resolve_divergence(divergence)
     if y0.ndim == 3:
         _check_request_alpha(alpha, y0.shape[0])
         return fused_lp_scan_batched_resume(x, y, y0, sigma, alpha,
-                                            int(n_iters))
+                                            int(n_iters),
+                                            divergence=divergence)
     squeeze = y0.ndim == 1
     if squeeze:
         y, y0 = y[:, None], y0[:, None]
-    out = fused_lp_scan_folded_resume(x, y, y0, sigma, alpha, int(n_iters))
+    out = fused_lp_scan_folded_resume(x, y, y0, sigma, alpha, int(n_iters),
+                                      divergence=divergence)
     return out[:, 0] if squeeze else out
 
 
 def lp_scan_fused(x: torch.Tensor, y0: torch.Tensor, sigma: float,
-                  alpha=0.01, n_iters: int = 500) -> torch.Tensor:
+                  alpha=0.01, n_iters: int = 500,
+                  divergence=None) -> torch.Tensor:
     """Eq. 15 against the EXACT transition matrix, streamed, never dense.
 
     Every iteration is one launch of the fused K1 kernel on the card (its
     plain-torch version on the CPU); for a batched ``(batch, N, C)`` stack
-    each distance tile serves all requests at once.
+    each divergence tile serves all requests at once.
     """
-    return lp_scan_fused_resume(x, y0, y0, sigma, alpha, n_iters)
+    return lp_scan_fused_resume(x, y0, y0, sigma, alpha, n_iters,
+                                divergence=divergence)
 
 
 def lp_scan_fused_segmented(x: torch.Tensor, y0: torch.Tensor, sigma: float,
                             alpha=0.01, n_iters: int = 500, *,
-                            segment_iters: int) -> torch.Tensor:
+                            segment_iters: int,
+                            divergence=None) -> torch.Tensor:
     """Exact eq.-15 walk as checkpointed ``segment_iters``-sized segments."""
     if segment_iters < 1:
         raise ValueError(f"segment_iters must be >= 1, got {segment_iters}")
@@ -204,7 +213,8 @@ def lp_scan_fused_segmented(x: torch.Tensor, y0: torch.Tensor, sigma: float,
     y, done = y0, 0
     while done < n_iters:
         k = min(int(segment_iters), int(n_iters) - done)
-        y = lp_scan_fused_resume(x, y, y0, sigma, alpha, k)
+        y = lp_scan_fused_resume(x, y, y0, sigma, alpha, k,
+                                 divergence=divergence)
         done += k
     return y
 

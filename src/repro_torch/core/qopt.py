@@ -12,6 +12,12 @@ O(|B|) variational optimization of the block-constrained transition matrix
   top-down:             R_root = 1;  v_A = R_A z_A / Zt_A;  R_child = R_A - v_A
   optimum value:        l(D) = c + W_root * log Zt_root
 
+Every entry point takes ``divergence=`` (``None`` | registry name |
+``Divergence`` | ``BoundDivergence``, see ``core/divergence.py``): any
+divergence but the default swaps the block distance ``D2_AB`` for the block
+Bregman divergence ``D_AB`` and the bound's Gaussian log-partition constant
+for the divergence's own.
+
 Everything runs in log space over flat heap arrays.  JAX's ``segment_max``
 becomes ``scatter_reduce(amax, include_self=False)`` on a ``-inf`` init and
 ``segment_sum`` becomes ``index_add_``, so empty segments come out ``-inf``
@@ -25,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.divergence import SQEUCLIDEAN
+from repro_torch.core.divergence import bind_divergence
 from repro_torch.core.tree import PartitionTree
 
 __all__ = ["QState", "block_sq_dists", "optimize_q", "optimize_q_from_g",
@@ -44,19 +50,21 @@ class QState(NamedTuple):
     bound: torch.Tensor    # ()          variational lower bound l(D)
 
 
-def block_sq_dists(tree: PartitionTree, a: torch.Tensor,
-                   b: torch.Tensor) -> torch.Tensor:
-    """Block divergence D2_AB from subtree statistics (eq. 9), O(1) per block."""
-    return SQEUCLIDEAN.block_div(tree, a, b)
+def block_sq_dists(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
+                   divergence=None) -> torch.Tensor:
+    """Block divergence D_AB from subtree statistics, O(1) per block: D2_AB
+    of eq. 9 by default, the block Bregman divergence otherwise."""
+    return bind_divergence(divergence, tree).block_div(tree, a, b)
 
 
 def block_log_G(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
-                active: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    """G_AB = -D2_AB/(2 s^2 W_A W_B); -inf on inactive/ghost blocks."""
+                active: torch.Tensor, sigma: torch.Tensor,
+                divergence=None) -> torch.Tensor:
+    """G_AB = -D_AB/(2 s^2 W_A W_B); -inf on inactive/ghost blocks."""
     wa, wb = tree.W[a], tree.W[b]
     ok = active & (wa > 0) & (wb > 0)
     denom = torch.where(ok, 2.0 * sigma * sigma * wa * wb, 1.0)
-    g = -block_sq_dists(tree, a, b) / denom
+    g = -block_sq_dists(tree, a, b, divergence=divergence) / denom
     return torch.where(ok, g, _NEG_INF)
 
 
@@ -122,18 +130,21 @@ def _optimize_impl(W: torch.Tensor, log_z: torch.Tensor,
 
 def optimize_q_from_g(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
                       active: torch.Tensor, sigma: torch.Tensor,
-                      log_g: torch.Tensor) -> QState:
+                      log_g: torch.Tensor, divergence=None) -> QState:
     """Optimal q given precomputed block log-similarities ``log_g``.
 
     The d-free tail of :func:`optimize_q`: O(|B| + N) segment and level
-    sweeps with no dependence on the data dimension.
+    sweeps with no dependence on the data dimension (the streaming layer
+    re-optimizes through it).  ``divergence`` is only consulted for the
+    bound's log-partition constant.
     """
+    div = bind_divergence(divergence, tree)
     wb = tree.W[b]
     contrib = torch.where(active & (wb > 0),
                           torch.log(wb.clamp_min(1e-12)) + log_g, _NEG_INF)
     log_z = _segment_logsumexp(contrib, a, tree.n_nodes)
     dim = torch.tensor(float(tree.dim), dtype=torch.float32, device=tree.device)
-    log_part = SQEUCLIDEAN.log_partition(dim, sigma)
+    log_part = div.log_partition(dim, sigma)
     log_v, log_zt, bound = _optimize_impl(tree.W, log_z, log_part, tree.L)
     log_q = torch.where(torch.isfinite(log_g) & torch.isfinite(log_v[a]),
                         log_v[a] + log_g - log_z[a], _NEG_INF)
@@ -142,23 +153,30 @@ def optimize_q_from_g(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
 
 
 def optimize_q(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
-               active: torch.Tensor, sigma: torch.Tensor) -> QState:
+               active: torch.Tensor, sigma: torch.Tensor,
+               divergence=None) -> QState:
     """Optimal block parameters q for the given partition and bandwidth."""
-    log_g = block_log_G(tree, a, b, active, sigma)
-    return optimize_q_from_g(tree, a, b, active, sigma, log_g)
+    div = bind_divergence(divergence, tree)
+    log_g = block_log_G(tree, a, b, active, sigma, divergence=div)
+    return optimize_q_from_g(tree, a, b, active, sigma, log_g, divergence=div)
 
 
 def lower_bound(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
                 active: torch.Tensor, log_q: torch.Tensor,
-                sigma: torch.Tensor) -> torch.Tensor:
-    """l(D) (eq. 7) for an arbitrary feasible q."""
+                sigma: torch.Tensor, divergence=None) -> torch.Tensor:
+    """l(D) (eq. 7) for an arbitrary feasible q.
+
+    A divergence/domain mismatch (KL over a tree fitted on non-positive
+    data) raises ``ValueError`` at bind time instead of returning NaN.
+    """
+    div = bind_divergence(divergence, tree)
     wa, wb = tree.W[a], tree.W[b]
     ok = active & (wa > 0) & (wb > 0) & torch.isfinite(log_q)
     q = torch.where(ok, torch.exp(log_q), 0.0)
-    d2 = SQEUCLIDEAN.block_div(tree, a, b)
+    d2 = div.block_div(tree, a, b)
     dist_term = -torch.where(ok, q * d2, 0.0).sum() / (2.0 * sigma * sigma)
     ent_term = -torch.where(ok, wa * wb * q * log_q, 0.0).sum()
     w_tot = tree.W[0]
-    const = -w_tot * (SQEUCLIDEAN.log_partition(tree.dim, sigma)
+    const = -w_tot * (div.log_partition(tree.dim, sigma)
                       + torch.log((w_tot - 1.0).clamp_min(1.0)))
     return const + dist_term + ent_term

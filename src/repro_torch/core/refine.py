@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.blocks import BlockPartition, _host, device_blocks
+from repro_torch.core.divergence import bind_divergence
 from repro_torch.core.qopt import QState, block_log_G, optimize_q
 from repro_torch.core.tree import PartitionTree
 
@@ -49,15 +50,16 @@ def _gains_impl(log_g, log_gl, log_gr, wb, wbl, wbr, log_q, refinable):
 
 def refinement_gains(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
                      active: torch.Tensor, log_q: torch.Tensor,
-                     sigma: torch.Tensor) -> torch.Tensor:
+                     sigma: torch.Tensor, divergence=None) -> torch.Tensor:
     """Total gain W_A W_B q_AB log(...) per block (eq. 19); -inf if unrefinable."""
     wa, wb = tree.W[a], tree.W[b]
     b_internal = b < tree.n_internal
     bl = torch.where(b_internal, 2 * b + 1, b)
     br = torch.where(b_internal, 2 * b + 2, b)
-    log_g = block_log_G(tree, a, b, active, sigma)
-    log_gl = block_log_G(tree, a, bl, active, sigma)
-    log_gr = block_log_G(tree, a, br, active, sigma)
+    div = bind_divergence(divergence, tree)  # bind stats once for all 3 calls
+    log_g = block_log_G(tree, a, b, active, sigma, divergence=div)
+    log_gl = block_log_G(tree, a, bl, active, sigma, divergence=div)
+    log_gr = block_log_G(tree, a, br, active, sigma, divergence=div)
     refinable = active & b_internal & (wa > 0) & (wb > 0)
     raw = _gains_impl(log_g, log_gl, log_gr, wb, tree.W[bl], tree.W[br],
                       log_q, refinable)
@@ -130,26 +132,31 @@ def refine_topk(bp: BlockPartition, tree: PartitionTree, gains: np.ndarray,
 
 def refine_to_budget(bp: BlockPartition, tree: PartitionTree,
                      sigma: torch.Tensor, max_blocks: int, batch: int = 64,
-                     refit_sigma: bool = False,
+                     refit_sigma: bool = False, divergence=None,
                      stale: np.ndarray | None = None
                      ) -> Tuple[QState, torch.Tensor]:
     """Refine until ``n_active >= max_blocks``; returns final (QState, sigma).
 
     Re-optimizes q globally after every batched round of ``batch`` picks.
+    ``stale`` (optional bool array over block slots) puts blocks patched by
+    streaming mutations first (:func:`refine_topk`); refined slots are
+    cleared in place.
     """
     from repro_torch.core.sigma import sigma_star  # avoids an import cycle
 
     dev = tree.device
-    qs = optimize_q(tree, *device_blocks(bp, dev), sigma)
+    div = bind_divergence(divergence, tree)
+    qs = optimize_q(tree, *device_blocks(bp, dev), sigma, divergence=div)
     while bp.n_active < max_blocks:
         k = min(batch, max(1, (max_blocks - bp.n_active) // 2))
-        gains = refinement_gains(tree, *device_blocks(bp, dev), qs.log_q, sigma)
+        gains = refinement_gains(tree, *device_blocks(bp, dev), qs.log_q, sigma,
+                                 divergence=div)
         done = refine_topk(bp, tree, _host(gains), k, stale=stale)
         if done == 0:
             break
         blocks = device_blocks(bp, dev)
-        qs = optimize_q(tree, *blocks, sigma)
+        qs = optimize_q(tree, *blocks, sigma, divergence=div)
         if refit_sigma:
-            sigma = sigma_star(tree, *blocks, qs.log_q)
-            qs = optimize_q(tree, *blocks, sigma)
+            sigma = sigma_star(tree, *blocks, qs.log_q, divergence=div)
+            qs = optimize_q(tree, *blocks, sigma, divergence=div)
     return qs, sigma

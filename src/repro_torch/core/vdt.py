@@ -7,18 +7,22 @@ Public API: the Variational Dual-Tree transition-matrix approximation.
     y_lp  = vdt.label_propagate(y0)         # label propagation (eq. 15)
     y_ex  = vdt.label_propagate(y0, backend="exact")   # the exact eq.-3 walk
     y_mc  = vdt.label_propagate(y0, backend="grf")     # random-walk estimate
+    upd   = vdt.insert_points(x_new)        # streaming: a new epoch, upd.vdt
 
 Pipeline (paper §3-§4): build the shared partition tree -> coarsest block
 partition (|B| = 2(Np-1)) -> alternate q-optimization (eq. 7) with bandwidth
 learning (eq. 12) -> greedy symmetric refinement to the block budget
 (eq. 19) -> O(|B|) inference (Algorithm 1).  ``fit`` runs on ``cuda`` unless
 ``device="cpu"`` is passed; every later call runs on the model's device.
+``divergence`` selects the Bregman divergence of the similarity kernel
+``exp(-d(x_i, x_j) / 2 s^2)`` (``core/divergence.py``).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -26,11 +30,11 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import blocks as blocks_mod
+from repro_torch.core import divergence as div_mod
 from repro_torch.core import matvec as matvec_mod
 from repro_torch.core import qopt as qopt_mod
 from repro_torch.core import refine as refine_mod
 from repro_torch.core import sigma as sigma_mod
-from repro_torch.core.divergence import resolve_divergence
 from repro_torch.core.label_prop import (lp_scan_fused_resume,
                                          lp_scan_leaforder_resume)
 from repro_torch.core.tree import PartitionTree, build_tree
@@ -63,6 +67,9 @@ class VariationalDualTree:
     qstate: qopt_mod.QState
     sigma: torch.Tensor
     stats: VdtStats
+    # the Bregman divergence this model was fitted under, bound to `tree`;
+    # None means the default Gaussian kernel, bound lazily
+    divergence: Optional[div_mod.BoundDivergence] = None
     # (a, b, active, q, leaf_mask) on the device, built lazily and reused
     # across calls; q never changes between refinements
     _serve_cache: Optional[tuple] = dataclasses.field(
@@ -72,6 +79,10 @@ class VariationalDualTree:
         default=None, init=False, repr=False, compare=False)
     # the dense eq.-3 graph the grf backend walks, built at first use
     _grf_cache: Optional[object] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    # float64 host mirrors for streaming insert/delete (core/streaming.py);
+    # ride on the newest epoch only and are rebuilt when absent or stale
+    _stream: Optional[object] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
     # ------------------------------------------------------------------ fit
@@ -85,10 +96,16 @@ class VariationalDualTree:
         """Build tree + coarsest partition, fit sigma/q, refine to budget.
 
         ``device`` defaults to ``cuda`` and raises without a card; pass
-        ``device="cpu"`` to fit on the CPU.  Only the ``sqeuclidean``
-        divergence is ported (``None`` means it too).
+        ``device="cpu"`` to fit on the CPU.  ``divergence`` is a registry
+        name (``"sqeuclidean"``, ``"kl"``, ``"itakura_saito"``,
+        ``"mahalanobis"``), ``None`` (``sqeuclidean``) or a
+        :class:`~repro_torch.core.divergence.Divergence`; positive-domain
+        divergences (KL, Itakura-Saito) validate ``x`` before any device
+        work and raise ``ValueError`` on out-of-domain data.  ``capacity``
+        (>= N) reserves ghost leaf headroom for :meth:`insert_points`.
         """
-        div = resolve_divergence(divergence)
+        div = div_mod.resolve_divergence(divergence)
+        div.validate_domain(x)  # fail fast, before any device work
         dev = resolve_device(device)
         stats = VdtStats(divergence=div.name)
         x = torch.as_tensor(x).to(device=dev, dtype=torch.float32)
@@ -101,6 +118,8 @@ class VariationalDualTree:
                           capacity=capacity)
         _sync(dev)
         stats.build_tree_s = time.perf_counter() - t0
+        # bind through the memo, so later name-form calls reuse these stats
+        bound_div = div_mod.bind_divergence(div, tree)
 
         cap = max_blocks if max_blocks else 2 * tree.n_internal
         bp = blocks_mod.coarsest_partition(tree, cap=int(2.5 * cap))
@@ -111,10 +130,11 @@ class VariationalDualTree:
         blocks = blocks_mod.device_blocks(bp, dev)
         if learn_sigma and sigma is None:
             sig, qs, its = sigma_mod.fit_sigma_q(tree, *blocks, sig,
-                                                 max_iters=sigma_iters)
+                                                 max_iters=sigma_iters,
+                                                 divergence=bound_div)
             stats.sigma_iters = its
         else:
-            qs = qopt_mod.optimize_q(tree, *blocks, sig)
+            qs = qopt_mod.optimize_q(tree, *blocks, sig, divergence=bound_div)
         _sync(dev)
         stats.init_qopt_s = time.perf_counter() - t0
 
@@ -122,14 +142,15 @@ class VariationalDualTree:
             t0 = time.perf_counter()
             qs, sig = refine_mod.refine_to_budget(
                 bp, tree, sig, max_blocks, batch=refine_batch,
-                refit_sigma=learn_sigma)
+                refit_sigma=learn_sigma, divergence=bound_div)
             _sync(dev)
             stats.refine_s = time.perf_counter() - t0
 
         stats.n_blocks = bp.n_active
         stats.bound = float(qs.bound)
         stats.sigma = float(sig)
-        return cls(tree=tree, bp=bp, qstate=qs, sigma=sig, stats=stats)
+        return cls(tree=tree, bp=bp, qstate=qs, sigma=sig, stats=stats,
+                   divergence=bound_div)
 
     # ------------------------------------------------------------- inference
     @property
@@ -137,17 +158,34 @@ class VariationalDualTree:
         return self.tree.device
 
     @property
+    def bound_divergence(self) -> div_mod.BoundDivergence:
+        """The fitted divergence, bound to the tree (``None`` -> sqeuclidean)."""
+        if self.divergence is None:
+            self.divergence = div_mod.bind_divergence(None, self.tree)
+        return self.divergence
+
+    @property
     def divergence_name(self) -> str:
         """Registry name of the fitted divergence (serving dispatch keys)."""
-        return self.stats.divergence
+        return self.bound_divergence.name
 
     def to(self, device) -> "VariationalDualTree":
         """A copy of the fitted model with its tensors on ``device``."""
         dev = resolve_device(device)
+        tree = self.tree.to(dev)
+        bound = self.bound_divergence
+        if bound.stats is None:
+            moved = div_mod.bind_divergence(bound.div, tree)
+        else:
+            moved = div_mod.adopt_bound(tree, div_mod.BoundDivergence(
+                div=bound.div,
+                stats=div_mod.DivStats(*(t.to(dev) for t in bound.stats)),
+                _tree_ref=weakref.ref(tree)))
         return VariationalDualTree(
-            tree=self.tree.to(dev), bp=copy.deepcopy(self.bp),
+            tree=tree, bp=copy.deepcopy(self.bp),
             qstate=qopt_mod.QState(*(t.to(dev) for t in self.qstate)),
-            sigma=self.sigma.to(dev), stats=copy.copy(self.stats))
+            sigma=self.sigma.to(dev), stats=copy.copy(self.stats),
+            divergence=moved)
 
     def _dispatch_buffers(self) -> tuple:
         """(a, b, active, q, leaf_mask) on the device, cached across calls.
@@ -219,14 +257,15 @@ class VariationalDualTree:
         Bridged from the fitted points through the dense eq.-3 matrix
         (``core.grf.CSRGraph.from_points``, O(N^2): validation sizes), on the
         model's device, so GRF estimates are unbiased for exactly the matrix
-        the ``"exact"`` backend walks.
+        the ``"exact"`` backend walks.  Raises ``ValueError`` for
+        positive-domain divergences (KL, Itakura-Saito), see ``core/grf.py``.
         """
         from repro_torch.core import grf as grf_mod
 
         if self._grf_cache is None:
             self._grf_cache = grf_mod.CSRGraph.from_points(
-                self.x_rows, float(self.sigma), divergence=self.stats.divergence,
-                device=self.device)
+                self.x_rows, float(self.sigma),
+                divergence=self.bound_divergence.div, device=self.device)
         return self._grf_cache
 
     def label_propagate(self, y0, alpha=0.01, n_iters: int = 500,
@@ -283,7 +322,8 @@ class VariationalDualTree:
         self._check_backend(backend, batched, y0)
         if backend == "exact":
             return lp_scan_fused_resume(self.x_rows, y, y0, float(self.sigma),
-                                        alpha, int(n_iters))
+                                        alpha, int(n_iters),
+                                        divergence=self.bound_divergence.div)
         if y0.ndim == 3:
             batch, _, c = y0.shape
             out = self.label_propagate_resume(
@@ -307,29 +347,49 @@ class VariationalDualTree:
 
     # ------------------------------------------------------------ streaming
     def insert_points(self, x_new, weights=None):
-        raise NotImplementedError(
-            "streaming insert is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 8)")
+        """Insert points online; returns a StreamUpdate with the new epoch.
+
+        O(k d log N) stat patching, no refit (``core/streaming.py``).
+        Copy-on-write: ``self`` is untouched; serve from ``update.vdt``.
+        """
+        from repro_torch.core.streaming import insert_points as _ins
+        return _ins(self, x_new, weights=weights)
 
     def delete_points(self, rows):
-        raise NotImplementedError(
-            "streaming delete is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 8)")
+        """Delete points by row id online; see :meth:`insert_points`."""
+        from repro_torch.core.streaming import delete_points as _del
+        return _del(self, rows)
 
     # ------------------------------------------------------------ utilities
     def refine(self, max_blocks: int, batch: int = 64) -> None:
-        """Refine further to ``max_blocks`` active blocks, in place."""
+        """Refine further to ``max_blocks`` active blocks, in place.
+
+        On a streamed epoch the blocks its mutations touched get the budget
+        first; the streaming mirrors are dropped (the partition regrew).
+        """
+        stream = self._stream
+        stale = None
+        if stream is not None and stream.owner() is self:
+            stale = stream.stale
         self.qstate, self.sigma = refine_mod.refine_to_budget(
-            self.bp, self.tree, self.sigma, max_blocks, batch=batch)
+            self.bp, self.tree, self.sigma, max_blocks, batch=batch,
+            divergence=self.bound_divergence, stale=stale)
         self._serve_cache = None  # a/b/q/active all changed
+        self._stream = None
         self.stats.n_blocks = self.bp.n_active
         self.stats.bound = float(self.qstate.bound)
 
     def _check_finite_q(self) -> None:
-        """Refuse a model whose variational state is not finite."""
+        """Refuse a model whose variational state is not finite, the
+        signature of a divergence/domain mismatch."""
         bound = float(self.qstate.bound)
         if not np.isfinite(bound):
-            raise ValueError(f"non-finite variational state (bound={bound})")
+            raise ValueError(
+                f"non-finite variational state (bound={bound}) under "
+                f"divergence {self.divergence_name!r} — likely a "
+                f"divergence/domain mismatch (e.g. 'kl' requires strictly "
+                f"positive inputs); refit with in-domain data or the "
+                f"right divergence")
 
     def dense_q(self) -> np.ndarray:
         """Dense (N, N) Q — small-N tests only."""
@@ -339,12 +399,13 @@ class VariationalDualTree:
         return blocks_mod.densify_q(self.bp, self.tree, q.cpu().numpy())
 
     def lower_bound(self, log_q=None) -> torch.Tensor:
-        """l(D) for ``log_q`` (default: the fitted q)."""
+        """l(D) for ``log_q`` (default: the fitted q) under the fitted divergence."""
         self._check_finite_q()
         a, b, active, _, _ = self._dispatch_buffers()
         lq = (self.qstate.log_q if log_q is None
               else torch.as_tensor(log_q, device=self.device))
-        return qopt_mod.lower_bound(self.tree, a, b, active, lq, self.sigma)
+        return qopt_mod.lower_bound(self.tree, a, b, active, lq, self.sigma,
+                                    divergence=self.bound_divergence)
 
     @property
     def n_blocks(self) -> int:

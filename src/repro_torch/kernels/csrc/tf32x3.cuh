@@ -33,6 +33,17 @@
 // zeroes the pad columns d..d_pad, so neither adds to a product.  d_pad, a
 // multiple of 32, also makes the row stride a multiple of the 16 bytes TMA
 // asks for (a float32 row of 315 values is 1,260 bytes).
+//
+// Divergence tiles.  Every Bregman divergence of the repo is a cross term
+// plus a row bias and a column bias, d(a, b) = rb(a) + cb(b) + k a.g(b):
+//   squared Euclidean  g(b) = b,    k = -2, rb = |a|^2,             cb = |b|^2
+//   KL                 g(b) = log b, k = -1, rb = sum a log a - a, cb = sum b
+//   Itakura-Saito      g(b) = 1/b,  k = +1, rb = -sum (log a + 1), cb = sum log b
+// (Mahalanobis is squared Euclidean on x sqrt(m), mapped before the kernel).
+// The split pass applies the operand's map g (SplitOp) to each value BEFORE
+// the hi/lo split and the padding: a pad lane holds 0 whatever g is, where
+// log 0 = -inf times a zero row value would put NaN into every pair's sum.
+// Its third output is the operand's bias (rb or cb), not only |x|^2.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,10 +84,21 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// The split pass: x (rows, d) -> hi, lo (rows, d_pad) float32 and nrm (rows,)
-// = |x|^2 in float32.  One warp a row.  lo == nullptr skips it: a bfloat16
-// value is exact in TF32 (8 significant bits of 11), so its lo is zero.
-template <typename T>
+// What the split pass writes for one operand of a divergence tile (see
+// above): the map g applied before the split, and the bias summed over d.
+enum SplitOp {
+  SPLIT_SQ = 0,      // x;     |x|^2 (both operands of squared Euclidean)
+  SPLIT_KL_ROW = 1,  // x;     sum x log x - x
+  SPLIT_KL_COL = 2,  // log x; sum x
+  SPLIT_IS_ROW = 3,  // x;     -sum (log x + 1)
+  SPLIT_IS_COL = 4,  // 1/x;   sum log x
+};
+
+// The split pass: x (rows, d) -> hi, lo (rows, d_pad) float32 of g(x) and
+// nrm (rows,), the bias, in float32.  One warp a row.  lo == nullptr skips
+// it: a bfloat16 value is exact in TF32 (8 significant bits of 11), so its lo
+// is zero.
+template <typename T, int OP = SPLIT_SQ>
 __global__ void __launch_bounds__(256)
 split_kernel(const T* __restrict__ x, float* __restrict__ hi,
              float* __restrict__ lo, float* __restrict__ nrm, int rows, int d,
@@ -88,10 +110,25 @@ split_kernel(const T* __restrict__ x, float* __restrict__ hi,
   float ss = 0.f;
   for (int c = lane; c < d_pad; c += 32) {
     const float v = c < d ? to_f32(xr[c]) : 0.f;
-    const float h = to_tf32(v);
+    float u = v;  // g(v); 0 in a pad lane
+    if (OP == SPLIT_SQ) {
+      ss = fmaf(v, v, ss);
+    } else if (c < d) {
+      if (OP == SPLIT_KL_ROW) {
+        ss += fmaf(v, logf(v), -v);
+      } else if (OP == SPLIT_KL_COL) {
+        u = logf(v);
+        ss += v;
+      } else if (OP == SPLIT_IS_ROW) {
+        ss -= logf(v) + 1.f;
+      } else {  // SPLIT_IS_COL
+        u = 1.f / v;
+        ss += logf(v);
+      }
+    }
+    const float h = to_tf32(u);
     hi[o + c] = h;
-    if (lo != nullptr) lo[o + c] = to_tf32(v - h);
-    ss = fmaf(v, v, ss);
+    if (lo != nullptr) lo[o + c] = to_tf32(u - h);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -99,12 +136,12 @@ split_kernel(const T* __restrict__ x, float* __restrict__ hi,
   if (lane == 0) nrm[row] = ss;
 }
 
-template <typename T>
+template <typename T, int OP = SPLIT_SQ>
 int split(const T* x, float* hi, float* lo, float* nrm, int rows, int d,
           int d_pad, cudaStream_t stream) {
   if (rows <= 0) return 0;
-  split_kernel<T><<<(rows + 7) / 8, 256, 0, stream>>>(x, hi, lo, nrm, rows, d,
-                                                       d_pad);
+  split_kernel<T, OP><<<(rows + 7) / 8, 256, 0, stream>>>(x, hi, lo, nrm, rows,
+                                                           d, d_pad);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,8 @@ multiples; here ragged tiles are sliced instead, and the output covers
 exactly the given rows.  A row whose every column is masked (only N = 1 has
 one) divides by the reference's padded column count, as the reference does
 (``fused_lp.softmax_average``).  ``ops.folded_step`` runs this on CPU tensors
-and the CUDA kernel K1 on card tensors.
+and the CUDA kernel K1 on card tensors.  ``tile_fn`` replaces the inline
+squared-Euclidean tile with a divergence's tile (``fused_lp.tile_config``).
 
 :func:`step_batched_perbatch_plain` is the plain version of K3, the
 reference's per-batch-recompute ``fused_lp_step_batched_kernel``.
@@ -39,7 +40,7 @@ def alpha_row(alpha, k: int, device) -> torch.Tensor:
 def folded_step_plain(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
                       y0: torch.Tensor, alpha: torch.Tensor,
                       inv_two_sigma_sq: float, row_base: int = 0, *,
-                      block_m: int = PLAIN_BLOCK_M,
+                      tile_fn=None, block_m: int = PLAIN_BLOCK_M,
                       block_n: int = PLAIN_BLOCK_N) -> torch.Tensor:
     """One eq.-15 step in the folded layout (plain torch, any device).
 
@@ -51,14 +52,14 @@ def folded_step_plain(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
     out = torch.empty((rows.shape[0], y.shape[1]), dtype=y.dtype,
                       device=rows.device)
     for i0, i1, py in stream_rows(rows, cols, y, inv_two_sigma_sq, row_base,
-                                  block_m, block_n):
+                                  block_m, block_n, tile_fn):
         out[i0:i1] = alpha * py + (1.0 - alpha) * y0[i0:i1]
     return out
 
 
 def step_batched_perbatch_plain(x: torch.Tensor, y: torch.Tensor,
                                 y0: torch.Tensor, alpha: float,
-                                inv_two_sigma_sq: float, *,
+                                inv_two_sigma_sq: float, *, tile_fn=None,
                                 block_m: int = PLAIN_BLOCK_M,
                                 block_n: int = PLAIN_BLOCK_N) -> torch.Tensor:
     """The per-batch-recompute eq.-15 step over a (B, N, C) stack (plain torch).
@@ -70,6 +71,6 @@ def step_batched_perbatch_plain(x: torch.Tensor, y: torch.Tensor,
     out = torch.empty(y.shape, dtype=y.dtype, device=x.device)
     for b in range(y.shape[0]):
         for i0, i1, py in stream_rows(x, x, y[b], inv_two_sigma_sq, 0,
-                                      block_m, block_n):
+                                      block_m, block_n, tile_fn):
             out[b, i0:i1] = alpha * py + (1.0 - alpha) * y0[b, i0:i1]
     return out

@@ -17,7 +17,7 @@
 //
 // For every row i < M and column k < K (of batch element b for K3):
 //
-//   logit[i, j] = -max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0) * inv_two_sigma_sq
+//   logit[i, j] = -max(D(x_i, x_j), 0) * inv_two_sigma_sq
 //                 (NEG_BIG = -1e30 where j == row_base + i or j >= N)
 //   py[i, k]    = (sum_j exp(logit[i, j] - m_i) y[j, k]) / max(s_i, 1e-38)
 //   out[i, k]   = K1: alpha[k] * py + (1 - alpha[k]) * y0[i, k]
@@ -30,6 +30,25 @@
 // column counts at weight 1, as in the reference; the reference then divides
 // by its padded column count, round_up(N, 256) at its default tiles, which the
 // wrapper passes as n_pad and the epilogue uses for such a row.
+//
+// D is the tile of a Bregman divergence (the reference's tile_fn; entry point
+// argument `tile`): TILE_SQ, |x_i|^2 + |x_j|^2 - 2 x_i.x_j, the inline tile of
+// the reference, which also serves divergences that are squared Euclidean
+// after a point pre-map (Mahalanobis: the wrapper maps the points first, as
+// the reference does outside its kernel); TILE_KL, sum x_i log x_i - x_i +
+// sum x_j - x_i.log x_j (repro/core/divergence.py::_kl_pairwise); TILE_IS,
+// x_i.(1/x_j) - sum log x_i + sum log x_j - d (::_is_pairwise).  Each is
+// rb[i] + cb[j] + cross * x_i.g(x_j): the split pass maps the column operand
+// by g (identity, log, reciprocal) before it splits and pads it, and writes
+// the row and column biases in place of the norms (../../csrc/tf32x3.cuh,
+// SplitOp); the kernel reads `cross` (-2, -1, +1) as an argument.  So every
+// tile runs the same 3xTF32 product, masks and softmax: one template, and
+// the squared-Euclidean launches compute what they did before, bit for bit.
+// The reference pads rows and columns past N with the divergence's in-domain
+// pad value (1.0 for KL and IS) so that its padded logits stay finite; here
+// rows and columns past M or N never reach the split pass: TMA reads their
+// hi and lo as zeros and the kernel takes their biases as 0, so their logits
+// are finite (d = 0 or a real bias) before they are masked or not written.
 //
 // Design.  Each entry point runs the split pass over the row points and, when
 // they are other points, the column points (../../csrc/tf32x3.cuh: hi, lo and
@@ -56,7 +75,7 @@
 //      in place, and the tile's sum of p stays per thread.
 //   3. p @ Y_tile on FP32 FMA (2 N^2 K, 5 % of the work at K = 16; TF32
 //      would lose 2^-11 relative), from the registers, with the Y tile and
-//      the column norms staged in shared memory by the producer warp's 32
+//      the column biases staged in shared memory by the producer warp's 32
 //      lanes (a 2-slot ring of its own, one full/empty mbarrier pair a slot).
 //      Each thread sums its 32 columns' share of the tile into a fresh
 //      partial, then acc = acc * exp(m_old - m_new) + partial; the quad's
@@ -83,7 +102,7 @@ constexpr int TERMS = 3;  // TF32 products a k step: hi.hi + hi.lo + lo.hi
 enum Mode { MODE_FOLDED = 0, MODE_MATVEC = 1, MODE_PERBATCH = 2 };
 
 // a staged Y tile: BN rows of y_stride floats (padded so the quad's rows,
-// read as float4, fall in distinct banks), then the BN column norms
+// read as float4, fall in distinct banks), then the BN column biases
 template <int KC>
 __host__ __device__ constexpr int y_stride() { return KC == 4 ? 4 : KC + 4; }
 template <int KC>
@@ -98,7 +117,7 @@ __host__ __device__ constexpr int smem_bytes() {  // slack, ring, Y slots, barri
 
 // y is (B, N, K), y0 and out (B, M, K); B = gridDim.z (1 for K1 and K2).
 // alpha is the (K,) per-column row for K1, alpha_s the one scalar for K3;
-// K2 reads neither, nor y0.  rn (M,) and cn (N,) are the split pass's norms.
+// K2 reads neither, nor y0.  rn (M,) and cn (N,) are the split pass's biases.
 template <int KC, int MODE>
 __global__ void __launch_bounds__(NT, 1)
 folded_lp_kernel(const __grid_constant__ CUtensorMap ahi,
@@ -109,7 +128,7 @@ folded_lp_kernel(const __grid_constant__ CUtensorMap ahi,
                  const float* __restrict__ y, const float* __restrict__ y0,
                  const float* __restrict__ alpha, float alpha_s,
                  float* __restrict__ out, int M, int N, int K, int n_chunks,
-                 int row_base, float inv_tss, int n_pad) {
+                 int row_base, float inv_tss, int n_pad, float cross) {
   constexpr int STAGE = stage_bytes<TERMS>();
   constexpr int YS = y_stride<KC>();
   constexpr int YSLOT = y_slot_floats<KC>();
@@ -148,7 +167,7 @@ folded_lp_kernel(const __grid_constant__ CUtensorMap ahi,
     int it = 0;
     for (int tn = 0; tn < n_tn; ++tn) {
       const int c0 = tn * BN, slot = tn & 1;
-      // the Y tile and column norms, all 32 lanes, 16 loads in flight a lane
+      // the Y tile and column biases, all 32 lanes, 16 loads in flight a lane
       if (tn >= 2) sm90::mbar_wait(yempty + 8 * slot, ((tn >> 1) - 1) & 1);
       float* yt = ytiles + slot * YSLOT;
       for (int e0 = 0; e0 < BN * KC; e0 += 32 * 16) {
@@ -218,8 +237,9 @@ folded_lp_kernel(const __grid_constant__ CUtensorMap ahi,
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
       const int h = (i >> 1) & 1, col = frag_col(t, i);
-      // 2 sc is exact, so this is (|x_i|^2 + |x_j|^2) - 2 x_i.x_j rounded once
-      const float d2 = fmaf(-2.f, sc[i], rnorm[h] + yt[BN * YS + col]);
+      // cross * sc is exact (cross is -2, -1 or +1), so this is
+      // (rb[i] + cb[j]) + cross x_i.g(x_j) rounded once
+      const float d2 = fmaf(cross, sc[i], rnorm[h] + yt[BN * YS + col]);
       float lg = -fmaxf(d2, 0.f) * inv_tss;
       if (edge && (c0 + col >= N || c0 + col == row_base + ra + 8 * h))
         lg = NEG_BIG;
@@ -320,7 +340,7 @@ template <int KC, int MODE>
 int run(const CUtensorMap (&maps)[4], const float* rn, const float* cn,
         const float* y, const float* y0, const float* alpha, float alpha_s,
         float* out, int M, int N, int K, int B, int n_chunks, int row_base,
-        float inv_tss, int n_pad, cudaStream_t stream) {
+        float inv_tss, int n_pad, float cross, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<KC>();
   auto kern = folded_lp_kernel<KC, MODE>;
   static const cudaError_t opted = cudaFuncSetAttribute(
@@ -329,24 +349,60 @@ int run(const CUtensorMap (&maps)[4], const float* rn, const float* cn,
   const dim3 grid((M + BM - 1) / BM, (K + KC - 1) / KC, B);
   kern<<<grid, NT, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], rn, cn,
                                     y, y0, alpha, alpha_s, out, M, N, K,
-                                    n_chunks, row_base, inv_tss, n_pad);
+                                    n_chunks, row_base, inv_tss, n_pad, cross);
   return static_cast<int>(cudaGetLastError());
 }
 
+enum Tile { TILE_SQ = 0, TILE_KL = 1, TILE_IS = 2 };
+
+// The split pass of one operand under `op` (a SplitOp).
+int split_op(int op, const float* x, float* hi, float* lo, float* bias,
+             int rows, int d, int d_pad, cudaStream_t st) {
+  switch (op) {
+    case SPLIT_SQ:
+      return split<float, SPLIT_SQ>(x, hi, lo, bias, rows, d, d_pad, st);
+    case SPLIT_KL_ROW:
+      return split<float, SPLIT_KL_ROW>(x, hi, lo, bias, rows, d, d_pad, st);
+    case SPLIT_KL_COL:
+      return split<float, SPLIT_KL_COL>(x, hi, lo, bias, rows, d, d_pad, st);
+    case SPLIT_IS_ROW:
+      return split<float, SPLIT_IS_ROW>(x, hi, lo, bias, rows, d, d_pad, st);
+    case SPLIT_IS_COL:
+      return split<float, SPLIT_IS_COL>(x, hi, lo, bias, rows, d, d_pad, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The split pass over the row points xr (M, d) and, unless chi == rhi (the
-// rows are the columns), the column points xc (N, d); then the kernel.
+// rows are the columns under the squared-Euclidean tile, whose two operands
+// split alike), the column points xc (N, d), each under its op of `tile`;
+// then the kernel.
 template <int MODE>
 int launch(const float* xr, const float* xc, const float* y, const float* y0,
            const float* alpha, float alpha_s, float* out, float* rhi,
            float* rlo, float* rn, float* chi, float* clo, float* cn, int M,
            int N, int d, int d_pad, int K, int B, int row_base, float inv_tss,
-           int n_pad, int* products, void* stream) {
+           int n_pad, int tile, int* products, void* stream) {
   *products = TERMS;
   if (M <= 0 || K <= 0 || B <= 0) return 0;
   if (d_pad != padded_width(d)) return static_cast<int>(cudaErrorInvalidValue);
+  int row_op, col_op;
+  float cross;
+  switch (tile) {
+    case TILE_SQ: row_op = col_op = SPLIT_SQ; cross = -2.f; break;
+    case TILE_KL: row_op = SPLIT_KL_ROW; col_op = SPLIT_KL_COL; cross = -1.f;
+      break;
+    case TILE_IS: row_op = SPLIT_IS_ROW; col_op = SPLIT_IS_COL; cross = 1.f;
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // only the squared-Euclidean tile may share one split between the operands
+  if (chi == rhi && tile != TILE_SQ)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = split(xr, rhi, rlo, rn, M, d, d_pad, st);
-  if (err == 0 && chi != rhi) err = split(xc, chi, clo, cn, N, d, d_pad, st);
+  int err = split_op(row_op, xr, rhi, rlo, rn, M, d, d_pad, st);
+  if (err == 0 && chi != rhi)
+    err = split_op(col_op, xc, chi, clo, cn, N, d, d_pad, st);
   CUtensorMap maps[4];
   if (err == 0) err = encode(&maps[0], rhi, M, d_pad);
   if (err == 0) err = encode(&maps[1], rlo, M, d_pad);
@@ -361,9 +417,9 @@ int launch(const float* xr, const float* xc, const float* y, const float* y0,
   const int n_chunks = d_pad / DC;
   if (K <= 4)
     return run<4, MODE>(maps, rn, cn, y, y0, alpha, alpha_s, out, M, N, K, B,
-                        n_chunks, row_base, inv_tss, n_pad, st);
+                        n_chunks, row_base, inv_tss, n_pad, cross, st);
   return run<16, MODE>(maps, rn, cn, y, y0, alpha, alpha_s, out, M, N, K, B,
-                       n_chunks, row_base, inv_tss, n_pad, st);
+                       n_chunks, row_base, inv_tss, n_pad, cross, st);
 }
 
 }  // namespace
@@ -373,46 +429,49 @@ int launch(const float* xr, const float* xc, const float* y, const float* y0,
 // or a negative tensor-map error (see cuda_error_string).  All operands are
 // float32, row-major, contiguous, on the current device; nothing is
 // allocated.  Scratch from the caller, float32, 16-byte aligned: hi and lo
-// (rows, d_pad) and the norms (rows,) of each operand the split pass reads,
-// d_pad = round_up(d, 32) (32 when d = 0).  n_pad is the reference's padded
-// column count (see above).  *products receives the number of TF32 products
-// a k step of the launched kernel takes (TERMS), which the wrapper counts as
-// the launch's route.
+// (rows, d_pad) and the biases (rows,) of the row operand (rhi, rlo, rn) and
+// of the column operand (chi, clo, cn; the row pointers again when the rows
+// are the columns and tile is TILE_SQ), d_pad = round_up(d, 32) (32 when
+// d = 0).  n_pad is the reference's padded column count (see above), tile a
+// Tile.  *products receives the number of TF32 products a k step of the
+// launched kernel takes (TERMS), which the wrapper counts as the launch's
+// route.
 
-// K1.  xr (M, d), xc (N, d), y (N, K), y0 (M, K), alpha (K,), out (M, K);
-// rhi, rlo, rn of xr and chi, clo, cn of xc (the same pointers when xr is xc).
+// K1.  xr (M, d), xc (N, d), y (N, K), y0 (M, K), alpha (K,), out (M, K).
 extern "C" int folded_lp_step(const float* xr, const float* xc, const float* y,
                               const float* y0, const float* alpha, float* out,
                               float* rhi, float* rlo, float* rn, float* chi,
                               float* clo, float* cn, int M, int N, int d,
                               int d_pad, int K, int row_base,
-                              float inv_two_sigma_sq, int n_pad, int* products,
-                              void* stream) {
+                              float inv_two_sigma_sq, int n_pad, int tile,
+                              int* products, void* stream) {
   return launch<MODE_FOLDED>(xr, xc, y, y0, alpha, 0.f, out, rhi, rlo, rn, chi,
                              clo, cn, M, N, d, d_pad, K, 1, row_base,
-                             inv_two_sigma_sq, n_pad, products, stream);
+                             inv_two_sigma_sq, n_pad, tile, products, stream);
 }
 
-// K2.  x (N, d), y (N, C), out (N, C); hi, lo, nrm of x.
+// K2.  x (N, d), y (N, C), out (N, C).
 extern "C" int fused_lp_matvec(const float* x, const float* y, float* out,
-                               float* hi, float* lo, float* nrm, int N, int d,
-                               int d_pad, int C, float inv_two_sigma_sq,
-                               int n_pad, int* products, void* stream) {
-  return launch<MODE_MATVEC>(x, x, y, nullptr, nullptr, 0.f, out, hi, lo, nrm,
-                             hi, lo, nrm, N, N, d, d_pad, C, 1, 0,
-                             inv_two_sigma_sq, n_pad, products, stream);
+                               float* rhi, float* rlo, float* rn, float* chi,
+                               float* clo, float* cn, int N, int d, int d_pad,
+                               int C, float inv_two_sigma_sq, int n_pad,
+                               int tile, int* products, void* stream) {
+  return launch<MODE_MATVEC>(x, x, y, nullptr, nullptr, 0.f, out, rhi, rlo, rn,
+                             chi, clo, cn, N, N, d, d_pad, C, 1, 0,
+                             inv_two_sigma_sq, n_pad, tile, products, stream);
 }
 
-// K3.  x (N, d), y, y0 and out (B, N, C), one alpha for all; hi, lo, nrm of x.
+// K3.  x (N, d), y, y0 and out (B, N, C), one alpha for all.
 extern "C" int fused_lp_step_perbatch(const float* x, const float* y,
-                                      const float* y0, float* out, float* hi,
-                                      float* lo, float* nrm, int B, int N,
+                                      const float* y0, float* out, float* rhi,
+                                      float* rlo, float* rn, float* chi,
+                                      float* clo, float* cn, int B, int N,
                                       int d, int d_pad, int C, float alpha,
                                       float inv_two_sigma_sq, int n_pad,
-                                      int* products, void* stream) {
-  return launch<MODE_PERBATCH>(x, x, y, y0, nullptr, alpha, out, hi, lo, nrm,
-                               hi, lo, nrm, N, N, d, d_pad, C, B, 0,
-                               inv_two_sigma_sq, n_pad, products, stream);
+                                      int tile, int* products, void* stream) {
+  return launch<MODE_PERBATCH>(x, x, y, y0, nullptr, alpha, out, rhi, rlo, rn,
+                               chi, clo, cn, N, N, d, d_pad, C, B, 0,
+                               inv_two_sigma_sq, n_pad, tile, products, stream);
 }
 
 extern "C" const char* cuda_error_string(int code) {

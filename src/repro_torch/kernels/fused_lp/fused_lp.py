@@ -9,13 +9,23 @@ this form is what the CPU path runs and what the kernels are held against on
 the card.  The plain versions compute in the type of the labels ``y``:
 float32 on every path of the port, float64 for the float64 reference that
 the card's precision gate holds the kernels to.
+
+:func:`tile_config` maps a divergence to its tile, as the reference's
+``tile_config`` does: the inline squared-Euclidean tile for ``sqeuclidean``
+and for divergences that are squared Euclidean after a point pre-map
+(Mahalanobis, whose transform the callers apply outside), else the
+divergence's own :meth:`~repro_torch.core.divergence.Divergence.tile`
+(``tile_fn`` of the plain versions).  The plain versions slice ragged tiles
+instead of padding, so they read no padded point and ``pad_value`` never
+enters them.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["NEG_BIG", "PLAIN_BLOCK_M", "PLAIN_BLOCK_N", "REF_BLOCK_N",
-           "matvec_plain", "softmax_average", "stream_tile_update"]
+           "matvec_plain", "softmax_average", "stream_tile_update",
+           "tile_config"]
 
 # masked logits; finite (not -inf) so an all-masked tile behaves as in the
 # reference: m stays NEG_BIG, and the first real logit scales it away
@@ -37,10 +47,30 @@ def ref_padded_columns(n: int) -> int:
     return -(-n // REF_BLOCK_N) * REF_BLOCK_N
 
 
+def tile_config(divergence):
+    """``(tile, pad_value, transform)`` for a divergence spec.
+
+    ``tile=None`` selects the inline squared-Euclidean tile: for
+    ``sqeuclidean`` and for divergences that are squared Euclidean after
+    ``transform`` (Mahalanobis), which the caller applies to the points
+    outside the kernel.  Other divergences (KL, Itakura-Saito, custom ones)
+    return themselves as ``tile``: the plain versions evaluate ``tile.tile``,
+    the CUDA kernels the hand-written tile of its name.
+    """
+    from repro_torch.core.divergence import resolve_divergence
+
+    div = resolve_divergence(divergence)
+    if div.name == "sqeuclidean":
+        return None, 0.0, None  # identity transform: skip the extra op
+    if div.euclidean_after_transform:
+        return None, div.pad_value, div.transform_points
+    return div, div.pad_value, div.transform_points
+
+
 def stream_tile_update(x: torch.Tensor, xc: torch.Tensor, y_tile: torch.Tensor,
                        m: torch.Tensor, s: torch.Tensor, acc: torch.Tensor,
                        row_ids: torch.Tensor, col_ids: torch.Tensor, *,
-                       inv_two_sigma_sq: float, n_valid: int):
+                       inv_two_sigma_sq: float, n_valid: int, tile_fn=None):
     """One column-tile step of the online softmax; returns ``(m, s, acc)``.
 
     ``x`` (bm, d) and ``xc`` (bn, d) are the row and column point tiles,
@@ -48,11 +78,15 @@ def stream_tile_update(x: torch.Tensor, xc: torch.Tensor, y_tile: torch.Tensor,
     max (bm,), normalizer (bm,) and accumulator (bm, K).  ``row_ids`` (bm,)
     are global row ids (``row_base`` included) and ``col_ids`` (bn,) global
     column ids: the self-transition ``row == col`` and columns at or past
-    ``n_valid`` get ``NEG_BIG``.
+    ``n_valid`` get ``NEG_BIG``.  ``tile_fn`` (rows, cols) -> (bm, bn)
+    replaces the inline squared-Euclidean tile (a divergence's ``tile``).
     """
-    xx = (x * x).sum(-1)
-    cc = (xc * xc).sum(-1)
-    d2 = xx[:, None] + cc[None, :] - 2.0 * (x @ xc.T)
+    if tile_fn is None:
+        xx = (x * x).sum(-1)
+        cc = (xc * xc).sum(-1)
+        d2 = xx[:, None] + cc[None, :] - 2.0 * (x @ xc.T)
+    else:
+        d2 = tile_fn(x, xc)
     logits = -d2.clamp_min(0.0) * inv_two_sigma_sq
     invalid = (row_ids[:, None] == col_ids[None, :]) | (col_ids[None, :] >= n_valid)
     logits = torch.where(invalid, NEG_BIG, logits)
@@ -78,7 +112,7 @@ def softmax_average(m: torch.Tensor, s: torch.Tensor, acc: torch.Tensor,
 
 def stream_rows(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
                 inv_two_sigma_sq: float, row_base: int, block_m: int,
-                block_n: int):
+                block_n: int, tile_fn=None):
     """Yield ``(i0, i1, py)``: ``P @ y`` for row tiles of ``rows``, streamed."""
     n_rows, n = rows.shape[0], cols.shape[0]
     k = y.shape[1]
@@ -94,12 +128,13 @@ def stream_rows(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
             j1 = min(j0 + block_n, n)
             m, s, acc = stream_tile_update(
                 rows[i0:i1], cols[j0:j1], y[j0:j1], m, s, acc, row_ids,
-                col_ids[j0:j1], inv_two_sigma_sq=inv_two_sigma_sq, n_valid=n)
+                col_ids[j0:j1], inv_two_sigma_sq=inv_two_sigma_sq, n_valid=n,
+                tile_fn=tile_fn)
         yield i0, i1, softmax_average(m, s, acc, n)
 
 
 def matvec_plain(x: torch.Tensor, y: torch.Tensor, inv_two_sigma_sq: float, *,
-                 block_m: int = PLAIN_BLOCK_M,
+                 tile_fn=None, block_m: int = PLAIN_BLOCK_M,
                  block_n: int = PLAIN_BLOCK_N) -> torch.Tensor:
     """``P @ y`` for points ``x`` (N, d) and labels ``y`` (N, C) (plain torch).
 
@@ -107,6 +142,6 @@ def matvec_plain(x: torch.Tensor, y: torch.Tensor, inv_two_sigma_sq: float, *,
     """
     out = torch.empty(y.shape, dtype=y.dtype, device=x.device)
     for i0, i1, py in stream_rows(x, x, y, inv_two_sigma_sq, 0, block_m,
-                                  block_n):
+                                  block_n, tile_fn):
         out[i0:i1] = py
     return out

@@ -6,7 +6,9 @@ tensor cores as three TF32 products, ``hi.hi + hi.lo + lo.hi``, which keeps
 float32 accuracy (``csrc/tf32x3.cuh`` says why).  Their entry points first run
 the split pass of that header over each float32 operand (rows, d): ``hi =
 tf32(x)`` and ``lo = tf32(x - hi)``, each (rows, d_pad) with the pad columns
-zero, and ``|x|^2`` (rows,).  The wrappers allocate that scratch with
+zero, and ``|x|^2`` (rows,); K1-K3's kl and itakura_saito tiles split
+``log x`` or ``1/x`` for their column operand and write each operand's bias
+in place of ``|x|^2`` (the header's ``SplitOp``).  The wrappers allocate that scratch with
 :func:`split_scratch`.  Each entry point reports through an ``int*`` the
 number of TF32 products a k step of the kernel it launched takes, and the
 wrapper counts the launch under that route with :func:`count_route`.

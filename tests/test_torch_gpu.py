@@ -610,3 +610,169 @@ def test_cuda_background_engine_answers(card_vdt):
         assert g.shape == r.y0.shape
         np.testing.assert_allclose(g, w.cpu().numpy(), rtol=RTOL, atol=ATOL)
     assert eng.metrics().completed == 5
+
+
+# ------------------------------------------ K1-K3 on the divergence tiles
+def _positive(n, d, seed):
+    """Points in every divergence's domain: |N(0, 1)| + 0.1."""
+    r = np.random.RandomState(seed)
+    return (np.abs(r.randn(n, d)) + 0.1).astype(np.float32)
+
+
+def _divergence(name, d):
+    from repro_torch.core.divergence import mahalanobis
+
+    if name == "mahalanobis-scaled":
+        return mahalanobis(np.linspace(0.5, 2.0, d))
+    return name
+
+
+DIV_TILES = ["kl", "itakura_saito", "mahalanobis-scaled"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", DIV_TILES)
+@pytest.mark.parametrize("n,d,k,row_base", [(1000, 315, 2, 0),
+                                            (4099, 64, 16, 0),
+                                            (257, 5, 33, 0),
+                                            (300, 16, 5, 37)])
+def test_cuda_divergence_tiles_match_plain(name, n, d, k, row_base):
+    """K1 on each divergence's tile against its plain version; the launch is
+    counted on route tf32x3 and under the tile it ran."""
+    _card()
+    from repro_torch.kernels.fused_lp import kernel_tile, tile_config
+
+    tile, _, transform = tile_config(_divergence(name, d))
+    x = torch.as_tensor(_positive(n, d, seed=n)).cuda()
+    if transform is not None:
+        x = transform(x).contiguous()
+    _, y, y0, al = (torch.as_tensor(v).cuda()
+                    for v in _inputs(n, d, k, seed=n))
+    rows, y0r = x[row_base:].contiguous(), y0[row_base:].contiguous()
+    inv = 0.5 / d
+    before = dict(folded_step.launches_by_tile)
+    on_route = folded_step.launches_by_route["tf32x3"]
+    got = folded_step(rows, x, y, y0r, al, inv, row_base, tile=tile)
+    torch.cuda.synchronize()
+    assert folded_step.launches_by_route["tf32x3"] == on_route + 1
+    ran = kernel_tile(tile)
+    assert folded_step.launches_by_tile[ran] == before[ran] + 1
+    want = folded_step_plain(rows, x, y, y0r, al, inv, row_base,
+                             tile_fn=None if tile is None else tile.tile)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", DIV_TILES)
+def test_cuda_divergence_matvec_and_perbatch_match_plain(name):
+    """K2 and K3 on each tile: against their plain versions, P row-stochastic,
+    and K3 against K1 on the folded batch."""
+    _card()
+    n, d, b, c = 517, 40, 3, 2
+    div = _divergence(name, d)
+    x = torch.as_tensor(_positive(n, d, seed=5)).cuda()
+    r = np.random.RandomState(6)
+    y, y0 = (torch.as_tensor(r.rand(b, n, c).astype(np.float32)).cuda()
+             for _ in range(2))
+    sigma = math.sqrt(d)
+    k2 = fused_lp_matvec(x, y[0], sigma, divergence=div)
+    k3 = fused_lp_step_batched(x, y, y0, sigma, 0.3, reuse=False,
+                               divergence=div)
+    x_cpu = x.cpu()
+    torch.testing.assert_close(k2.cpu(), fused_lp_matvec(
+        x_cpu, y[0].cpu(), sigma, divergence=div), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(k3.cpu(), fused_lp_step_batched(
+        x_cpu, y.cpu(), y0.cpu(), sigma, 0.3, reuse=False, divergence=div),
+        rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(k3, fused_lp_step_batched(
+        x, y, y0, sigma, 0.3, reuse=True, divergence=div), rtol=RTOL,
+        atol=ATOL)
+    ones = torch.ones((n, 1), device="cuda")
+    torch.testing.assert_close(fused_lp_matvec(x, ones, sigma, divergence=div),
+                               ones, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["kl", "itakura_saito"])
+@pytest.mark.parametrize("k", [2, 16])
+def test_cuda_divergence_tile_precision_gate(name, k):
+    """The float64 gate per divergence tile, on positive Gaussian points."""
+    _card()
+    from repro_torch.core.divergence import get_divergence
+
+    tile = get_divergence(name)
+    n = 2_048
+    x = torch.as_tensor(_positive(n, GATE_D, seed=23 + k)).cuda()
+    r = np.random.RandomState(k)
+    y = torch.as_tensor(r.rand(n, k).astype(np.float32)).cuda()
+    al = torch.as_tensor(r.rand(k).astype(np.float32)).cuda()
+    xd = x.double()
+    span = tile.tile(xd[:64], xd)
+    inv = 37.0 / float((span.amax(1) - span.amin(1)).mean())
+    ref = folded_step_plain(xd, xd, y.double(), y.double(), al.double(), inv,
+                            tile_fn=tile.tile)
+    _assert_gate(folded_step(x, x, y, y, al, inv, tile=tile),
+                 folded_step_plain(x, x, y, y, al, inv, tile_fn=tile.tile),
+                 ref)
+
+
+@pytest.mark.gpu
+def test_cuda_custom_divergence_raises_on_the_exact_backend():
+    """A registered divergence with no hand-written tile runs on the CPU's
+    plain version, never on the card's in its place."""
+    _card()
+    from repro_torch.core.divergence import Divergence
+
+    custom = Divergence(
+        name="sq_plus_one", _phi=lambda x: (x * x).sum(-1),
+        _grad_phi=lambda x: 2.0 * x,
+        _pairwise=lambda a, b: ((a[:, None] - b[None]) ** 2).sum(-1) + 1.0,
+        _log_partition=lambda dim, s: torch.log(torch.as_tensor(s)))
+    x = torch.as_tensor(_positive(50, 4, seed=1))
+    y = torch.rand(50, 2)
+    fused_lp_matvec(x, y, 1.0, divergence=custom)  # plain twin on the CPU
+    with pytest.raises(NotImplementedError, match="no tile for divergence"):
+        fused_lp_matvec(x.cuda(), y.cuda(), 1.0, divergence=custom)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["kl", "itakura_saito", "mahalanobis-scaled"])
+def test_cuda_divergence_fit_stream_and_exact_match_a_cpu_copy(name):
+    """A fit on the card under each divergence, then an insert and a delete:
+    each epoch against a CPU copy given the same mutation, and the exact
+    backend through K1 against the plain version."""
+    _card()
+    from repro_torch import VariationalDualTree
+
+    n, d = 300, 12
+    div = _divergence(name, d)
+    x = _positive(n, d, seed=9)
+    vdt = VariationalDualTree.fit(x, max_blocks=4 * n, capacity=512,
+                                  divergence=div)
+    cpu = vdt.to("cpu")
+    x_new = _positive(20, d, seed=10)
+    epochs = []
+    for model in (vdt, cpu):
+        upd = model.insert_points(x_new)
+        upd = upd.vdt.delete_points(np.arange(0, 60, 3))
+        epochs.append(upd)
+    card, host = epochs
+    assert card.touched_blocks == host.touched_blocks
+    assert card.stale_blocks == host.stale_blocks
+    np.testing.assert_array_equal(card.vdt.bp.active, host.vdt.bp.active)
+    lq_c = card.vdt.qstate.log_q.cpu().numpy()
+    lq_h = host.vdt.qstate.log_q.numpy()
+    np.testing.assert_array_equal(np.isfinite(lq_c), np.isfinite(lq_h))
+    fin = np.isfinite(lq_h)
+    np.testing.assert_allclose(lq_c[fin], lq_h[fin], rtol=1e-3, atol=5e-4)
+    m = card.vdt.tree.n_points
+    y0 = (np.random.RandomState(3).rand(m, 2) > 0.8).astype(np.float32)
+    before = folded_step.launches
+    got = card.vdt.label_propagate(y0, alpha=0.1, n_iters=4, backend="exact")
+    assert folded_step.launches == before + 4
+    want = host.vdt.label_propagate(y0, alpha=0.1, n_iters=4, backend="exact")
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        card.vdt.label_propagate(y0, alpha=0.1, n_iters=4).cpu().numpy(),
+        host.vdt.label_propagate(y0, alpha=0.1, n_iters=4).numpy(),
+        rtol=RTOL, atol=ATOL)

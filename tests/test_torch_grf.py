@@ -274,11 +274,17 @@ def test_graph_lives_on_the_device_asked_for(csr, monkeypatch):
 
 
 def test_divergence_gate():
+    """As the reference: divergences that are squared Euclidean after their
+    point pre-map bridge to a graph, positive-domain ones raise."""
+    from repro_torch.core.divergence import mahalanobis
+
     x = (np.random.RandomState(5).rand(12, 3) + 0.5).astype(np.float32)
     for div in ("kl", "itakura_saito"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="does not support divergence"):
             CSRGraph.from_points(x, 1.0, divergence=div, device="cpu")
     CSRGraph.from_points(x, 1.0, device="cpu")  # euclidean path is fine
+    CSRGraph.from_points(x, 1.0, divergence=mahalanobis([0.5, 1.0, 2.0]),
+                         device="cpu")
 
 
 # ------------------------------------------ statistics with the port's walks

@@ -1,5 +1,6 @@
 """The port's surface: isolation from JAX and the reference, the device rule,
-and the parts of the reference that are not ported yet."""
+the divergence registry and streaming entry points, and the parts of the
+reference that are not ported yet."""
 import ast
 import importlib
 import json
@@ -13,7 +14,8 @@ import torch
 
 from repro_torch import VariationalDualTree
 from repro_torch._device import resolve_device
-from repro_torch.core.divergence import SQEUCLIDEAN, resolve_divergence
+from repro_torch.core.divergence import (DIVERGENCES, SQEUCLIDEAN,
+                                         resolve_divergence)
 from test_torch_fit import port_of
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -39,7 +41,8 @@ SERVING_SHIMS = ("engine", "metrics", "propagate", "queue", "decode")
 def test_import_pulls_neither_jax_nor_reference_and_is_warning_free():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels."
             "fused_lp, repro_torch.data.synthetic, repro_torch.core.grf, "
-            "repro_torch.core.baselines, repro_torch.kernels.grf, "
+            "repro_torch.core.baselines, repro_torch.core.streaming, "
+            "repro_torch.core.divergence, repro_torch.kernels.grf, "
             "repro_torch.kernels.pairwise, repro_torch.models, "
             "repro_torch.configs.registry, repro_torch.serving, "
             + "".join(f"repro_torch.serving.{m}, " for m in SERVING_PRIVATE)
@@ -65,7 +68,8 @@ def test_no_port_file_imports_jax_or_reference():
                 "serving/decode.py", "configs/registry.py",
                 "configs/gemma3_1b.py", "kernels/flash_attention/ops.py",
                 "serving/__init__.py", "serving/_engine.py",
-                "serving/fleet.py", "serving/_queue.py"):
+                "serving/fleet.py", "serving/_queue.py",
+                "core/streaming.py", "core/divergence.py"):
         assert PORT / new in files, new
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
@@ -99,26 +103,43 @@ def test_fit_without_device_raises_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("name", ["kl", "itakura_saito", "mahalanobis"])
 def test_unported_divergences_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        resolve_divergence(name)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        VariationalDualTree.fit(np.zeros((8, 2), np.float32), divergence=name,
-                                device="cpu")
+    """ROADMAP Queue 1 item 6 is done: each of the reference's other
+    divergences resolves by name and a port fit on the CPU carries it."""
+    from repro.core.divergence import get_divergence as ref_divergence
+
+    div = resolve_divergence(name)
+    assert div.name == name == ref_divergence(name).name
+    x = (np.random.RandomState(0).rand(8, 2) + 0.5).astype(np.float32)
+    vdt = VariationalDualTree.fit(x, divergence=name, device="cpu")
+    assert vdt.divergence_name == vdt.stats.divergence == name
+    assert np.isfinite(vdt.bound)
 
 
 def test_sqeuclidean_is_the_only_divergence():
+    """``sqeuclidean`` is the default among the reference's registry."""
+    from repro.core.divergence import DIVERGENCES as REF_DIVERGENCES
+
     for spec in (None, "sqeuclidean", SQEUCLIDEAN):
         assert resolve_divergence(spec) is SQEUCLIDEAN
+    assert sorted(DIVERGENCES) == sorted(REF_DIVERGENCES)
     with pytest.raises(ValueError, match="unknown divergence"):
         resolve_divergence("cosine")
 
 
 def test_streaming_is_not_ported_yet(small_fitted_vdt):
-    port = port_of(small_fitted_vdt[-1])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port.insert_points(np.zeros((1, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port.delete_points([0])
+    """ROADMAP Queue 1 item 8 is done: insert and delete on the carried
+    reference model give the reference's rows and point counts."""
+    x, ref = small_fitted_vdt
+    port = port_of(ref)
+    x_new = np.random.RandomState(1).randn(2, x.shape[1]).astype(np.float32)
+    for model in (ref, port):
+        ins = model.insert_points(x_new)
+        assert ins.vdt.tree.n_points == ref.tree.n_points + 2
+        np.testing.assert_array_equal(ins.rows, [33, 34])
+        dele = ins.vdt.delete_points([0])
+        assert dele.vdt.tree.n_points == ref.tree.n_points + 1
+        assert dele.row_map[0] == -1 and dele.row_map[1] == 0
+    assert port.tree.n_points == ref.tree.n_points  # copy-on-write
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-130m",
