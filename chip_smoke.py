@@ -85,6 +85,21 @@ Phases (any failure exits non-zero):
    flight (the queued answers equal an engine's that never saw it, bit for
    bit through K1, within tolerance on vdt); then ``refine`` by 1 % of the
    blocks, every block it refined a stale one;
+6d. ``[sharded engine]``: ``ShardedPropagateEngine`` over the fitted model of
+   phase 3 with D = 1, 2, 4 and 8 shards, all on ``cuda:0`` (the
+   decomposition runs for real; it is not a speed-up), against
+   ``PropagateEngine``: (a) 6 requests of widths 1-3, 10 exact iterations,
+   bit for bit; (b) the same on ``vdt`` with 50 iterations, within
+   rtol=1e-4, atol=1e-5 (``index_add_`` reduces with atomics); (c) under
+   ``edf`` with ``segment_iters=5`` a 50-iteration exact walk, bit for bit
+   the monolithic one; (d) the streamed epoch of phase 6c published into an
+   8-shard engine with exact work of the old epoch queued: both epochs'
+   answers bit for bit, the old shard buffers dropped; (e) every stripe
+   launch's rows (``row_base`` = the stripe's offset) equal to the same rows
+   of one whole-grid K1 launch, bit for bit; (f) D K1 launches an
+   iteration, every one on ``tf32x3``; (g) ms per exact and per VDT
+   iteration at each D beside the single engine's, and one split pass of
+   the columns (a stripe launch runs one, so D an iteration);
 7. the reference's remaining op entry points, each at its shape: K2
    (``fused_lp_matvec``, N = 83,679), K3 (``fused_lp_step_batched(
    reuse=False)``, B = 8, N = 16,384), K4 (``pairwise_sq_dists``, one kNN
@@ -124,7 +139,26 @@ Phases (any failure exits non-zero):
 12. K6's precision gate, which tells its float32 route's 3xTF32 from one
    TF32 product: Gaussian q, k, v (numpy seed) at both timed shapes, the
    kernel's max and RMS errors against the plain recurrence in float64 at
-   most 2 x the plain float32 version's.
+   most 2 x the plain float32 version's;
+13. ``[lm serve moe]``: deepseek-moe-16b (``repro/configs/deepseek_moe_16b.py``)
+   at full width (d_model 2,048, 16/16 heads of 128, 64 routed experts of
+   1,408 plus 2 shared, top-6, vocab 102,400), its depth cut from 28 layers
+   to 16 (9.8 B parameters, 39.3 GB in float32), bfloat16 compute, seeded
+   weights: 4 x 2,048-token prompts through ``prefill`` (K6's bfloat16 route
+   in every layer, no other launch of K6), 16 greedy ``decode_step``s, the
+   assignments each drops past its expert capacity; layer 0's MoE on 256
+   tokens of the prefill's hidden states in float32 on the card against a
+   CPU copy of its parameters (the same experts, ``2e-3``) and against the
+   layer written expert by expert (``chip_smoke.py::moe_loop_plain``: no
+   slot table, gather or scatter); decode at position S = 512 against
+   ``lm_forward`` on S + 1 tokens with the capacity factor raised to E / k,
+   so that nothing drops in either (a decode step routes its 4 tokens among
+   themselves, capacity 1, the forward 2,052, so at the served capacity
+   they drop different assignments by design), on the requests routed to
+   the same experts in every layer (all 4 in float32 at ``2e-3``; bfloat16
+   at ``0.15``); the profile by group with the MoE dispatch kernels apart;
+   then K6 timed at deepseek's attention shape (B = 4, 16/16 heads,
+   S = 2,048, D = 128, causal) as in phase 11.
 
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
@@ -200,6 +234,18 @@ TP_CLIENTS, TP_MAX_BATCH, TP_MAX_WAIT_MS = (1, 4, 16), 32, 25.0
 # K6's timed shapes: smollm-360m's attention and gemma3-1b's local layer
 K6_SHAPES = (("smollm-360m", 4, 15, 5, 2_048, 64, 0),
              ("gemma3-1b local", 4, 4, 1, 2_048, 256, 1_024))
+# the sharded engine: D shards on cuda:0 over the fitted SecStr model
+SHARD_COUNTS, SHARD_CHECK_ITERS, SHARD_TIME_ITERS = (1, 2, 4, 8), 10, 5
+# the MoE serving phase: deepseek-moe-16b at full width, its depth cut from
+# 28 layers to 16 (39.3 GB of float32 parameters), and K6 at its attention
+MOE_ARCH, MOE_LAYERS, MOE_LAYER_TOKENS, MOE_LAYER_TOL = (
+    "deepseek-moe-16b", 16, 256, 2e-3)
+MOE_CHECK_PROMPT = 512   # the decode check's context (capacity >= T there)
+K6_MOE_SHAPE = ("deepseek-moe-16b", 4, 16, 16, 2_048, 128, 0)
+# kernel-name fragments of the MoE dispatch (argsort, searchsorted, the
+# gathers and the index_add_ combine, top-k, bincount)
+MOE_DISPATCH_KERNELS = ("sort", "search", "index", "scatter", "gather",
+                        "topk", "bincount", "cub::")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1929,12 +1975,250 @@ def phase_streaming(out) -> dict:
     check(picked.any() and frac == 1.0,
           "refine: the budget went to blocks no mutation touched first")
     check(vdt._stream is None, "refine kept stale mirrors")
-    return dict(timings=timings, exact_err=err, publish=publish,
+    return dict(epoch=vdt, timings=timings, exact_err=err, publish=publish,
                 refine=dict(seconds=refine_s, blocks=[nb0, vdt.n_blocks],
                             stale=int(stale.sum()), refined=int(picked.sum()),
                             stale_fraction=frac),
                 touched=[ins.touched_blocks, dele.touched_blocks],
                 stale_blocks=[ins.stale_blocks, dele.stale_blocks])
+
+
+def serve(eng, reqs) -> list:
+    """Submit ``reqs`` to a manual engine, flush, shut it down; the answers."""
+    futs = [eng.submit(r) for r in reqs]
+    eng.flush()
+    res = [f.result(timeout=0) for f in futs]
+    eng.shutdown()
+    return res
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    """``total`` += ``counts``, key by key."""
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def counted_serve(eng, reqs, path: dict):
+    """``serve`` with the counts set to 0 just before and read just after;
+    returns the answers and that serve's counts, also added to ``path``."""
+    reset_counts()
+    got = serve(eng, reqs)
+    counts = read_counts()
+    add_counts(path, counts)
+    return got, counts
+
+
+def sharded_class():
+    """``ShardedPropagateEngine`` that counts its resumed segments (its
+    monolithic ``_scan`` is a resume from the seed: those do not count)."""
+    from repro_torch.serving import ShardedPropagateEngine
+
+    class Counted(ShardedPropagateEngine):
+        segments = 0
+
+        def _scan(self, *args, **kwargs):
+            self.segments -= 1
+            return super()._scan(*args, **kwargs)
+
+        def _scan_resume(self, *args, **kwargs):
+            self.segments += 1
+            return super()._scan_resume(*args, **kwargs)
+
+    return Counted
+
+
+def live_stripes(n: int, d: int) -> int:
+    """The exact backend's non-empty row stripes over ``d`` shards: the
+    rows padded to 256 cut into ``d``, clipped at ``n``."""
+    rps = (-(-n // 256) * 256) // d
+    return sum(min(s * rps, n) < min((s + 1) * rps, n) for s in range(d))
+
+
+def scan_ms(eng, vdt, backend: str, n_iters: int) -> float:
+    """Wall ms per iteration of one engine dispatch of one width-2 request
+    (folded K = 2), after a 1-iteration warm-up."""
+    import torch
+
+    stack = torch.as_tensor((np.random.RandomState(46).rand(
+        1, vdt.tree.n_points, 2) > 0.9).astype(np.float32), device="cuda")
+    alphas = np.array([0.01], np.float32)
+    eng._scan(vdt, stack, alphas, 1, backend)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._scan(vdt, stack, alphas, n_iters, backend)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_iters
+
+
+def phase_sharded(out, epoch) -> dict:
+    """[sharded engine] on the fitted SecStr model: D = 1, 2, 4, 8 shards on
+    one card against the single engine: (a) exact bit for bit, (b) vdt
+    within tolerance, (c) a segmented edf walk bit for bit, (d) a streamed
+    epoch published with work queued, (f) D K1 launches an iteration, all on
+    tf32x3, (g) ms per iteration at each D."""
+    import torch
+    from repro_torch.kernels.fused_lp import folded_step
+    from repro_torch.kernels.tf32x3 import split_scratch
+    from repro_torch.serving import PropagateEngine, ShardedPropagateEngine
+
+    vdt = out["vdt"]
+    n = vdt.tree.n_points
+    print(f"[sharded engine] ShardedPropagateEngine over the fitted SecStr "
+          f"model (N={n}, L={vdt.tree.L}), D = {SHARD_COUNTS} shards, all on "
+          "cuda:0 (the decomposition, not a speed-up)")
+    path = {}   # the sharded engine's own serves, each counted alone
+
+    reqs = {"exact": lp_requests(n, 6, (1, 2, 3), 41, SHARD_CHECK_ITERS,
+                                 backend="exact"),
+            "vdt": lp_requests(n, 6, (1, 2, 3), 42, VDT_ITERS)}
+    want = {be: serve(PropagateEngine(vdt, start=False, max_batch=8,
+                                      backend=be), r)
+            for be, r in reqs.items()}
+    (walk,) = lp_requests(n, 1, (2,), 43, PREEMPT_ITERS, backend="exact",
+                          deadline_ms=600_000.0)
+    want_walk = serve(PropagateEngine(vdt, start=False, backend="exact"),
+                      [walk])[0]
+    result = dict(vdt_max_abs_err={}, launches_per_iter={})
+    for d in SHARD_COUNTS:
+        devs = ["cuda:0"] * d
+        got, c = counted_serve(ShardedPropagateEngine(
+            vdt, devices=devs, start=False, max_batch=8, backend="exact"),
+            reqs["exact"], path)
+        launches, tc = c["K1"], c[f"K1 {TC_ROUTE}"]
+        check(launches == live_stripes(n, d) * SHARD_CHECK_ITERS
+              and tc == launches,
+              f"D={d}: {launches} K1 launches ({tc} on {TC_ROUTE}) for "
+              f"{SHARD_CHECK_ITERS} iterations")
+        same = all(np.array_equal(g, w) for g, w in zip(got, want["exact"]))
+        print(f"  (a, f) D={d} exact: 6 requests of widths 1-3 in one "
+              f"dispatch (folded K=32), {SHARD_CHECK_ITERS} iterations: K1 "
+              f"launches {launches} = {launches // SHARD_CHECK_ITERS} an "
+              f"iteration, {tc} on {TC_ROUTE}; == PropagateEngine "
+              f"{'bit for bit' if same else 'NOT bit for bit'}")
+        check(same, f"D={d}: the sharded exact answers differ")
+        result["launches_per_iter"][d] = launches / SHARD_CHECK_ITERS
+
+        got, _ = counted_serve(ShardedPropagateEngine(
+            vdt, devices=devs, start=False, max_batch=8), reqs["vdt"], path)
+        same = all(np.array_equal(g, w) for g, w in zip(got, want["vdt"]))
+        err = close(torch.as_tensor(np.concatenate(got, axis=1)),
+                    torch.as_tensor(np.concatenate(want["vdt"], axis=1)),
+                    f"(b) D={d} vdt, {VDT_ITERS} iterations, the 6 answers "
+                    f"vs PropagateEngine's ({'bit for bit' if same else 'not bit for bit'})")[0]
+        result["vdt_max_abs_err"][d] = err
+
+        eng = sharded_class()(vdt, devices=devs, start=False, policy="edf",
+                              segment_iters=PREEMPT_SEGMENT, backend="exact")
+        got = counted_serve(eng, [walk], path)[0][0]
+        same = np.array_equal(got, want_walk)
+        print(f"  (c) D={d} edf, segment_iters={PREEMPT_SEGMENT}: a "
+              f"{PREEMPT_ITERS}-iteration exact walk in {eng.segments} "
+              f"segments == the single engine's monolithic walk "
+              f"{'bit for bit' if same else 'NOT bit for bit'}")
+        check(eng.segments == PREEMPT_ITERS // PREEMPT_SEGMENT and same,
+              f"D={d}: the segmented sharded walk differs")
+
+    result["publish"] = sharded_publish(vdt, epoch, path)
+    result["counts"] = path
+    print(f"  (g) ms per iteration, one request of width 2 (folded K=2):")
+    x = vdt.x_rows
+    split = cuda_ms(lambda: split_scratch(x), 5)
+    times = {}
+    for d in (0,) + SHARD_COUNTS:
+        eng = (PropagateEngine(vdt, start=False) if d == 0 else
+               ShardedPropagateEngine(vdt, devices=["cuda:0"] * d,
+                                      start=False))
+        times[d or "single"] = dict(
+            exact=scan_ms(eng, vdt, "exact", SHARD_TIME_ITERS),
+            vdt=scan_ms(eng, vdt, "vdt", VDT_ITERS))
+        eng.shutdown()
+        t = times[d or "single"]
+        print(f"    {'single engine' if d == 0 else f'D={d}':>13}: exact "
+              f"{t['exact']:.2f} ms, vdt {t['vdt']:.3f} ms")
+    print(f"    one split pass of the {n} x {x.shape[1]} columns: "
+          f"{split:.3f} ms (the striped exact step runs D of them an "
+          f"iteration, the single engine one)")
+    result.update(ms_per_iter=times, split_pass_ms=split)
+    return result
+
+
+def sharded_publish(vdt0, vdt1, path: dict) -> dict:
+    """(d): the streamed epoch published into an 8-shard engine with work of
+    the old epoch queued: the queued answers and the new epoch's equal the
+    single engines' bit for bit through K1; the old shard buffers retire.
+    The sharded engine's launches are added to ``path``."""
+    from repro_torch.serving import PropagateEngine, ShardedPropagateEngine
+
+    d = SHARD_COUNTS[-1]
+    n0, n1 = vdt0.tree.n_points, vdt1.tree.n_points
+    reqs_old = lp_requests(n0, 4, (2,), 44, STREAM_EXACT_ITERS,
+                           backend="exact")
+    reqs_new = lp_requests(n1, 4, (2,), 45, STREAM_EXACT_ITERS,
+                           backend="exact")
+    want = [serve(PropagateEngine(v, start=False, max_batch=2,
+                                  backend="exact"), r)
+            for v, r in ((vdt0, reqs_old), (vdt1, reqs_new))]
+    eng = ShardedPropagateEngine(vdt0, devices=["cuda:0"] * d, start=False,
+                                 max_batch=2, backend="exact")
+    reset_counts()
+    futs_old = [eng.submit(q) for q in reqs_old]
+    eid = eng.publish(vdt1)
+    futs_new = [eng.submit(q) for q in reqs_new]
+    eng.flush()
+    add_counts(path, read_counts())
+    got = [[f.result(timeout=0) for f in fs] for fs in (futs_old, futs_new)]
+    m = eng.metrics()
+    eng.shutdown()
+    same = [all(np.array_equal(g, w) for g, w in zip(gs, ws))
+            for gs, ws in zip(got, want)]
+    print(f"  (d) D={d}: the streamed epoch ({n1} points) published with 4 "
+          f"exact requests of the old one queued: old answers "
+          f"{'bit for bit' if same[0] else 'NOT bit for bit'}, new epoch "
+          f"{'bit for bit' if same[1] else 'NOT bit for bit'} == "
+          f"PropagateEngine; epochs retired {m.epochs_retired}, shard "
+          f"buffers kept for the new epoch only: "
+          f"{list(eng._buf_cache) == [id(vdt1)]}")
+    check(all(same) and eid == 1 and m.epochs_retired == 1
+          and list(eng._buf_cache) == [id(vdt1)],
+          "sharded publish: answers or retirement differ")
+    return dict(bitwise=all(same), epochs_retired=m.epochs_retired)
+
+
+def phase_sharded_stripes(vdt) -> dict:
+    """(e): every stripe launch's rows equal the same rows of one
+    whole-grid K1 launch, bit for bit, at each D (comparison launches, not
+    counted on the path)."""
+    import torch
+    from repro_torch.kernels.fused_lp import alpha_row, folded_step
+    from repro_torch.kernels.fused_lp.fused_lp import ref_padded_columns
+
+    x = vdt.x_rows
+    n = x.shape[0]
+    sigma = float(vdt.sigma)
+    inv = float(1.0 / (2.0 * sigma * sigma))
+    g = torch.Generator().manual_seed(47)
+    y = torch.rand(n, 8, generator=g).cuda()
+    y0 = torch.rand(n, 8, generator=g).cuda()
+    al = alpha_row(torch.rand(8, generator=g), 8, "cuda")
+    whole = folded_step(x, x, y, y0, al, inv)
+    sizes = {}
+    for d in SHARD_COUNTS[1:]:
+        rps = ref_padded_columns(n) // d
+        sizes[d] = []
+        for s in range(d):
+            lo, hi = min(s * rps, n), min((s + 1) * rps, n)
+            if lo == hi:
+                continue
+            got = folded_step(x[lo:hi], x, y, y0[lo:hi].contiguous(), al,
+                              inv, row_base=lo)
+            check(torch.equal(got, whole[lo:hi]),
+                  f"(e) D={d} stripe {s} (rows {lo}..{hi}) differs from the "
+                  f"whole-grid launch")
+            sizes[d].append(hi - lo)
+        print(f"  (e) D={d}: stripe launches of {sizes[d]} rows, row_base = "
+              "the stripe's offset, K=8: every row == the whole-grid K1 "
+              "launch bit for bit")
+    return sizes
 
 
 def close_k6(got, want, what: str) -> tuple[float, float]:
@@ -2108,10 +2392,12 @@ def phase_lm_serve() -> dict:
 
 
 def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
-                     decode_ms: float) -> dict:
+                     decode_ms: float, moe: bool = False) -> dict:
     """Device time by kernel of one prefill and one decode step (torch
     profiler), and the device's busy share of the unprofiled times; returns
-    the device ms by group of each."""
+    the device ms by group of each.  ``moe``: the MoE layer's dispatch
+    kernels (sorts, searches, gathers, scatters, top-k) are a group of their
+    own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.decode import decode_step, prefill
@@ -2128,6 +2414,8 @@ def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
                     or "prepare_kv" in name else
                     "matmul" if any(w in name.lower() for w in (
                         "gemm", "gemv", "cutlass", "xmma", "nvjet"))
+                    else "moe dispatch" if moe and any(
+                        w in name.lower() for w in MOE_DISPATCH_KERNELS)
                     else "other")
             us = getattr(e, "self_device_time_total", None)
             us = e.self_cuda_time_total if us is None else us
@@ -2214,11 +2502,12 @@ def phase_lm_f32(params) -> tuple[float, dict]:
                  LM_F32_TOL)[0], counts
 
 
-def phase_k6_timing() -> list:
+def phase_k6_timing(cases=None) -> list:
     """K6 at the LM path's attention shapes, each route at its type (bfloat16:
     the bf16 tensor-core kernel; float32: the 3xTF32 one), against its plain
     version, its bound and ``scaled_dot_product_attention`` (yardstick only),
-    kernel and SDPA in turns."""
+    kernel and SDPA in turns.  ``cases``: (shape, dtype) pairs, by default
+    every shape of ``K6_SHAPES`` in both types."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -2227,7 +2516,7 @@ def phase_k6_timing() -> list:
     print("[K6 timing]")
     g = torch.Generator().manual_seed(7)
     rows = []
-    for (name, b, hq, hkv, s, d, window), dtype in (
+    for (name, b, hq, hkv, s, d, window), dtype in cases or (
             (shape, dtype) for dtype in (torch.bfloat16, torch.float32)
             for shape in K6_SHAPES):
         tname = str(dtype).split(".")[1]
@@ -2285,6 +2574,281 @@ def phase_k6_timing() -> list:
                          lib_ms2=lib_ms2, bound_ms=bound_ms, by=by,
                          f32_bound_ms=f32_ms, err=err, block_rms=ratio))
     return rows
+
+
+def moe_routing(params, x, cfg):
+    """What ``moe_apply`` routes for input ``x``: the chosen experts
+    ``(T, k)`` and each token's assignments dropped past the capacity."""
+    import torch
+    from repro_torch.models import moe
+
+    t, k = x.shape[0] * x.shape[1], cfg.experts_per_token
+    probs = torch.softmax(x.reshape(t, -1).to(torch.float32)
+                          @ params["router"].to(torch.float32), dim=-1)
+    top_i = torch.topk(probs, k)[1]
+    capacity = int(cfg.capacity_factor * t * k / cfg.n_experts) + 1
+    table, valid = moe._dispatch_indices(top_i, cfg.n_experts, capacity)
+    kept = torch.bincount(table[valid] // k, minlength=t)
+    return top_i, k - kept
+
+
+class MoeRecorder:
+    """Within ``with``: every MoE layer call of the port's models records
+    its routing (``moe_routing``) in ``calls``, and the first call its
+    input in ``first_input``."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+
+        self.calls, self.first_input = [], None
+        self._orig = orig = transformer.moe_apply
+
+        def recorded(params, x, cfg, dt):
+            if self.first_input is None:
+                self.first_input = x.detach().clone()
+            self.calls.append(moe_routing(params, x, cfg))
+            return orig(params, x, cfg, dt)
+
+        transformer.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        transformer.moe_apply = self._orig
+
+    def drops(self) -> int:
+        return int(sum(int(d.sum()) for _, d in self.calls))
+
+
+def moe_loop_plain(params, x, cfg):
+    """The MoE layer written another way, in float32: expert by expert, each
+    keeping the first ``capacity`` of its assignments in (token, choice)
+    order, its FFN on those tokens added back with their routing weights;
+    no slot table, gather buffer or scatter.  What the layer check holds
+    ``moe_apply``'s dispatch, expert FFN and combine to."""
+    import torch
+    import torch.nn.functional as F
+
+    t, d = x.shape[0] * x.shape[1], x.shape[-1]
+    k, e = cfg.experts_per_token, cfg.n_experts
+    xt = x.reshape(t, d).to(torch.float32)
+    probs = torch.softmax(xt @ params["router"], dim=-1)
+    top_p, top_i = torch.topk(probs, k)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    capacity = int(cfg.capacity_factor * t * k / e) + 1
+    y = torch.zeros_like(xt)
+    for ex in range(e):
+        flat = (top_i.reshape(-1) == ex).nonzero()[:, 0][:capacity]
+        tok = flat // k
+        h = F.silu(xt[tok] @ params["w_gate"][ex]) * (
+            xt[tok] @ params["w_up"][ex])
+        y[tok] += top_p.reshape(-1)[flat, None] * (h @ params["w_down"][ex])
+    if cfg.n_shared_experts:
+        sp = params["shared"]
+        y += (F.silu(xt @ sp["w_gate"]) * (xt @ sp["w_up"])) @ sp["w_down"]
+    return y.reshape(x.shape)
+
+
+def moe_decode_check(params, cfg, tokens, tol: float) -> dict:
+    """Decode at position S against ``lm_forward`` on S + 1 tokens, with
+    the capacity factor raised to E / k so that no assignment drops in
+    either (capacity >= T, and a token picks an expert once): a decode step
+    routes only the batch's B tokens among themselves, the forward
+    B (S + 1), so at the served capacity the two drop different
+    assignments by design.  Compared on the requests routed to the same
+    experts in every layer."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serving.decode import decode_step, prefill
+
+    cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    s = tokens.shape[1]
+    logits, state = prefill(params, tokens, cfg)
+    tok = logits.argmax(-1)[:, None]
+    with MoeRecorder() as dec:
+        step, _ = decode_step(params, tok, state, cfg)
+    with MoeRecorder() as fwd:
+        full, _ = lm_forward(params, torch.cat([tokens, tok], dim=1), cfg)
+    check(len(dec.calls) == len(fwd.calls) == cfg.n_layers
+          and dec.drops() == fwd.drops() == 0,
+          f"decode check: {dec.drops()} / {fwd.drops()} assignments dropped"
+          " at capacity >= T")
+    alike = [b for b in range(tokens.shape[0])
+             if all(torch.equal(di[b], fi[b * (s + 1) + s])
+                    for (di, _), (fi, _) in zip(dec.calls, fwd.calls))]
+    err = None
+    if alike:
+        err = close(step[alike], full[alike, s],
+                    f"decode logits vs lm_forward at position S={s}, "
+                    f"requests {alike} routed alike in every layer "
+                    f"({cfg.dtype}, capacity factor "
+                    f"{cfg.capacity_factor:.3f}, nothing dropped)", tol,
+                    tol)[0]
+    else:
+        print(f"  decode check ({cfg.dtype}): no request routed alike in "
+              "every layer")
+    del full
+    return dict(alike=alike, max_abs_err=err)
+
+
+def moe_layer_check(params, cfg, hidden) -> dict:
+    """Layer 0's MoE on ``MOE_LAYER_TOKENS`` tokens of the prefill's hidden
+    states in float32: on the card against a CPU copy of its parameters
+    (the same experts, outputs within ``MOE_LAYER_TOL``), and against
+    ``moe_loop_plain`` on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_params
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    card = layer_params(params["layers"], 0)["moe"]
+    host = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                if isinstance(v, dict) else v.cpu()) for k, v in card.items()}
+    h = hidden[:1, :MOE_LAYER_TOKENS].to(torch.float32)
+    top_card, drop_card = moe_routing(card, h, cfg32)
+    top_host, _ = moe_routing(host, h.cpu(), cfg32)
+    same = torch.equal(top_card.cpu(), top_host)
+    y, aux = moe.moe_apply(card, h, cfg32, torch.float32)
+    y_host, aux_host = moe.moe_apply(host, h.cpu(), cfg32, torch.float32)
+    print(f"  layer 0's MoE on {h.shape[1]} prefill tokens, float32, card vs "
+          f"a CPU copy: experts {'equal' if same else 'DIFFER'}, "
+          f"{int(drop_card.sum())} assignments dropped, aux {float(aux):.6f}"
+          f" / {float(aux_host):.6f}")
+    check(same, "MoE layer: the card routes differently from the CPU copy")
+    err = close(y, y_host, "MoE layer output, card vs CPU copy",
+                MOE_LAYER_TOL, MOE_LAYER_TOL)[0]
+    close(aux.reshape(1), aux_host.reshape(1), "MoE aux loss, card vs CPU "
+          "copy", 1e-5, 1e-6)
+    loop_err = close(y, moe_loop_plain(card, h, cfg32), "MoE layer output "
+                     "vs the expert-by-expert loop, on the card",
+                     MOE_LAYER_TOL, MOE_LAYER_TOL)[0]
+    return dict(max_abs_err=err, loop_max_abs_err=loop_err,
+                drops=int(drop_card.sum()))
+
+
+def phase_lm_moe() -> dict:
+    """[lm serve moe]: deepseek-moe-16b at full width, 16 of its 28 layers:
+    prefill 4 x 2,048 tokens (K6's bfloat16 route in every layer), 16
+    greedy decode steps, the layer and decode checks, the profile."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving.decode import DECODE_SLACK, decode_step, prefill
+
+    full_cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full_cfg, n_layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, LM_SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[lm serve moe] {cfg.name}: {cfg.n_layers} of its "
+          f"{full_cfg.n_layers} layers (the one cut), d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, "
+          f"{cfg.n_experts} routed experts of {cfg.moe_d_ff} + "
+          f"{cfg.n_shared_experts} shared, top-{cfg.experts_per_token}, "
+          f"capacity factor {cfg.capacity_factor}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; {n_params / 1e9:.3f} B params, "
+          f"{4 * n_params / 1e9:.1f} GB in float32 (all {full_cfg.n_layers} "
+          f"layers: {full_cfg.param_count() / 1e9:.2f} B), seeded on the "
+          f"card in {init_s:.2f} s")
+    tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, tokens.flip(1), cfg)
+    decode_step(params, logits.argmax(-1)[:, None], state, cfg)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    del logits, state
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, tokens, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    check(k6_route_only(counts, "sm90_bf16", cfg.n_layers),
+          f"moe prefill launched K6 {counts}, expected {cfg.n_layers} times "
+          "on the bfloat16 route and never on another")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          "moe prefill: bad logits")
+    check(tuple(state.kv.k.shape) == (cfg.n_layers, LM_BATCH,
+                                      LM_PROMPT + DECODE_SLACK,
+                                      cfg.n_kv_heads, cfg.head_dim_),
+          f"moe prefill: cache shape {tuple(state.kv.k.shape)}")
+    state0 = state
+    tok = logits.argmax(-1)[:, None]
+    generated = [tok]
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(DECODE_SLACK + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(DECODE_SLACK):
+        logits, state = decode_step(params, tok, state, cfg)
+        tok = logits.argmax(-1)[:, None]
+        generated.append(tok)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_SLACK
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(logits.float()).all())
+          and int(state.kv.pos[0]) == LM_PROMPT + DECODE_SLACK,
+          "moe decode: bad logits or position")
+    del state
+    # the same steps again, recorded: the assignments each drops
+    with MoeRecorder() as rec:
+        st = state0
+        for tok in generated[:-1]:
+            _, st = decode_step(params, tok, st, cfg)
+    decode_drops = rec.drops()
+    del st, rec
+    with MoeRecorder() as rec:
+        prefill(params, tokens, cfg)
+    prefill_drops, hidden = rec.drops(), rec.first_input
+    del rec
+    print(f"  cold prefill + 1 decode step (not counted): {cold_ms:.1f} ms")
+    print(f"  prefill {LM_BATCH} x {LM_PROMPT} tokens: {prefill_ms:.1f} ms "
+          f"({LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} tokens/s), K6 "
+          f"launches {counts['K6']} (sm90_bf16 {counts['K6 sm90_bf16']}), "
+          f"{prefill_drops} of {LM_BATCH * LM_PROMPT * cfg.n_layers * cfg.experts_per_token}"
+          f" assignments dropped; decode {DECODE_SLACK} greedy steps: "
+          f"{decode_ms:.2f} ms per step ({LM_BATCH / decode_ms * 1e3:.0f} "
+          f"tokens/s; between device events min {min(step_ms):.2f}, max "
+          f"{max(step_ms):.2f} ms), {decode_drops} of "
+          f"{DECODE_SLACK * LM_BATCH * cfg.n_layers * cfg.experts_per_token}"
+          f" assignments dropped (capacity "
+          f"{int(cfg.capacity_factor * LM_BATCH * cfg.experts_per_token / cfg.n_experts) + 1}"
+          f" a step); max_memory_allocated {peak:.2f} GiB")
+    print(f"  request 0 generated {torch.cat(generated, 1)[0].tolist()}")
+    layer = moe_layer_check(params, cfg, hidden)
+    del hidden
+    short = tokens[:, :MOE_CHECK_PROMPT]
+    check32 = moe_decode_check(params, dataclasses.replace(
+        cfg, dtype="float32"), short, LM_F32_TOL)
+    check(len(check32["alike"]) == LM_BATCH, "moe decode check (float32): "
+          f"requests {check32['alike']} of {LM_BATCH} routed alike")
+    profile = phase_lm_profile(params, cfg, tokens, prefill_ms, decode_ms,
+                               moe=True)
+    del params
+    torch.cuda.empty_cache()
+    return dict(counts=counts, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                peak_gib=peak, init_s=init_s, n_params=n_params,
+                prefill_drops=prefill_drops, decode_drops=decode_drops,
+                layer_check=layer, decode_check_f32=check32,
+                profile=profile)
 
 
 def phase_k6_gate() -> dict:
@@ -2384,7 +2948,18 @@ def main() -> int:
     print(f"  streaming path launches {stream_counts}")
     check(stream_counts["K1"] > 0, "streaming: K1 not launched")
     check_tc_route(stream_counts, ("K1",))
+    epoch = stream.pop("epoch")
     print(f"[streaming] summary {json.dumps(stream)}")
+
+    sharded = phase_sharded(out, epoch)
+    sharded_counts = sharded.pop("counts")
+    print(f"  sharded path launches (the sharded engine's serves only) "
+          f"{sharded_counts}")
+    check(sharded_counts["K1"] > 0, "sharded engine: K1 not launched")
+    check_tc_route(sharded_counts, ("K1",))
+    sharded["stripe_rows"] = phase_sharded_stripes(out["vdt"])
+    print(f"[sharded engine] summary {json.dumps(sharded)}")
+    del epoch
     ops = phase_ops(out)
     phase_single_point()
     del out
@@ -2409,6 +2984,10 @@ def main() -> int:
     lm_f32_err, f32_counts = phase_lm_f32(lm.pop("params"))
     k6 = phase_k6_timing()
     k6_gate = phase_k6_gate()
+    moe = phase_lm_moe()
+    moe_counts = moe.pop("counts")
+    print(f"[lm serve moe] summary {json.dumps(moe)}")
+    k6_moe = phase_k6_timing([(K6_MOE_SHAPE, torch.bfloat16)])[0]
 
     single, batch8 = after["rows"]
     tc = dict(tensor_core_route=TC_ROUTE,
@@ -2431,6 +3010,12 @@ def main() -> int:
                        k64=engine["wide_exact"]),
         gate={k: v for k, v in gate.items() if k.startswith("K1")},
         streaming_launches=stream_counts["K1"],
+        sharded=dict(launches=sharded_counts["K1"],
+                     launches_tf32x3=sharded_counts[f"K1 {TC_ROUTE}"],
+                     launches_per_iter=sharded["launches_per_iter"],
+                     ms_per_iter=sharded["ms_per_iter"],
+                     split_pass_ms=sharded["split_pass_ms"],
+                     stripe_rows=sharded["stripe_rows"]),
         by_tile_n16384={k: v for k, v in div_gate["timing"].items()
                         if k.startswith("sqeuclidean")}, **tc)]
     # K1's divergence routes: the same kernel on the kl and
@@ -2528,7 +3113,18 @@ def main() -> int:
             **(dict(prefill_ms=lm["prefill_ms"],
                     decode_ms_per_step=lm["decode_ms"],
                     prefill_device_ms=prefill_share.get("total"),
-                    prefill_k6_device_ms=prefill_share.get("K6"))
+                    prefill_k6_device_ms=prefill_share.get("K6"),
+                    deepseek_moe=dict(
+                        launches=moe_counts["K6 sm90_bf16"],
+                        shape=k6_moe["shape"], ms=k6_moe["ms"],
+                        ms2=k6_moe["ms2"], plain_ms=k6_moe["plain_ms"],
+                        bound_ms=k6_moe["bound_ms"], bound_by=k6_moe["by"],
+                        library_ms=k6_moe["lib_ms"],
+                        library_ms2=k6_moe["lib_ms2"],
+                        max_abs_err=k6_moe["err"],
+                        max_block_rms=k6_moe["block_rms"],
+                        prefill_ms=moe["prefill_ms"],
+                        decode_ms_per_step=moe["decode_ms"]))
                if route == "sm90_bf16" else
                dict(lm_f32_logits_max_abs_err=lm_f32_err, gate=k6_gate,
                     tensor_core_route=K6_F32_ROUTE,

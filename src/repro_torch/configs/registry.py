@@ -1,9 +1,9 @@
 """``repro_torch/configs/registry.py`` ↔ ``repro/configs/registry.py``.
 
 Resolves an architecture id to its configuration.  The port runs the dense
-family only: ``ARCH_IDS`` lists the four dense architectures, and an id the
-reference knows but the port does not run yet raises ``NotImplementedError``
-naming its ROADMAP item.
+and MoE families: ``ARCH_IDS`` lists the four dense architectures and the
+two MoE ones, and an id the reference knows but the port does not run yet
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -16,21 +16,22 @@ _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "glm4-9b": "glm4_9b",
     "smollm-360m": "smollm_360m",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 ARCH_IDS = tuple(_MODULES)
 
-# the reference's other architectures: MoE, SSM, hybrid, vlm and audio
-NOT_PORTED = ("zamba2-1.2b", "internvl2-1b", "deepseek-moe-16b",
-              "mixtral-8x7b", "mamba2-130m", "whisper-medium")
+# the reference's other architectures: SSM, hybrid, vlm and audio
+NOT_PORTED = ("zamba2-1.2b", "internvl2-1b", "mamba2-130m", "whisper-medium")
 
 
 def _module(arch_id: str):
     if arch_id in NOT_PORTED:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: the port runs the dense "
-            f"architectures {sorted(_MODULES)}; the MoE, SSM, hybrid, vlm and "
-            "audio families are ROADMAP Queue 1 item 12")
+            f"{arch_id!r} is not ported yet: the port runs the dense and MoE "
+            f"architectures {sorted(_MODULES)}; the SSM and hybrid families "
+            "are ROADMAP Queue 1 item 12c, vlm item 12d and audio item 12e")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

@@ -1,6 +1,6 @@
-"""``repro_torch/models`` ↔ ``repro/models``: the dense decoder-only LM
-(configuration, layers, attention through K6, the transformer stack) and the
-conversion of the reference's parameters."""
+"""``repro_torch/models`` ↔ ``repro/models``: the dense and MoE decoder-only
+LMs (configuration, layers, attention through K6, the MoE layer, the
+transformer stack) and the conversion of the reference's parameters."""
 from repro_torch.models.attention import (KVCache, attn_apply, attn_decode,
                                           attn_init, init_cache)
 from repro_torch.models.config import ModelConfig

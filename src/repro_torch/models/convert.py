@@ -3,8 +3,9 @@ carried across.
 
 :func:`lm_params_from_numpy` takes the pytree of the reference's ``init_lm``
 as numpy arrays (layers stacked on axis 0, as its ``jax.vmap`` init leaves
-them) and returns the port's parameters, so that both packages compute with
-the same weights.
+them; an MoE layer's ``router``, its experts' ``w_gate``/``w_up``/``w_down``
+as ``(L, E, ., .)`` and its ``shared`` experts) and returns the port's
+parameters, so that both packages compute with the same weights.
 """
 from __future__ import annotations
 

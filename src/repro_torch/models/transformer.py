@@ -1,13 +1,14 @@
 """``repro_torch/models/transformer.py`` ↔ ``repro/models/transformer.py``.
 
-The decoder-only LM for the dense family.  Parameters are a dict of float32
-tensors in the reference's ``init_lm`` layout, the layers stacked on axis 0
-(``params["layers"]["attn"]["w_q"]`` is ``(L, d_model, Hq * D)``); the layer
-loop is a Python loop over that axis.  Per-layer windows are Python ints.
-The reference's ``shard_act`` / ``shard_attn_logits`` are the identity
-without a device mesh and are dropped (the sharded path is ROADMAP Queue 1
-item 10).  The MoE, SSM, hybrid, vlm and audio families raise
-``NotImplementedError`` (ROADMAP Queue 1 item 12).
+The decoder-only LM for the dense and MoE families.  Parameters are a dict
+of float32 tensors in the reference's ``init_lm`` layout, the layers stacked
+on axis 0 (``params["layers"]["attn"]["w_q"]`` is ``(L, d_model, Hq * D)``,
+an MoE layer's ``params["layers"]["moe"]["w_gate"]`` ``(L, E, d_model,
+d_ff)``); the layer loop is a Python loop over that axis.  Per-layer windows
+are Python ints.  The reference's ``shard_act`` / ``shard_attn_logits`` are
+the identity without a device mesh and are dropped (LM sharding is ROADMAP
+Queue 1 item 12g).  The SSM and hybrid families raise
+``NotImplementedError`` (item 12c), vlm (12d) and audio (12e) likewise.
 """
 from __future__ import annotations
 
@@ -17,57 +18,90 @@ from repro_torch._device import resolve_device
 from repro_torch.models.attention import attn_apply, attn_init
 from repro_torch.models.layers import (Dtypes, dense_init, mlp_apply,
                                        mlp_init, rms_norm)
+from repro_torch.models.moe import moe_apply, moe_init, moe_param_shapes
 
-__all__ = ["HUGE_WINDOW", "init_lm", "layer_params", "layer_windows",
-           "lm_forward", "lm_param_shapes", "require_dense", "unembedding"]
+__all__ = ["HUGE_WINDOW", "ffn_apply", "init_lm", "layer_params",
+           "layer_windows", "lm_forward", "lm_param_shapes", "require_ported",
+           "unembedding"]
 
 HUGE_WINDOW = 1 << 30  # "no window": (qi - kj) < 2^30 is always true
 
+# the reference's families the port does not run yet, by ROADMAP item
+_NOT_PORTED = {"ssm": "12c", "hybrid": "12c", "vlm": "12d", "audio": "12e"}
 
-def require_dense(cfg) -> None:
-    """Raise for a configuration outside the ported dense family."""
-    if cfg.family != "dense" or cfg.n_experts:
+
+def require_ported(cfg) -> None:
+    """Raise for a configuration outside the ported dense and MoE families."""
+    if cfg.family not in ("dense", "moe"):
+        item = _NOT_PORTED.get(cfg.family, "12")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            "port runs dense LMs only (MoE, SSM, hybrid, vlm and audio are "
-            "ROADMAP Queue 1 item 12)")
+            f"port runs dense and MoE LMs (this family is ROADMAP Queue 1 "
+            f"item {item})")
 
 
 def lm_param_shapes(cfg) -> dict:
     """The shape of every parameter, in the layout of ``init_lm`` (what
     ``models.convert`` checks the reference's parameters against)."""
-    require_dense(cfg)
+    require_ported(cfg)
     n, d, vp = cfg.n_layers, cfg.d_model, cfg.padded_vocab
     hd, hq, hkv, f = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    shapes = {
-        "embed": (vp, d),
-        "final_ln": (d,),
-        "layers": {
-            "ln1": (n, d), "ln2": (n, d),
-            "attn": {"w_q": (n, d, hq * hd), "w_k": (n, d, hkv * hd),
-                     "w_v": (n, d, hkv * hd), "w_o": (n, hq * hd, d)},
-            "mlp": {"w_gate": (n, d, f), "w_up": (n, d, f),
-                    "w_down": (n, f, d)},
-        },
+
+    def stacked(tree):
+        return {k: stacked(v) if isinstance(v, dict) else (n, *v)
+                for k, v in tree.items()}
+
+    layer = {
+        "ln1": (d,), "ln2": (d,),
+        "attn": {"w_q": (d, hq * hd), "w_k": (d, hkv * hd),
+                 "w_v": (d, hkv * hd), "w_o": (hq * hd, d)},
     }
+    if cfg.n_experts:
+        layer["moe"] = moe_param_shapes(cfg)
+    else:
+        layer["mlp"] = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    shapes = {"embed": (vp, d), "final_ln": (d,), "layers": stacked(layer)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (d, vp)
     return shapes
 
 
 def _layer_init(generator: torch.Generator, cfg, device) -> dict:
-    return {
+    p = {
         "ln1": torch.zeros(cfg.d_model, device=device),
         "ln2": torch.zeros(cfg.d_model, device=device),
         "attn": attn_init(generator, cfg, device=device),
-        "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, device=device),
     }
+    if cfg.n_experts:
+        p["moe"] = moe_init(generator, cfg, device=device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, device=device)
+    return p
 
 
-def _stack(trees: list) -> dict:
-    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else torch.stack([t[k] for t in trees])
-            for k, v in trees[0].items()}
+def _stacked_layers(generator: torch.Generator, cfg, device) -> dict:
+    """Every layer's parameters, stacked on axis 0.  The stacked tensors are
+    allocated first and filled layer by layer, so that the parameters are
+    held once, plus one layer's, never twice."""
+    def empty(tree):
+        return {k: empty(v) if isinstance(v, dict) else
+                torch.empty((cfg.n_layers, *v.shape), dtype=v.dtype,
+                            device=device) for k, v in tree.items()}
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i].copy_(v)
+
+    first = _layer_init(generator, cfg, device)
+    layers = empty(first)
+    fill(layers, first, 0)
+    del first
+    for i in range(1, cfg.n_layers):
+        fill(layers, _layer_init(generator, cfg, device), i)
+    return layers
 
 
 def init_lm(cfg, seed: int = 0, *, device=None) -> dict:
@@ -75,7 +109,7 @@ def init_lm(cfg, seed: int = 0, *, device=None) -> dict:
     the reference's distributions (normal embeddings scaled by
     ``d_model ** -0.5``, truncated-normal fan-in matrices, zero norm gains),
     not its numbers."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     vp, d = cfg.padded_vocab, cfg.d_model
@@ -83,8 +117,7 @@ def init_lm(cfg, seed: int = 0, *, device=None) -> dict:
         "embed": torch.randn((vp, d), generator=gen, device=dev)
         .mul_(d ** -0.5),
         "final_ln": torch.zeros(d, device=dev),
-        "layers": _stack([_layer_init(gen, cfg, dev)
-                          for _ in range(cfg.n_layers)]),
+        "layers": _stacked_layers(gen, cfg, dev),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, d, vp, device=dev)
@@ -117,20 +150,32 @@ def unembedding(params: dict, cfg, dt) -> torch.Tensor:
     return unemb.to(dt)
 
 
+def ffn_apply(lp: dict, h: torch.Tensor, cfg, dt):
+    """A layer's feed-forward block on the normed ``h``: the gated MLP, or
+    the MoE layer; returns ``(out, aux_loss)``, ``aux_loss`` None if dense."""
+    if cfg.n_experts:
+        return moe_apply(lp["moe"], h, cfg, dt)
+    return mlp_apply(lp["mlp"], h, dt), None
+
+
 def lm_forward(params: dict, tokens: torch.Tensor, cfg):
     """Full-sequence forward; returns ``(logits (B, S, Vp), aux_loss)``,
-    ``aux_loss`` 0 for the dense family."""
-    require_dense(cfg)
+    ``aux_loss`` the MoE layers' load-balance losses summed (0 if dense)."""
+    require_ported(cfg)
     dt = Dtypes.compute(cfg)
     emb = params["embed"]
     x = emb[torch.as_tensor(tokens, device=emb.device)].to(dt)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, w in enumerate(layer_windows(cfg)):
         lp = layer_params(params["layers"], i)
         x = x + attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
                            cfg, positions, window=w)
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), dt)
+        m, aux_l = ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
+                             dt)
+        if aux_l is not None:
+            aux = aux + aux_l
+        x = x + m
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x @ unembedding(params, cfg, dt), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    return x @ unembedding(params, cfg, dt), aux

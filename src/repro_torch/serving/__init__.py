@@ -13,6 +13,9 @@ The layers underneath:
 * :class:`PropagateEngine` — the continuous-batching engine over one
   fitted variational dual tree, on the model's device (the card unless the
   model was fitted with ``device="cpu"``).
+* :class:`ShardedPropagateEngine` — the same scheduler with every dispatch
+  decomposed over a power-of-two mesh of shards (row stripes of the leaf
+  order and of the exact matrix), bit for bit the single engine's output.
 * :class:`EngineFleet` / :class:`FleetMetricsSnapshot` — the multi-tenant
   front-end: tenant -> fitted tree -> engine routing with weighted
   deficit-round-robin fair queueing.
@@ -22,8 +25,7 @@ The layers underneath:
   backpressure / deadline exceptions; :class:`MetricsSnapshot` — per-engine
   observability.
 
-The reference's ``ShardedPropagateEngine`` is not ported yet (ROADMAP
-Queue 1 item 10): importing it raises ``ImportError``.  The deep modules
+The deep modules
 ``repro_torch.serving.engine``, ``.propagate``, ``.queue`` and ``.metrics``
 are deprecated shims over the private ``_*`` modules, as in the reference;
 ``serving/decode.py`` is the LM decode path and re-exports the
@@ -35,6 +37,7 @@ from repro_torch.serving._engine import PropagateEngine
 from repro_torch.serving._metrics import MetricsSnapshot
 from repro_torch.serving._propagate import propagate_many
 from repro_torch.serving._queue import DeadlineExceeded, QueueFull
+from repro_torch.serving._sharded import ShardedPropagateEngine
 from repro_torch.serving.engine_api import (DispatchState, Engine, FitParams,
                                             ResultSlab)
 from repro_torch.serving.fleet import EngineFleet, FleetMetricsSnapshot
@@ -52,13 +55,7 @@ __all__ = [
     "PropagateRequest",
     "QueueFull",
     "ResultSlab",
+    "ShardedPropagateEngine",
     "propagate_many",
 ]
 
-
-def __getattr__(name: str):
-    if name == "ShardedPropagateEngine":
-        raise ImportError(
-            "ShardedPropagateEngine is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 10)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -914,9 +914,8 @@ class PropagateEngine(Engine):
     # device math.  Everything above them — queue disciplines, grouping,
     # staging, segmentation, epoch pinning, metrics — is device-layout
     # agnostic, so an engine that runs the same eq.-15 walk on different
-    # hardware (the reference's sharded multi-device engine; ROADMAP Queue 1
-    # item 10 here) overrides exactly these two methods and inherits the
-    # whole scheduler.
+    # hardware (``serving/_sharded.py::ShardedPropagateEngine``) overrides
+    # exactly these two methods and inherits the whole scheduler.
 
     def _scan(self, vdt, stack, alphas, n_iters: int, backend: str, *,
               n_walkers=None):

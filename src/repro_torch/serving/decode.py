@@ -1,8 +1,11 @@
 """``repro_torch/serving/decode.py`` ↔ ``repro/serving/decode.py``.
 
-Serving for the attention families the port runs (dense): ``prefill`` runs
-the context through the model and builds the KV cache, ``decode_step``
-extends it by one token.
+Serving for the attention families the port runs (dense and MoE):
+``prefill`` runs the context through the model and builds the KV cache,
+``decode_step`` extends it by one token.  An MoE layer routes the tokens of
+each call among themselves: at decode that is the batch's B tokens, so the
+expert capacity is ``int(capacity_factor * B * k / E) + 1`` and assignments
+past it drop, as in the reference.
 
 Cache layout: ``KVCache`` stacked over layers, ``(L, B, W, Hkv, D)``, with
 ``pos`` ``(L,)``; ``W`` is the context plus ``DECODE_SLACK`` free slots, or
@@ -10,8 +13,8 @@ a sliding-window ring for pure-SWA archs.  ``prefill`` computes each layer's
 K/V once and takes them from its self-attention (the reference computes
 them a second time, to the same values).  Attention in ``prefill`` goes
 through K6; ``decode_step`` runs the reference's one-query attention in plain
-torch.  The SSM, hybrid and audio caches are not ported yet (ROADMAP Queue 1
-item 12).
+torch.  The SSM and hybrid caches (ROADMAP Queue 1 item 12c) and the audio
+cache (item 12e) are not ported yet.
 
 Deprecated as a serving entry point, as in the reference: the
 label-propagation names it re-exports (``PropagateEngine``,
@@ -29,9 +32,10 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models.attention import (KVCache, attn_decode, init_cache,
                                           self_attention)
-from repro_torch.models.layers import Dtypes, mlp_apply, rms_norm
-from repro_torch.models.transformer import (layer_params, layer_windows,
-                                            require_dense, unembedding)
+from repro_torch.models.layers import Dtypes, rms_norm
+from repro_torch.models.transformer import (ffn_apply, layer_params,
+                                            layer_windows, require_ported,
+                                            unembedding)
 # Label-propagation requests ride the same serving layer: propagate_many
 # pads/buckets variable-width label matrices into batched VDT dispatches,
 # and PropagateEngine serves a live queue of them with continuous batching.
@@ -88,7 +92,7 @@ def _is_ring(cfg) -> bool:
 
 def init_state(cfg, batch: int, max_len: int, *, device=None) -> DecodeState:
     """An empty cache of ``max_len`` slots per layer."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     one = init_cache(cfg, batch, max_len, Dtypes.compute(cfg), device=dev)
     n = cfg.n_layers
@@ -103,7 +107,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg):
 
     Returns ``(last-position logits (B, Vp), DecodeState)``.
     """
-    require_dense(cfg)
+    require_ported(cfg)
     dt = Dtypes.compute(cfg)
     emb = params["embed"]
     x = emb[torch.as_tensor(tokens, device=emb.device)].to(dt)
@@ -116,7 +120,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg):
                                  rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                                  pos, window=w)
         x = x + a
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), dt)
+        x = x + ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
+                          dt)[0]
         ks.append(k)
         vs.append(v)
 
@@ -132,7 +137,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg):
 
 def decode_step(params: dict, token: torch.Tensor, state: DecodeState, cfg):
     """``token`` (B, 1) -> ``(logits (B, Vp), new DecodeState)``."""
-    require_dense(cfg)
+    require_ported(cfg)
     dt = Dtypes.compute(cfg)
     emb = params["embed"]
     x = emb[torch.as_tensor(token, device=emb.device)].to(dt)   # (B, 1, D)
@@ -151,7 +156,8 @@ def _decode_attn(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):
             KVCache(k=kv.k[i], v=kv.v[i], pos=kv.pos[i], ring=kv.ring), cfg,
             window=w)
         x = x + a
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), dt)
+        x = x + ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
+                          dt)[0]
         ks.append(cache.k)
         vs.append(cache.v)
         ps.append(cache.pos)

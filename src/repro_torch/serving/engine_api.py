@@ -23,8 +23,8 @@ and the API keeps them formally apart:
   fitted tree amortizes across millions of random-walk queries), and
   nothing on the serving path ever writes to it — which is exactly what
   makes it shareable: across engines in one process today, across worker
-  processes via shared memory or across devices via
-  ``torch.distributed`` tomorrow (ROADMAP Queue 1 item 10).
+  processes via shared memory, and across the shards of a
+  :class:`~repro_torch.serving.ShardedPropagateEngine`.
 * :attr:`Engine.dispatch_state` (:class:`DispatchState`) — the **mutable
   serving half**: the bounded request queue, pooled host staging buffers,
   and the metrics sink.  Exactly one scheduler owns it; it is never shared

@@ -776,3 +776,107 @@ def test_cuda_divergence_fit_stream_and_exact_match_a_cpu_copy(name):
         card.vdt.label_propagate(y0, alpha=0.1, n_iters=4).cpu().numpy(),
         host.vdt.label_propagate(y0, alpha=0.1, n_iters=4).numpy(),
         rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------------- the sharded engine
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_cuda_sharded_exact_engine_equals_the_single_engine(card_vdt,
+                                                            n_shards,
+                                                            segmented):
+    """D shards on one card: each stripe is one K1 launch with its
+    ``row_base``, bit for bit the single engine's answers."""
+    from repro_torch.serving import PropagateEngine, ShardedPropagateEngine
+
+    reqs = _engine_requests(card_vdt.tree.n_points, 5, count=4)
+    kw = dict(policy="edf", segment_iters=3) if segmented else {}
+    single = PropagateEngine(card_vdt, start=False, max_batch=4,
+                             backend="exact")
+    sharded = ShardedPropagateEngine(card_vdt, devices=["cuda:0"] * n_shards,
+                                     start=False, max_batch=4,
+                                     backend="exact", **kw)
+    want = [single.submit(r) for r in reqs]
+    single.flush()
+    got = [sharded.submit(r) for r in reqs]
+    before = folded_step.launches
+    sharded.flush()
+    assert folded_step.launches - before == n_shards * reqs[0].n_iters
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.result(timeout=0), w.result(timeout=0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["kl", "mahalanobis-scaled"])
+def test_cuda_sharded_exact_engine_keeps_the_divergence(name):
+    """Under a divergence the stripes run K1 on its tile (Mahalanobis: on
+    the pre-mapped points), bit for bit the single engine's answers."""
+    _card()
+    from repro_torch import VariationalDualTree
+    from repro_torch.kernels.fused_lp import kernel_tile, tile_config
+    from repro_torch.serving import PropagateEngine, ShardedPropagateEngine
+
+    div = _divergence(name, 12)
+    vdt = VariationalDualTree.fit(_positive(700, 12, seed=41),
+                                  max_blocks=4 * 700, divergence=div)
+    reqs = _engine_requests(vdt.tree.n_points, 7, count=4)
+    single = PropagateEngine(vdt, start=False, max_batch=4, backend="exact")
+    want = [single.submit(r) for r in reqs]
+    single.flush()
+    sharded = ShardedPropagateEngine(vdt, devices=["cuda:0"] * 4,
+                                     start=False, max_batch=4,
+                                     backend="exact")
+    got = [sharded.submit(r) for r in reqs]
+    ran = kernel_tile(tile_config(vdt.bound_divergence.div)[0])
+    before = folded_step.launches_by_tile[ran]
+    sharded.flush()
+    assert folded_step.launches_by_tile[ran] - before == 4 * reqs[0].n_iters
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.result(timeout=0), w.result(timeout=0))
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_vdt_engine_matches_the_single_engine(card_vdt):
+    """``index_add_`` reduces with atomics on the card: within tolerance."""
+    from repro_torch.serving import PropagateEngine, ShardedPropagateEngine
+
+    reqs = _engine_requests(card_vdt.tree.n_points, 6, count=4)
+    futs = {}
+    for name, eng in (("single", PropagateEngine(card_vdt, start=False,
+                                                 max_batch=4)),
+                      ("sharded", ShardedPropagateEngine(
+                          card_vdt, devices=["cuda:0"] * 4, start=False,
+                          max_batch=4))):
+        futs[name] = [eng.submit(r) for r in reqs]
+        eng.flush()
+    for g, w in zip(futs["sharded"], futs["single"]):
+        np.testing.assert_allclose(g.result(timeout=0), w.result(timeout=0),
+                                   rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------------------- the MoE layer
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x7b"])
+def test_cuda_moe_apply_matches_a_cpu_copy(arch):
+    """The smoke-width MoE layer on the card against the same parameters on
+    the CPU, in float32: the same routing, outputs within 2e-3."""
+    _card()
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = moe.moe_init(gen, cfg, device="cuda")
+    host = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                if isinstance(v, dict) else v.cpu())
+            for k, v in params.items()}
+    x = torch.randn(2, 40, cfg.d_model, generator=gen, device="cuda")
+    y, aux = moe.moe_apply(params, x, cfg, torch.float32)
+    y_cpu, aux_cpu = moe.moe_apply(host, x.cpu(), cfg, torch.float32)
+    top = [torch.topk(torch.softmax(t.reshape(-1, cfg.d_model)
+                                    @ p["router"], -1),
+                      cfg.experts_per_token)[1].cpu()
+           for t, p in ((x, params), (x.cpu(), host))]
+    assert torch.equal(*top)
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-6)

@@ -37,6 +37,10 @@ B, S, N_DECODE = 2, 32, 3
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
+# the dense architectures; the MoE ones are in test_torch_moe.py
+DENSE = tuple(a for a in registry.ARCH_IDS
+              if registry.get_config(a).family == "dense")
+
 
 def _f32(arch):
     return dataclasses.replace(r_registry.get_smoke_config(arch),
@@ -97,7 +101,7 @@ def _layer0(run):
             transformer.layer_params(run.params["layers"], 0))
 
 
-@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_layers_match_reference(arch):
     run = _run(arch)
     rl, tl = _layer0(run)
@@ -120,7 +124,7 @@ def test_layers_match_reference(arch):
            r_layers.mlp_apply(rl["mlp"], jnp.asarray(x), jnp.float32), 1e-4)
 
 
-@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_attn_apply_matches_reference(arch):
     """Every layer's window (gemma3's local layers take window 8 through K6),
     and one bidirectional call."""
@@ -144,7 +148,7 @@ def test_attn_apply_matches_reference(arch):
                              kv_x=jnp.asarray(src)))
 
 
-@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_lm_forward_matches_reference(arch):
     run = _run(arch)
     got, aux = transformer.lm_forward(run.params, run.tokens[:, :S], run.cfg)
@@ -163,7 +167,7 @@ def _close_state(state, r_state, tol=TOL):
     assert state.kv.ring == r_state.kv.ring
 
 
-@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_prefill_and_decode_match_reference(arch):
     run = _run(arch)
     before = flash_attention.launches
@@ -277,7 +281,7 @@ def test_init_state_matches_reference():
     assert state.kv.ring == r_state.kv.ring
 
 
-@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_configs_are_copies_of_the_reference(arch):
     for get in ("get_config", "get_smoke_config"):
         assert dataclasses.asdict(getattr(registry, get)(arch)) == \
@@ -286,7 +290,7 @@ def test_configs_are_copies_of_the_reference(arch):
         np.asarray(r_tf.layer_windows(r_registry.get_config(arch))).tolist()
 
 
-@pytest.mark.parametrize("arch", registry.ARCH_IDS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_param_shapes_match_reference_init(arch):
     run = _run(arch)
     flat = jax.tree_util.tree_flatten_with_path(run.rparams)[0]

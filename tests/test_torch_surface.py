@@ -33,7 +33,7 @@ def _imported_roots(path: pathlib.Path) -> set:
 
 
 SERVING_PRIVATE = ("_batching", "_deprecation", "_engine", "_metrics",
-                   "_propagate", "_queue", "engine_api", "fleet")
+                   "_propagate", "_queue", "_sharded", "engine_api", "fleet")
 # the deprecated deep modules: each warns once per process on import
 SERVING_SHIMS = ("engine", "metrics", "propagate", "queue", "decode")
 
@@ -44,11 +44,14 @@ def test_import_pulls_neither_jax_nor_reference_and_is_warning_free():
             "repro_torch.core.baselines, repro_torch.core.streaming, "
             "repro_torch.core.divergence, repro_torch.kernels.grf, "
             "repro_torch.kernels.pairwise, repro_torch.models, "
+            "repro_torch.models.moe, repro_torch.distributed, "
+            "repro_torch.core.distributed, "
             "repro_torch.configs.registry, repro_torch.serving, "
             + "".join(f"repro_torch.serving.{m}, " for m in SERVING_PRIVATE)
             + "repro_torch.kernels.flash_attention\n"
             "from repro_torch.serving import (PropagateEngine, "
-            "PropagateRequest, EngineFleet, propagate_many)\n"
+            "PropagateRequest, EngineFleet, ShardedPropagateEngine, "
+            "propagate_many)\n"
             "from repro_torch.configs.registry import ARCH_IDS, get_config\n"
             "[get_config(a) for a in ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -69,7 +72,10 @@ def test_no_port_file_imports_jax_or_reference():
                 "configs/gemma3_1b.py", "kernels/flash_attention/ops.py",
                 "serving/__init__.py", "serving/_engine.py",
                 "serving/fleet.py", "serving/_queue.py",
-                "core/streaming.py", "core/divergence.py"):
+                "core/streaming.py", "core/divergence.py",
+                "serving/_sharded.py", "core/distributed.py",
+                "distributed/sharding.py", "models/moe.py",
+                "configs/deepseek_moe_16b.py", "configs/mixtral_8x7b.py"):
         assert PORT / new in files, new
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
@@ -145,10 +151,19 @@ def test_streaming_is_not_ported_yet(small_fitted_vdt):
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-130m",
                                   "whisper-medium"])
 def test_non_dense_architectures_name_their_roadmap_item(arch):
-    from repro_torch.configs.registry import get_config, get_smoke_config
+    """The MoE family (ROADMAP Queue 1 item 12b) resolves; SSM (12c) and
+    audio (12e) still name their item."""
+    from repro_torch.configs.registry import (ARCH_IDS, NOT_PORTED,
+                                              get_config, get_smoke_config)
 
+    assert sorted(NOT_PORTED) == ["internvl2-1b", "mamba2-130m",
+                                  "whisper-medium", "zamba2-1.2b"]
     for get in (get_config, get_smoke_config):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        if arch in ARCH_IDS:
+            assert get(arch).family == "moe"
+            continue
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 12[ce]"):
             get(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
@@ -176,18 +191,17 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 
 def test_serving_surface_is_the_reference_minus_the_sharded_engine():
-    """``repro_torch.serving.__all__`` is the reference's blessed surface
-    without ``ShardedPropagateEngine``, whose import names its ROADMAP
-    item."""
+    """``repro_torch.serving.__all__`` is the reference's whole blessed
+    surface: ``ShardedPropagateEngine`` is ported (ROADMAP Queue 1 item
+    10) and imports."""
     import repro.serving as r_serving
     import repro_torch.serving as t_serving
+    from repro_torch.serving import ShardedPropagateEngine
 
-    assert sorted(t_serving.__all__) == sorted(
-        set(r_serving.__all__) - {"ShardedPropagateEngine"})
+    assert sorted(t_serving.__all__) == sorted(r_serving.__all__)
     for name in t_serving.__all__:
         assert getattr(t_serving, name) is not None
-    with pytest.raises(ImportError, match="Queue 1 item 10"):
-        from repro_torch.serving import ShardedPropagateEngine  # noqa: F401
+    assert issubclass(ShardedPropagateEngine, t_serving.PropagateEngine)
     with pytest.raises(AttributeError):
         t_serving.NoSuchName
 
