@@ -158,7 +158,30 @@ Phases (any failure exits non-zero):
    the same experts in every layer (all 4 in float32 at ``2e-3``; bfloat16
    at ``0.15``); the profile by group with the MoE dispatch kernels apart;
    then K6 timed at deepseek's attention shape (B = 4, 16/16 heads,
-   S = 2,048, D = 128, causal) as in phase 11.
+   S = 2,048, D = 128, causal) as in phase 11;
+14. ``[lm serve ssm]``, ``[lm serve hybrid]``, ``[lm serve vlm]``: mamba2-130m
+   (``repro/configs/mamba2_130m.py``: 24 Mamba2 layers, d_model 768, SSM
+   state 128, attention-free), zamba2-1.2b (``zamba2_1_2b.py``: 38 Mamba2
+   layers, d_model 2,048, 64 SSM heads, one shared attention block of 32/32
+   heads of 64 applied after every 6th layer, window 4,096) and
+   internvl2-1b (``internvl2_1b.py``: 24 layers, 14/2 heads of 64, vocab
+   151,655), each at full width and depth, bfloat16 compute, seeded weights,
+   one after the other (each freed before the next loads): 4 x 2,048-token
+   prompts (internvl2-1b after 256 seeded patch embeddings) through
+   ``prefill``, K6 launched 0 / 6 / 24 times, all on ``sm90_bf16``; 16 greedy
+   ``decode_step``s; the profile by group (an SSD group: the kernels within
+   ``ssd_chunked``); then in float32 on the card at ``2e-3``: decode
+   against ``lm_forward`` one position further (mamba2-130m and zamba2-1.2b
+   after 255 tokens, one SSD chunk of 255 against the forward's one of 256,
+   zamba2-1.2b with its window set to 255 so that its ring holds exactly one
+   window: the reference's ring keeps min(S, window) slots and a shorter
+   prompt loses token 0 at the first decode step; internvl2-1b after 256 +
+   512 positions), the served prefill through K6 (``sm90_tf32x3`` at every
+   attention point) against K6's plain version, and zamba2-1.2b's SSM layer
+   0 on 512 tokens against a CPU copy;
+15. K6 timed at zamba2-1.2b's attention (B = 4, 32/32 heads, S = 2,048,
+   D = 64, causal; its window is longer than S) and internvl2-1b's (14/2
+   heads, S = 2,304) as in phase 11.
 
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
@@ -246,6 +269,16 @@ K6_MOE_SHAPE = ("deepseek-moe-16b", 4, 16, 16, 2_048, 128, 0)
 # gathers and the index_add_ combine, top-k, bincount)
 MOE_DISPATCH_KERNELS = ("sort", "search", "index", "scatter", "gather",
                         "topk", "bincount", "cub::")
+# the SSM, hybrid and vlm phases: each model at full width and depth, the
+# served traffic of [lm serve] (internvl2-1b's 256 patch embeddings first);
+# float32 decode checks: prefill on 255 tokens (one chunk of 255 against
+# the forward's one of 256; zamba2-1.2b's window set to 255, so that its ring
+# holds exactly one window), internvl2-1b on 256 patches + 512 tokens; one
+# SSM layer at zamba2-1.2b's width on 512 tokens, card against a CPU copy
+LM_FAMILY_ARCHS = ("mamba2-130m", "zamba2-1.2b", "internvl2-1b")
+SSM_CHECK_PROMPT, VLM_CHECK_PROMPT, SSM_LAYER_TOKENS = 255, 512, 512
+K6_FAMILY_SHAPES = (("zamba2-1.2b", 4, 32, 32, 2_048, 64, 0),
+                    ("internvl2-1b", 4, 14, 2, 2_304, 64, 0))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2391,21 +2424,72 @@ def phase_lm_serve() -> dict:
                 decode_ms=decode_ms, peak_gib=peak, profile=profile)
 
 
+class SsdMarked:
+    """Within ``with``: every ``ssd_chunked`` call of the port's SSM layer
+    runs inside a profiler range named ``ssd_chunked``, so that the kernels
+    of the SSD scan can be told from the rest of a profile."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import ssm
+
+        self._orig = orig = ssm.ssd_chunked
+
+        def marked(*args, **kwargs):
+            with torch.profiler.record_function("ssd_chunked"):
+                return orig(*args, **kwargs)
+
+        ssm.ssd_chunked = marked
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm
+
+        ssm.ssd_chunked = self._orig
+
+
+def ssd_kernel_us(prof) -> dict:
+    """Device microseconds by kernel name of the kernels launched within the
+    ``ssd_chunked`` ranges of a profile."""
+    out = {}
+
+    def walk(event):
+        for k in event.kernels:
+            out[k.name] = out.get(k.name, 0.0) + k.duration
+        for child in event.cpu_children:
+            walk(child)
+
+    for event in prof.events():
+        if event.name == "ssd_chunked":
+            walk(event)
+    return out
+
+
 def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
-                     decode_ms: float, moe: bool = False) -> dict:
+                     decode_ms: float, moe: bool = False,
+                     patches=None) -> dict:
     """Device time by kernel of one prefill and one decode step (torch
     profiler), and the device's busy share of the unprofiled times; returns
     the device ms by group of each.  ``moe``: the MoE layer's dispatch
     kernels (sorts, searches, gathers, scatters, top-k) are a group of their
-    own."""
+    own; an SSM or hybrid model's SSD scan (the kernels within
+    ``ssd_chunked``: its contractions, cumulative sums and decays) likewise.
+    Elementwise kernels outside those are the group "elementwise"."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.decode import decode_step, prefill
 
+    ssd = cfg.family in ("ssm", "hybrid")
+
     def groups(prof):
         out, kernels = {}, []
+        inside = ssd_kernel_us(prof) if ssd else {}
         for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            # the device side of the ssd_chunked ranges is no kernel
+            if e.device_type != torch.autograd.DeviceType.CUDA \
+                    or e.key == "ssd_chunked":
                 continue
             name = e.key
             # K6's kernels: flash_attention_tf32x3_kernel and its
@@ -2416,23 +2500,29 @@ def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
                         "gemm", "gemv", "cutlass", "xmma", "nvjet"))
                     else "moe dispatch" if moe and any(
                         w in name.lower() for w in MOE_DISPATCH_KERNELS)
+                    else "elementwise" if "elementwise" in name
                     else "other")
             us = getattr(e, "self_device_time_total", None)
             us = e.self_cuda_time_total if us is None else us
-            out[kind] = out.get(kind, 0.0) + us / 1e3
+            ssd_us = min(inside.get(name, 0.0), us)
+            if ssd:
+                out["SSD"] = out.get("SSD", 0.0) + ssd_us / 1e3
+            out[kind] = out.get(kind, 0.0) + (us - ssd_us) / 1e3
             kernels.append((us / 1e3, e.count, name))
         return out, sorted(kernels, reverse=True)[:6]
 
-    logits, state = prefill(params, tokens, cfg)
+    logits, state = prefill(params, tokens, cfg, patches=patches)
     tok = logits.argmax(-1)[:, None]
     result = {}
     for name, fn, wall_ms in (
-            ("prefill", lambda: prefill(params, tokens, cfg), prefill_ms),
+            ("prefill", lambda: prefill(params, tokens, cfg,
+                                        patches=patches), prefill_ms),
             ("decode step", lambda: decode_step(params, tok, state, cfg),
              decode_ms)):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with SsdMarked() if ssd else contextlib.nullcontext(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         by, top = groups(prof)
@@ -2851,6 +2941,249 @@ def phase_lm_moe() -> dict:
                 profile=profile)
 
 
+def family_decode_check(params, cfg, tokens, patches) -> float:
+    """Decode after a float32 prefill against ``lm_forward`` one position
+    further: prefill on ``tokens[:, :-1]`` (after ``patches``), decode the
+    last token, hold its logits to the forward's at that position at
+    ``LM_F32_TOL``; returns the max abs error."""
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serving.decode import decode_step, prefill
+
+    s = tokens.shape[1] - 1
+    p = 0 if patches is None else patches.shape[1]
+    _, state = prefill(params, tokens[:, :s], cfg, patches=patches)
+    step, _ = decode_step(params, tokens[:, s:], state, cfg)
+    full, _ = lm_forward(params, tokens, cfg, patches=patches)
+    err = close(step, full[:, p + s], f"float32 decode after {p} + {s} "
+                f"positions vs lm_forward at position {p + s}"
+                + (f" (window {cfg.sliding_window})"
+                   if cfg.sliding_window else ""), LM_F32_TOL,
+                LM_F32_TOL)[0]
+    del full
+    return err
+
+
+def ssm_layer_check(params, cfg) -> float:
+    """Layer 0's SSM block on ``SSM_LAYER_TOKENS`` seeded inputs (B = 1) in
+    float32: output, final state and conv cache on the card against a CPU
+    copy of its parameters at ``LM_F32_TOL``; returns the output's max abs
+    error."""
+    import torch
+    from repro_torch.models.ssm import ssm_apply
+    from repro_torch.models.transformer import layer_params
+
+    card = layer_params(params["layers"], 0)["ssm"]
+    host = {k: v.cpu() for k, v in card.items()}
+    x = torch.as_tensor(np.random.RandomState(LM_SEED + 3).randn(
+        1, SSM_LAYER_TOKENS, cfg.d_model).astype(np.float32))
+    out, cache = ssm_apply(card, x.cuda(), cfg, torch.float32,
+                           return_state=True)
+    out_h, cache_h = ssm_apply(host, x, cfg, torch.float32,
+                               return_state=True)
+    err = close(out, out_h, f"SSM layer 0 at {cfg.name}'s width, B = 1, S = "
+                f"{SSM_LAYER_TOKENS}, float32: card vs a CPU copy",
+                LM_F32_TOL, LM_F32_TOL)[0]
+    close(cache.state, cache_h.state, "  its final SSM state", LM_F32_TOL,
+          LM_F32_TOL)
+    close(cache.conv, cache_h.conv, "  its conv cache", LM_F32_TOL,
+          LM_F32_TOL)
+    return err
+
+
+def k6_plain_prefill_check(params, cfg, tokens, patches) -> tuple:
+    """One float32 prefill through K6 (counted from 0: its 3xTF32 route at
+    every attention point, no other launch) and one through K6's plain
+    version swapped into the attention module; returns the logits' max abs
+    error and the K6 prefill's counts."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.models import attention
+    from repro_torch.serving.decode import prefill
+
+    reset_counts()
+    got, _ = prefill(params, tokens, cfg, patches=patches)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = k6_points(cfg)
+    check(k6_route_only(counts, K6_F32_ROUTE, n),
+          f"{cfg.name} f32 prefill launched K6 {counts}, expected {n} times "
+          f"on {K6_F32_ROUTE} and never on another route")
+    before = flash_attention.launches
+    attention.flash_attention = flash_attention_plain
+    try:
+        want, _ = prefill(params, tokens, cfg, patches=patches)
+    finally:
+        attention.flash_attention = flash_attention
+    check(flash_attention.launches == before, "the plain prefill launched K6")
+    return close(got, want, f"{cfg.name} float32 prefill of {tokens.shape[0]}"
+                 f" x {tokens.shape[1]} tokens, last-position logits, K6 vs "
+                 "its plain version", LM_F32_TOL, LM_F32_TOL)[0], counts
+
+
+def k6_points(cfg) -> int:
+    """K6's launches in one prefill: one per attention layer, or per
+    application of a hybrid's shared block; none in an SSM model."""
+    from repro_torch.models.transformer import attn_flags
+
+    if cfg.family in ("ssm", "hybrid"):
+        return sum(attn_flags(cfg))
+    return cfg.n_layers
+
+
+def family_shape(cfg) -> str:
+    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+             f"{cfg.vocab_size}, {cfg.dtype}")
+    if cfg.family in ("ssm", "hybrid"):
+        shape += (f"; SSM d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of "
+                  f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+                  f"{cfg.ssm_chunk}")
+    if cfg.family != "ssm":
+        shape += (f"; attention {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                  f"{cfg.head_dim_}, d_ff {cfg.d_ff}")
+    if cfg.family == "hybrid":
+        shape += (f", one shared block at {k6_points(cfg)} points (every "
+                  f"{cfg.attn_every} layers), window {cfg.sliding_window}")
+    if cfg.family == "vlm":
+        shape += f"; {cfg.n_patches} patch embeddings first"
+    return shape
+
+
+def phase_lm_family(arch: str) -> dict:
+    """[lm serve ssm / hybrid / vlm]: ``arch`` at full width and depth,
+    bfloat16 compute, seeded weights: 4 x 2,048-token prompts (internvl2-1b:
+    after 256 seeded patch embeddings) through ``prefill``, K6's bf16 route
+    counted (0 launches for mamba2-130m, one per attention point
+    otherwise), 16 greedy ``decode_step``s, the profile by group; then the
+    float32 checks on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving.decode import DECODE_SLACK, decode_step, prefill
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, LM_SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[lm serve {cfg.family}] {cfg.name}: {family_shape(cfg)}; "
+          f"{n_params / 1e6:.1f} M params ({4 * n_params / 1e9:.2f} GB in "
+          f"float32), seeded on the card in {init_s:.2f} s; nothing cut")
+    tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
+    patches = None
+    if cfg.n_patches:
+        patches = torch.as_tensor(np.random.RandomState(LM_SEED + 2).randn(
+            LM_BATCH, cfg.n_patches, cfg.d_model).astype(np.float32)
+            * cfg.d_model ** -0.5, device="cuda")
+    s = LM_PROMPT + cfg.n_patches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, tokens.flip(1), cfg, patches=patches)
+    decode_step(params, logits.argmax(-1)[:, None], state, cfg)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    del logits, state
+    n_k6 = k6_points(cfg)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, tokens, cfg, patches=patches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    check(k6_route_only(counts, "sm90_bf16", n_k6),
+          f"{arch} prefill launched K6 {counts}, expected {n_k6} times on "
+          "the bfloat16 route and never on another")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{arch} prefill: bad logits")
+    if cfg.family in ("ssm", "hybrid"):
+        check(tuple(state.ssm.state.shape) == (
+            cfg.n_layers, LM_BATCH, cfg.ssm_heads, cfg.ssm_head_dim,
+            cfg.ssm_state) and state.ssm.state.dtype == torch.float32,
+            f"{arch} prefill: SSM state {tuple(state.ssm.state.shape)}")
+    if cfg.family == "hybrid":
+        # the reference's ring keeps min(S, window) slots
+        check(tuple(state.shared_kv.k.shape) == (
+            n_k6, LM_BATCH, min(s, cfg.sliding_window), cfg.n_kv_heads,
+            cfg.head_dim_) and state.shared_kv.ring,
+            f"{arch} prefill: shared cache {tuple(state.shared_kv.k.shape)}")
+    if cfg.family == "vlm":
+        check(tuple(state.kv.k.shape) == (
+            cfg.n_layers, LM_BATCH, s + DECODE_SLACK, cfg.n_kv_heads,
+            cfg.head_dim_), f"{arch} prefill: cache {tuple(state.kv.k.shape)}")
+    tok = logits.argmax(-1)[:, None]
+    generated = [tok]
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(DECODE_SLACK + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(DECODE_SLACK):
+        logits, state = decode_step(params, tok, state, cfg)
+        tok = logits.argmax(-1)[:, None]
+        generated.append(tok)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_SLACK
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{arch} decode: non-finite logits")
+    del state
+    print(f"  cold prefill + 1 decode step (not counted): {cold_ms:.1f} ms")
+    print(f"  prefill {LM_BATCH} x {LM_PROMPT} tokens"
+          + (f" after {cfg.n_patches} patches" if cfg.n_patches else "")
+          + f": {prefill_ms:.1f} ms ("
+          f"{LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.0f} tokens/s), K6 "
+          f"launches {counts['K6']} (sm90_bf16 {counts['K6 sm90_bf16']}); "
+          f"decode {DECODE_SLACK} greedy steps: {decode_ms:.2f} ms per step "
+          f"({LM_BATCH / decode_ms * 1e3:.0f} tokens/s; between device "
+          f"events min {min(step_ms):.2f}, max {max(step_ms):.2f} ms); "
+          f"max_memory_allocated {peak:.2f} GiB")
+    print(f"  request 0 generated {torch.cat(generated, 1)[0].tolist()}")
+    profile = phase_lm_profile(params, cfg, tokens, prefill_ms, decode_ms,
+                               patches=patches)
+    # the float32 checks, on the same float32 parameters
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    checks = {}
+    if cfg.family == "vlm":
+        checks["decode_vs_forward"] = family_decode_check(
+            params, cfg32, tokens[:, :VLM_CHECK_PROMPT + 1], patches)
+    else:
+        window = ({} if cfg.family == "ssm" else
+                  dict(sliding_window=SSM_CHECK_PROMPT))
+        checks["decode_vs_forward"] = family_decode_check(
+            params, dataclasses.replace(cfg32, **window),
+            tokens[:, :SSM_CHECK_PROMPT + 1], None)
+    f32_counts = None
+    if n_k6:
+        checks["k6_vs_plain_prefill"], f32_counts = k6_plain_prefill_check(
+            params, cfg32, tokens, patches)
+    if cfg.family == "hybrid":
+        checks["ssm_layer_card_vs_cpu"] = ssm_layer_check(params, cfg32)
+    del params
+    torch.cuda.empty_cache()
+    return dict(arch=arch, counts=counts, f32_counts=f32_counts,
+                prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gib=peak,
+                init_s=init_s, n_params=n_params, checks=checks,
+                profile=profile)
+
+
+def k6_timing_json(r: dict) -> dict:
+    """One ``phase_k6_timing`` row for the kernel table."""
+    return dict(shape=r["shape"], ms=r["ms"], ms2=r["ms2"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["by"], library_ms=r["lib_ms"],
+                library_ms2=r["lib_ms2"], max_abs_err=r["err"],
+                max_block_rms=r["block_rms"])
+
+
 def phase_k6_gate() -> dict:
     """K6's float32 route against the plain recurrence in float64 on Gaussian
     q, k, v at both timed shapes, beside the plain float32 version: the gate
@@ -2988,6 +3321,14 @@ def main() -> int:
     moe_counts = moe.pop("counts")
     print(f"[lm serve moe] summary {json.dumps(moe)}")
     k6_moe = phase_k6_timing([(K6_MOE_SHAPE, torch.bfloat16)])[0]
+    families = {}
+    for arch in LM_FAMILY_ARCHS:
+        families[arch] = phase_lm_family(arch)
+        print(f"[lm serve {arch}] summary " + json.dumps(
+            {k: v for k, v in families[arch].items()
+             if not k.endswith("counts")}))
+    k6_families = {r["name"]: r for r in phase_k6_timing(
+        [(shape, torch.bfloat16) for shape in K6_FAMILY_SHAPES])}
 
     single, batch8 = after["rows"]
     tc = dict(tensor_core_route=TC_ROUTE,
@@ -3124,7 +3465,17 @@ def main() -> int:
                         max_abs_err=k6_moe["err"],
                         max_block_rms=k6_moe["block_rms"],
                         prefill_ms=moe["prefill_ms"],
-                        decode_ms_per_step=moe["decode_ms"]))
+                        decode_ms_per_step=moe["decode_ms"]),
+                    lm_families={arch: dict(
+                        launches=f["counts"]["K6 sm90_bf16"],
+                        f32_launches=(f["f32_counts"] or {}).get(
+                            f"K6 {K6_F32_ROUTE}", 0),
+                        prefill_ms=f["prefill_ms"],
+                        decode_ms_per_step=f["decode_ms"],
+                        peak_gib=f["peak_gib"], checks=f["checks"],
+                        **({} if arch not in k6_families else dict(
+                            timing=k6_timing_json(k6_families[arch]))))
+                        for arch, f in families.items()})
                if route == "sm90_bf16" else
                dict(lm_f32_logits_max_abs_err=lm_f32_err, gate=k6_gate,
                     tensor_core_route=K6_F32_ROUTE,

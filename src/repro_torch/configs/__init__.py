@@ -1,2 +1,3 @@
-"""``repro_torch/configs`` ↔ ``repro/configs``: copies of the dense
-architectures' configurations and the registry that resolves them."""
+"""``repro_torch/configs`` ↔ ``repro/configs``: copies of the dense, MoE,
+SSM, hybrid and vlm architectures' configurations and the registry that
+resolves them."""

@@ -1,9 +1,10 @@
 """``repro_torch/configs/registry.py`` ↔ ``repro/configs/registry.py``.
 
-Resolves an architecture id to its configuration.  The port runs the dense
-and MoE families: ``ARCH_IDS`` lists the four dense architectures and the
-two MoE ones, and an id the reference knows but the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP item.
+Resolves an architecture id to its configuration.  The port runs the dense,
+MoE, SSM, hybrid and vlm families: ``ARCH_IDS`` lists the four dense
+architectures, the two MoE ones, mamba2-130m, zamba2-1.2b and internvl2-1b;
+the audio id the reference knows (whisper-medium) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,20 +19,23 @@ _MODULES = {
     "smollm-360m": "smollm_360m",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "mamba2-130m": "mamba2_130m",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "internvl2-1b": "internvl2_1b",
 }
 
 ARCH_IDS = tuple(_MODULES)
 
-# the reference's other architectures: SSM, hybrid, vlm and audio
-NOT_PORTED = ("zamba2-1.2b", "internvl2-1b", "mamba2-130m", "whisper-medium")
+# the reference's other architecture: audio
+NOT_PORTED = ("whisper-medium",)
 
 
 def _module(arch_id: str):
     if arch_id in NOT_PORTED:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: the port runs the dense and MoE "
-            f"architectures {sorted(_MODULES)}; the SSM and hybrid families "
-            "are ROADMAP Queue 1 item 12c, vlm item 12d and audio item 12e")
+            f"{arch_id!r} is not ported yet: the port runs the architectures "
+            f"{sorted(_MODULES)}; the audio family is ROADMAP Queue 1 item "
+            "12e")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

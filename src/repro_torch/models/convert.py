@@ -4,8 +4,10 @@ carried across.
 :func:`lm_params_from_numpy` takes the pytree of the reference's ``init_lm``
 as numpy arrays (layers stacked on axis 0, as its ``jax.vmap`` init leaves
 them; an MoE layer's ``router``, its experts' ``w_gate``/``w_up``/``w_down``
-as ``(L, E, ., .)`` and its ``shared`` experts) and returns the port's
-parameters, so that both packages compute with the same weights.
+as ``(L, E, ., .)`` and its ``shared`` experts; an SSM or hybrid layer's
+``ln`` and ``ssm``; a hybrid's unstacked ``shared_attn``) and returns the
+port's parameters, so that both packages compute with the same weights.
+Every key and shape is checked against ``lm_param_shapes``.
 """
 from __future__ import annotations
 

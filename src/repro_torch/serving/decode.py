@@ -1,20 +1,33 @@
 """``repro_torch/serving/decode.py`` ↔ ``repro/serving/decode.py``.
 
-Serving for the attention families the port runs (dense and MoE):
-``prefill`` runs the context through the model and builds the KV cache,
-``decode_step`` extends it by one token.  An MoE layer routes the tokens of
-each call among themselves: at decode that is the batch's B tokens, so the
-expert capacity is ``int(capacity_factor * B * k / E) + 1`` and assignments
-past it drop, as in the reference.
+Serving for the families the port runs (dense, MoE, SSM, hybrid, vlm):
+``prefill`` runs the context through the model and builds the caches,
+``decode_step`` extends them by one token.  An MoE layer routes the tokens
+of each call among themselves: at decode that is the batch's B tokens, so
+the expert capacity is ``int(capacity_factor * B * k / E) + 1`` and
+assignments past it drop, as in the reference.
 
-Cache layout: ``KVCache`` stacked over layers, ``(L, B, W, Hkv, D)``, with
-``pos`` ``(L,)``; ``W`` is the context plus ``DECODE_SLACK`` free slots, or
-a sliding-window ring for pure-SWA archs.  ``prefill`` computes each layer's
-K/V once and takes them from its self-attention (the reference computes
-them a second time, to the same values).  Attention in ``prefill`` goes
-through K6; ``decode_step`` runs the reference's one-query attention in plain
-torch.  The SSM and hybrid caches (ROADMAP Queue 1 item 12c) and the audio
-cache (item 12e) are not ported yet.
+Cache layouts (stacked over layers):
+  dense/moe/vlm : ``KVCache`` ``(L, B, W, Hkv, D)``, ``pos`` ``(L,)``; ``W``
+                  is the context plus ``DECODE_SLACK`` free slots, or a
+                  sliding-window ring for pure-SWA archs.
+  ssm           : ``SSMCache`` ``(L, ...)``: O(1) state per layer.
+  hybrid        : ``SSMCache`` ``(L, ...)`` and a ``KVCache`` over the shared
+                  attention block's applications; a ring if the model has a
+                  window.
+
+A vlm's ``patches`` (B, P, D) precede the prompt, so its decode starts at
+position P + S.  ``prefill`` computes each attention's K/V once and takes
+them from its self-attention, and each SSM layer's conv cache from its own
+``in_proj`` product (the reference computes both a second time, to the same
+values).  Attention in ``prefill`` goes through K6; ``decode_step`` runs the
+reference's one-query attention and the SSM recurrence in plain torch.
+
+A ring keeps ``min(S, window)`` slots, as the reference's does: when the
+prompt is shorter than the window, the first decoded token takes slot
+``S % S = 0`` and evicts token 0, though the window still covers it.  The
+port keeps that behaviour so that it stays held to the reference (ROADMAP
+Queue 3).  The audio cache (ROADMAP Queue 1 item 12e) is not ported yet.
 
 Deprecated as a serving entry point, as in the reference: the
 label-propagation names it re-exports (``PropagateEngine``,
@@ -32,9 +45,13 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models.attention import (KVCache, attn_decode, init_cache,
                                           self_attention)
-from repro_torch.models.layers import Dtypes, rms_norm
-from repro_torch.models.transformer import (ffn_apply, layer_params,
+from repro_torch.models.layers import Dtypes, mlp_apply, rms_norm
+from repro_torch.models.ssm import (SSMCache, init_ssm_cache, ssm_apply,
+                                    ssm_decode)
+from repro_torch.models.transformer import (attn_flags, embed_inputs,
+                                            ffn_apply, layer_params,
                                             layer_windows, require_ported,
+                                            shared_block, shared_window,
                                             unembedding)
 # Label-propagation requests ride the same serving layer: propagate_many
 # pads/buckets variable-width label matrices into batched VDT dispatches,
@@ -83,36 +100,69 @@ def _finalize_kv(ks: torch.Tensor, vs: torch.Tensor, s: int, ring: bool,
 
 @dataclasses.dataclass(frozen=True)
 class DecodeState:
-    kv: Optional[KVCache] = None   # stacked over layers
+    kv: Optional[KVCache] = None          # stacked over layers
+    ssm: Optional[SSMCache] = None        # stacked over layers
+    shared_kv: Optional[KVCache] = None   # hybrid: stacked over attn points
 
 
 def _is_ring(cfg) -> bool:
     return cfg.sliding_window is not None and cfg.local_global_ratio == 0
 
 
+def _tensors(cache) -> dict:
+    return {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)
+            if isinstance(getattr(cache, f.name), torch.Tensor)}
+
+
+def _repeat(cache, n: int):
+    """``n`` copies of one cache, stacked on a new axis 0."""
+    return dataclasses.replace(cache, **{
+        k: t.expand(n, *t.shape).clone() for k, t in _tensors(cache).items()})
+
+
+def _stack(caches: list):
+    return dataclasses.replace(caches[0], **{
+        k: torch.stack([getattr(c, k) for c in caches])
+        for k in _tensors(caches[0])})
+
+
+def _index(cache, i: int):
+    return dataclasses.replace(cache, **{k: t[i] for k, t in
+                                         _tensors(cache).items()})
+
+
 def init_state(cfg, batch: int, max_len: int, *, device=None) -> DecodeState:
-    """An empty cache of ``max_len`` slots per layer."""
+    """An empty cache of ``max_len`` slots per attention layer (for a
+    hybrid, per shared attention point), an empty SSM state per SSM
+    layer."""
     require_ported(cfg)
     dev = resolve_device(device)
-    one = init_cache(cfg, batch, max_len, Dtypes.compute(cfg), device=dev)
-    n = cfg.n_layers
-    return DecodeState(kv=KVCache(
-        k=one.k.expand(n, *one.k.shape).clone(),
-        v=one.v.expand(n, *one.v.shape).clone(),
-        pos=one.pos.expand(n).clone(), ring=one.ring))
+    dt = Dtypes.compute(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        ssm = _repeat(init_ssm_cache(cfg, batch, dt, device=dev),
+                      cfg.n_layers)
+        if cfg.family == "ssm":
+            return DecodeState(ssm=ssm)
+        return DecodeState(ssm=ssm, shared_kv=_repeat(
+            init_cache(cfg, batch, max_len, dt, device=dev),
+            sum(attn_flags(cfg))))
+    return DecodeState(kv=_repeat(
+        init_cache(cfg, batch, max_len, dt, device=dev), cfg.n_layers))
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg):
-    """Run the context ``tokens`` (B, S) through the model, building the cache.
+def prefill(params: dict, tokens: torch.Tensor, cfg, patches=None):
+    """Run the context ``tokens`` (B, S) through the model, building the
+    caches; a vlm's ``patches`` (B, P, D) precede the tokens.
 
     Returns ``(last-position logits (B, Vp), DecodeState)``.
     """
     require_ported(cfg)
     dt = Dtypes.compute(cfg)
-    emb = params["embed"]
-    x = emb[torch.as_tensor(tokens, device=emb.device)].to(dt)
+    x = embed_inputs(params, tokens, cfg, patches)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    if cfg.family in ("ssm", "hybrid"):
+        return _prefill_ssm(params, x, pos, cfg, dt)
     ks, vs = [], []
     for i, w in enumerate(layer_windows(cfg)):
         lp = layer_params(params["layers"], i)
@@ -131,35 +181,83 @@ def prefill(params: dict, tokens: torch.Tensor, cfg):
     state = DecodeState(kv=KVCache(
         k=ks, v=vs, pos=torch.full((cfg.n_layers,), s, dtype=torch.int32,
                                    device=x.device), ring=ring))
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x[:, -1] @ unembedding(params, cfg, dt), state
+    return _logits(params, x, cfg, dt), state
+
+
+def _logits(params: dict, x: torch.Tensor, cfg, dt) -> torch.Tensor:
+    """The last position's logits (B, Vp)."""
+    x = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps)
+    return x @ unembedding(params, cfg, dt)
+
+
+def _prefill_ssm(params: dict, x: torch.Tensor, pos: torch.Tensor, cfg, dt):
+    caches, ks, vs = [], [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        out, cache = ssm_apply(lp["ssm"], rms_norm(x, lp["ln"], cfg.norm_eps),
+                               cfg, dt, return_state=True)
+        x = x + out
+        caches.append(cache)
+        if cfg.family == "hybrid" and cfg.layer_is_attn(i):
+            x, k, v = shared_block(params["shared_attn"], x, cfg, pos)
+            ks.append(k)
+            vs.append(v)
+    state = DecodeState(ssm=_stack(caches))
+    if ks:
+        s, n_attn = x.shape[1], len(ks)
+        ring = cfg.sliding_window is not None
+        ks, vs = _finalize_kv(torch.stack(ks), torch.stack(vs), s, ring,
+                              cfg.sliding_window)
+        state = dataclasses.replace(state, shared_kv=KVCache(
+            k=ks, v=vs, pos=torch.full((n_attn,), s, dtype=torch.int32,
+                                       device=x.device), ring=ring))
+    return _logits(params, x, cfg, dt), state
 
 
 def decode_step(params: dict, token: torch.Tensor, state: DecodeState, cfg):
     """``token`` (B, 1) -> ``(logits (B, Vp), new DecodeState)``."""
     require_ported(cfg)
     dt = Dtypes.compute(cfg)
-    emb = params["embed"]
-    x = emb[torch.as_tensor(token, device=emb.device)].to(dt)   # (B, 1, D)
-    x, new_state = _decode_attn(params, x, state, cfg, dt)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x[:, 0] @ unembedding(params, cfg, dt), new_state
+    x = embed_inputs(params, token, cfg)                  # (B, 1, D)
+    if cfg.family in ("ssm", "hybrid"):
+        x, new_state = _decode_ssm(params, x, state, cfg, dt)
+    else:
+        x, new_state = _decode_attn(params, x, state, cfg, dt)
+    return _logits(params, x, cfg, dt), new_state
 
 
 def _decode_attn(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):
-    kv = state.kv
-    ks, vs, ps = [], [], []
+    caches = []
     for i, w in enumerate(layer_windows(cfg)):
         lp = layer_params(params["layers"], i)
         a, cache = attn_decode(
             lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-            KVCache(k=kv.k[i], v=kv.v[i], pos=kv.pos[i], ring=kv.ring), cfg,
-            window=w)
+            _index(state.kv, i), cfg, window=w)
         x = x + a
         x = x + ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
                           dt)[0]
-        ks.append(cache.k)
-        vs.append(cache.v)
-        ps.append(cache.pos)
-    return x, DecodeState(kv=KVCache(k=torch.stack(ks), v=torch.stack(vs),
-                                     pos=torch.stack(ps), ring=kv.ring))
+        caches.append(cache)
+    return x, DecodeState(kv=_stack(caches))
+
+
+def _decode_ssm(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):
+    shared = params.get("shared_attn")
+    caches, shared_caches = [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        out, cache = ssm_decode(lp["ssm"], rms_norm(x, lp["ln"], cfg.norm_eps),
+                                _index(state.ssm, i), cfg, dt)
+        x = x + out
+        caches.append(cache)
+        if cfg.family == "hybrid" and cfg.layer_is_attn(i):
+            a, kv = attn_decode(
+                shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
+                _index(state.shared_kv, len(shared_caches)), cfg,
+                window=shared_window(cfg))
+            x = x + a
+            x = x + mlp_apply(shared["mlp"],
+                              rms_norm(x, shared["ln2"], cfg.norm_eps), dt)
+            shared_caches.append(kv)
+    return x, DecodeState(
+        ssm=_stack(caches),
+        shared_kv=_stack(shared_caches) if shared_caches else None)

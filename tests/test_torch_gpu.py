@@ -880,3 +880,64 @@ def test_cuda_moe_apply_matches_a_cpu_copy(arch):
     assert torch.equal(*top)
     torch.testing.assert_close(y.cpu(), y_cpu, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------ the SSM, hybrid and vlm families
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,k6_launches", [("mamba2-130m", 0),
+                                              ("zamba2-1.2b", 2),
+                                              ("internvl2-1b", 2)])
+def test_cuda_ssm_hybrid_and_vlm_serve_like_a_cpu_copy(arch, k6_launches):
+    """The smoke configuration at d_model 128 with heads of 64 (K6 takes
+    D = 64): prefill (chunks of 16 over 48 tokens; zamba2's window 16
+    through K6) and three decode steps in float32 on the card against the
+    same parameters on the CPU at 2e-3; K6 launched once per attention point
+    a prefill, on its float32 route, and in bfloat16 on its bf16 route."""
+    _card()
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.serving import decode
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              d_model=128, n_heads=2,
+                              n_kv_heads=1 if arch == "internvl2-1b" else 2,
+                              d_ff=256, ssm_chunk=16)
+    host = transformer.init_lm(cfg, 5, device="cpu")
+    card = _to(host, "cuda")
+    rng = np.random.RandomState(5)
+    tokens = rng.randint(0, cfg.vocab_size, (2, 51))
+    patches = (torch.as_tensor(rng.randn(2, cfg.n_patches, 128)
+                               .astype(np.float32))
+               if cfg.n_patches else None)
+    results = []
+    for params, dev in ((card, "cuda"), (host, "cpu")):
+        before = dict(flash_attention.launches_by_route)
+        logits, state = decode.prefill(
+            params, tokens[:, :48], cfg,
+            patches=None if patches is None else patches.to(dev))
+        after = flash_attention.launches_by_route
+        if dev == "cuda":
+            assert after.get("sm90_tf32x3", 0) - before.get(
+                "sm90_tf32x3", 0) == k6_launches
+            assert sum(after.values()) - sum(before.values()) == k6_launches
+        steps = [logits]
+        for t in range(48, 51):
+            logits, state = decode.decode_step(params, tokens[:, t:t + 1],
+                                               state, cfg)
+            steps.append(logits)
+        results.append(torch.stack(steps).cpu())
+    torch.testing.assert_close(results[0], results[1], rtol=2e-3, atol=2e-3)
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    before = dict(flash_attention.launches_by_route)
+    logits, _ = decode.prefill(card, tokens[:, :48], bf16, patches=None
+                               if patches is None else patches.cuda())
+    after = flash_attention.launches_by_route
+    assert after.get("sm90_bf16", 0) - before.get("sm90_bf16", 0) == \
+        k6_launches
+    assert sum(after.values()) - sum(before.values()) == k6_launches
+    assert bool(torch.isfinite(logits.float()).all())

@@ -347,3 +347,26 @@ def test_other_families_name_their_roadmap_item(arch):
         transformer.lm_forward({}, np.zeros((1, 2), np.int64), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
         decode.prefill({}, np.zeros((1, 2), np.int64), cfg)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b",
+                                  "internvl2-1b"])
+def test_ssm_hybrid_and_vlm_architectures_resolve_and_serve(arch):
+    """The architectures that named items 12c and 12d resolve to their
+    family, and the entry points run them (their parity with the reference
+    is in ``test_torch_ssm.py`` and ``test_torch_vlm.py``)."""
+    cfg = registry.get_smoke_config(arch)
+    assert arch in registry.ARCH_IDS and arch not in registry.NOT_PORTED
+    assert cfg.family == r_registry.get_smoke_config(arch).family
+    params = transformer.init_lm(cfg, 3, device="cpu")
+    patches = (torch.zeros(1, cfg.n_patches, cfg.d_model)
+               if cfg.family == "vlm" else None)
+    tokens = np.arange(8, dtype=np.int64)[None]
+    full, _ = transformer.lm_forward(params, tokens, cfg, patches=patches)
+    logits, state = decode.prefill(params, tokens, cfg, patches=patches)
+    logits, state = decode.decode_step(params, logits.argmax(-1)[:, None],
+                                       state, cfg)
+    assert full.shape == (1, 8 + cfg.n_patches, cfg.padded_vocab)
+    assert logits.shape == (1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits.float()).all())
+

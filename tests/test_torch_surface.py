@@ -151,19 +151,19 @@ def test_streaming_is_not_ported_yet(small_fitted_vdt):
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-130m",
                                   "whisper-medium"])
 def test_non_dense_architectures_name_their_roadmap_item(arch):
-    """The MoE family (ROADMAP Queue 1 item 12b) resolves; SSM (12c) and
-    audio (12e) still name their item."""
+    """The MoE (ROADMAP Queue 1 item 12b) and SSM (12c) families resolve;
+    audio (12e) still names its item."""
     from repro_torch.configs.registry import (ARCH_IDS, NOT_PORTED,
                                               get_config, get_smoke_config)
 
-    assert sorted(NOT_PORTED) == ["internvl2-1b", "mamba2-130m",
-                                  "whisper-medium", "zamba2-1.2b"]
+    assert sorted(NOT_PORTED) == ["whisper-medium"]
+    family = {"mixtral-8x7b": "moe", "mamba2-130m": "ssm"}
     for get in (get_config, get_smoke_config):
         if arch in ARCH_IDS:
-            assert get(arch).family == "moe"
+            assert get(arch).family == family[arch]
             continue
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 12[ce]"):
+                           match="ROADMAP Queue 1 item 12e"):
             get(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
@@ -181,6 +181,30 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_state(cfg, 1, 8)
     assert init_lm(cfg, device="cpu")["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b",
+                                  "internvl2-1b"])
+def test_ssm_hybrid_and_vlm_entry_points_raise_without_a_card(arch,
+                                                             monkeypatch):
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import init_lm
+    from repro_torch.serving.decode import init_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config(arch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lm(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(cfg, 1, 8)
+    params = init_lm(cfg, device="cpu")
+    assert all(t.device.type == "cpu" for t in
+               _param_leaves(params)), arch
+
+
+def _param_leaves(tree):
+    for v in tree.values():
+        yield from (_param_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
