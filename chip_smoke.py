@@ -182,6 +182,38 @@ Phases (any failure exits non-zero):
 15. K6 timed at zamba2-1.2b's attention (B = 4, 32/32 heads, S = 2,048,
    D = 64, causal; its window is longer than S) and internvl2-1b's (14/2
    heads, S = 2,304) as in phase 11.
+16. ``[lm serve audio]``: whisper-medium (``repro/configs/whisper_medium.py``:
+   24 encoder layers over 1,500 frames, 24 decoder layers, d_model 1,024,
+   16/16 heads of 64, d_ff 4,096, vocab 51,865) at full width and depth,
+   bfloat16 compute, seeded weights: 4 requests of 1,500 seeded frame
+   embeddings (the stub frontend) and 432-token prompts through ``prefill``
+   (K6's bf16 route 48 times: 24 bidirectional encoder layers over 1,500
+   keys, not a multiple of its 64-key tile, and 24 causal decoder layers),
+   16 greedy ``decode_step``s (432 + 16 = 448, whisper's text context), the
+   profile by group; then in float32 on the card at ``2e-3``: the prefill
+   through K6 (``sm90_tf32x3`` 48 times) against K6's plain version, decode
+   at position S against ``decoder_forward`` on S + 1 tokens, and encoder
+   layer 0 against a CPU copy; K6 timed at the encoder's shape (B = 4,
+   16/16 heads, S = 1,500, D = 64, bidirectional) in both types as in phase
+   11;
+17. ``[K6 grad]``: K6 as an autograd Function (the kernel's forward, one
+   counted launch; its backward float32 torch ops, no launch: the reference
+   has no Pallas backward) against autograd through ``ref.py``'s dense
+   float32 softmax at smollm's shape (S = 512), gemma3-1b local's (D = 256,
+   window 1,024, S = 1,536) and the whisper encoder's (bidirectional,
+   S = 1,500): dq, dk, dv at ``2e-4`` in float32 and ``1e-2`` in bfloat16
+   (the gradients' own rounding), and the backward's time beside the
+   forward's;
+18. ``[train]``: smollm-360m at full width and depth, 4 ``make_train_step``
+   steps of 4 x 2,048 tokens (bfloat16 compute, AdamW ``lr=1e-3,
+   warmup_steps=1`` as ``tests/test_arch_smoke.py``; ``remat`` checkpoints
+   each layer, so K6 runs twice a layer: 64 launches a step), each counted
+   and timed, every loss and grad norm finite and the parameters changed,
+   then one more under the profiler; two whisper-medium steps of 2 x
+   (1,500 frames + 448 tokens) (96 launches each; the first cold), and one
+   more profiled; K6's backward timed at both models' shapes; then smollm-360m in float32 at 2 x 256 tokens: the step on the
+   card against the same step on a CPU copy, and 2 microbatches against
+   the whole batch, loss, grad norm and updated parameters at ``2e-3``.
 
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
@@ -254,9 +286,10 @@ LP_ALPHAS, LP_CHECK_ITERS = (0.01, 0.05, 0.2), 10
 PREEMPT_ITERS, PREEMPT_SEGMENT, PREEMPT_DEADLINE_MS = 50, 5, 1_000.0
 TP_REQUESTS, TP_WIDTHS, TP_ITERS = 96, (1, 2, 3, 4, 6, 8), 50
 TP_CLIENTS, TP_MAX_BATCH, TP_MAX_WAIT_MS = (1, 4, 16), 32, 25.0
-# K6's timed shapes: smollm-360m's attention and gemma3-1b's local layer
-K6_SHAPES = (("smollm-360m", 4, 15, 5, 2_048, 64, 0),
-             ("gemma3-1b local", 4, 4, 1, 2_048, 256, 1_024))
+# K6's timed shapes (name, B, Hq, Hkv, S, D, window, causal): smollm-360m's
+# attention and gemma3-1b's local layer
+K6_SHAPES = (("smollm-360m", 4, 15, 5, 2_048, 64, 0, True),
+             ("gemma3-1b local", 4, 4, 1, 2_048, 256, 1_024, True))
 # the sharded engine: D shards on cuda:0 over the fitted SecStr model
 SHARD_COUNTS, SHARD_CHECK_ITERS, SHARD_TIME_ITERS = (1, 2, 4, 8), 10, 5
 # the MoE serving phase: deepseek-moe-16b at full width, its depth cut from
@@ -264,7 +297,7 @@ SHARD_COUNTS, SHARD_CHECK_ITERS, SHARD_TIME_ITERS = (1, 2, 4, 8), 10, 5
 MOE_ARCH, MOE_LAYERS, MOE_LAYER_TOKENS, MOE_LAYER_TOL = (
     "deepseek-moe-16b", 16, 256, 2e-3)
 MOE_CHECK_PROMPT = 512   # the decode check's context (capacity >= T there)
-K6_MOE_SHAPE = ("deepseek-moe-16b", 4, 16, 16, 2_048, 128, 0)
+K6_MOE_SHAPE = ("deepseek-moe-16b", 4, 16, 16, 2_048, 128, 0, True)
 # kernel-name fragments of the MoE dispatch (argsort, searchsorted, the
 # gathers and the index_add_ combine, top-k, bincount)
 MOE_DISPATCH_KERNELS = ("sort", "search", "index", "scatter", "gather",
@@ -277,8 +310,31 @@ MOE_DISPATCH_KERNELS = ("sort", "search", "index", "scatter", "gather",
 # SSM layer at zamba2-1.2b's width on 512 tokens, card against a CPU copy
 LM_FAMILY_ARCHS = ("mamba2-130m", "zamba2-1.2b", "internvl2-1b")
 SSM_CHECK_PROMPT, VLM_CHECK_PROMPT, SSM_LAYER_TOKENS = 255, 512, 512
-K6_FAMILY_SHAPES = (("zamba2-1.2b", 4, 32, 32, 2_048, 64, 0),
-                    ("internvl2-1b", 4, 14, 2, 2_304, 64, 0))
+K6_FAMILY_SHAPES = (("zamba2-1.2b", 4, 32, 32, 2_048, 64, 0, True),
+                    ("internvl2-1b", 4, 14, 2, 2_304, 64, 0, True))
+# the audio phase: whisper-medium at full width and depth, 4 requests of
+# 1,500 seeded frame embeddings and 432-token prompts, 16 greedy decode
+# steps (432 + 16 = 448, whisper's text context); K6 at its encoder's shape,
+# bidirectional over 1,500 keys (not a multiple of the 64-key tile)
+AUDIO_ARCH, AUDIO_PROMPT = "whisper-medium", 432
+K6_AUDIO_SHAPE = ("whisper-medium encoder", 4, 16, 16, 1_500, 64, 0, False)
+# [K6 grad]: K6's autograd route against autograd through ref.py's dense
+# float32 softmax, at smollm's shape (S = 512), gemma3-1b local's (D = 256,
+# window 1,024 at S = 1,536) and the whisper encoder's (bidirectional,
+# S = 1,500); dq, dk, dv at 2e-4 in float32 and 1e-2 in bfloat16
+K6_GRAD_CASES = (("smollm-360m", 2, 15, 5, 512, 64, 0, True),
+                 ("gemma3-1b local", 1, 4, 1, 1_536, 256, 1_024, True),
+                 ("whisper-medium encoder", 2, 16, 16, 1_500, 64, 0, False))
+K6_GRAD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# [train]: AdamW as tests/test_arch_smoke.py sets it; smollm-360m at full
+# width and depth, 4 steps of 4 x 2,048 tokens, bfloat16 compute;
+# whisper-medium steps of 2 x (1,500 frames + 448 tokens), the first cold;
+# float32 checks at 2 x 256 tokens (card vs a CPU copy; 2 microbatches vs
+# the whole batch)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 2_048
+AUDIO_TRAIN_STEPS, AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ = 2, 2, 448
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 256
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2278,10 +2334,15 @@ def close_k6(got, want, what: str) -> tuple[float, float]:
 
 
 def attention_work(b: int, hq: int, hkv: int, s: int, d: int, window: int,
-                   itemsize: int) -> tuple[float, float]:
-    """Operations and bytes of causal attention over the unmasked pairs: two
+                   itemsize: int, causal: bool = True) -> tuple[float, float]:
+    """Operations and bytes of attention over the unmasked pairs: two
     products of 2 B Hq D flops per pair; q, k, v read and out written once."""
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    if causal:
+        pairs = sum(min(i + 1, window) if window else i + 1
+                    for i in range(s))
+    else:
+        pairs = sum(s - max(0, i - window + 1) if window else s
+                    for i in range(s))
     flops = 4.0 * b * hq * d * pairs
     nbytes = itemsize * (2.0 * b * hq * s * d + 2.0 * b * hkv * s * d)
     return flops, nbytes
@@ -2424,33 +2485,34 @@ def phase_lm_serve() -> dict:
                 decode_ms=decode_ms, peak_gib=peak, profile=profile)
 
 
-class SsdMarked:
-    """Within ``with``: every ``ssd_chunked`` call of the port's SSM layer
-    runs inside a profiler range named ``ssd_chunked``, so that the kernels
-    of the SSD scan can be told from the rest of a profile."""
+class Marked:
+    """Within ``with``: every call of ``module.<attr>`` runs inside a
+    profiler range named ``name``, so that the kernels it launches can be
+    told from the rest of a profile (the SSM layer's ``ssd_chunked``; K6's
+    backward, ``ops.flash_attention_backward``)."""
+
+    def __init__(self, module, attr: str, name: str):
+        self.module, self.attr, self.name = module, attr, name
 
     def __enter__(self):
         import torch
-        from repro_torch.models import ssm
 
-        self._orig = orig = ssm.ssd_chunked
+        self._orig = orig = getattr(self.module, self.attr)
 
         def marked(*args, **kwargs):
-            with torch.profiler.record_function("ssd_chunked"):
+            with torch.profiler.record_function(self.name):
                 return orig(*args, **kwargs)
 
-        ssm.ssd_chunked = marked
+        setattr(self.module, self.attr, marked)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.models import ssm
-
-        ssm.ssd_chunked = self._orig
+        setattr(self.module, self.attr, self._orig)
 
 
-def ssd_kernel_us(prof) -> dict:
+def range_kernel_us(prof, name: str) -> dict:
     """Device microseconds by kernel name of the kernels launched within the
-    ``ssd_chunked`` ranges of a profile."""
+    ranges called ``name`` of a profile."""
     out = {}
 
     def walk(event):
@@ -2460,86 +2522,100 @@ def ssd_kernel_us(prof) -> dict:
             walk(child)
 
     for event in prof.events():
-        if event.name == "ssd_chunked":
+        if event.name == name:
             walk(event)
     return out
 
 
+def kernel_groups(prof, moe: bool = False, ranges=()) -> tuple:
+    """Device ms by group of a profile, and its six longest kernels.  K6's
+    forward kernels are "K6", products "matmul", elementwise kernels
+    "elementwise"; ``moe``: the MoE layer's dispatch kernels (sorts,
+    searches, gathers, scatters, top-k) are "moe dispatch"; ``ranges``:
+    (range name, group) pairs whose kernels (``Marked``) are a group of
+    their own.  The ranges' own device-side entries are no kernels."""
+    import torch
+
+    inside = {group: range_kernel_us(prof, name) for name, group in ranges}
+    skip = {name for name, _ in ranges}
+    out, kernels = {}, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in skip:
+            continue
+        name = e.key
+        # K6's kernels: flash_attention_tf32x3_kernel and its
+        # prepare_kv_kernel (float32), flash_attention_sm90_kernel
+        kind = ("K6" if "flash_attention" in name
+                or "prepare_kv" in name else
+                "matmul" if any(w in name.lower() for w in (
+                    "gemm", "gemv", "cutlass", "xmma", "nvjet"))
+                else "moe dispatch" if moe and any(
+                    w in name.lower() for w in MOE_DISPATCH_KERNELS)
+                else "elementwise" if "elementwise" in name
+                else "other")
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        rest = us
+        for group, by_name in inside.items():
+            part = min(by_name.get(name, 0.0), rest)
+            out[group] = out.get(group, 0.0) + part / 1e3
+            rest -= part
+        out[kind] = out.get(kind, 0.0) + rest / 1e3
+        kernels.append((us / 1e3, e.count, name))
+    return out, sorted(kernels, reverse=True)[:6]
+
+
+def print_groups(what: str, by: dict, top: list, wall_ms: float) -> None:
+    total = sum(by.values())
+    if total == 0.0:
+        print(f"  [profile] {what}: the profiler saw no device time "
+              "(busy share not measured)")
+        return
+    parts = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})"
+                      for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+    print(f"  [profile] {what}: device time {total:.2f} ms: {parts}; "
+          f"busy share of the unprofiled {wall_ms:.2f} ms: "
+          f"{min(total / wall_ms, 1.0):.3f}")
+    for ms, count, kname in top:
+        print(f"    {ms:8.3f} ms in {count:5d} launches  {kname[:90]}")
+
+
 def phase_lm_profile(params, cfg, tokens, prefill_ms: float,
                      decode_ms: float, moe: bool = False,
-                     patches=None) -> dict:
+                     **inputs) -> dict:
     """Device time by kernel of one prefill and one decode step (torch
     profiler), and the device's busy share of the unprofiled times; returns
-    the device ms by group of each.  ``moe``: the MoE layer's dispatch
-    kernels (sorts, searches, gathers, scatters, top-k) are a group of their
-    own; an SSM or hybrid model's SSD scan (the kernels within
-    ``ssd_chunked``: its contractions, cumulative sums and decays) likewise.
-    Elementwise kernels outside those are the group "elementwise"."""
+    the device ms by group of each (``kernel_groups``; an SSM or hybrid
+    model's SSD scan, the kernels within ``ssd_chunked``, is the group
+    "SSD").  ``inputs``: a vlm's ``patches`` or an audio model's
+    ``frames``."""
     import contextlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ssm
     from repro_torch.serving.decode import decode_step, prefill
 
     ssd = cfg.family in ("ssm", "hybrid")
-
-    def groups(prof):
-        out, kernels = {}, []
-        inside = ssd_kernel_us(prof) if ssd else {}
-        for e in prof.key_averages():
-            # the device side of the ssd_chunked ranges is no kernel
-            if e.device_type != torch.autograd.DeviceType.CUDA \
-                    or e.key == "ssd_chunked":
-                continue
-            name = e.key
-            # K6's kernels: flash_attention_tf32x3_kernel and its
-            # prepare_kv_kernel (float32), flash_attention_sm90_kernel
-            kind = ("K6" if "flash_attention" in name
-                    or "prepare_kv" in name else
-                    "matmul" if any(w in name.lower() for w in (
-                        "gemm", "gemv", "cutlass", "xmma", "nvjet"))
-                    else "moe dispatch" if moe and any(
-                        w in name.lower() for w in MOE_DISPATCH_KERNELS)
-                    else "elementwise" if "elementwise" in name
-                    else "other")
-            us = getattr(e, "self_device_time_total", None)
-            us = e.self_cuda_time_total if us is None else us
-            ssd_us = min(inside.get(name, 0.0), us)
-            if ssd:
-                out["SSD"] = out.get("SSD", 0.0) + ssd_us / 1e3
-            out[kind] = out.get(kind, 0.0) + (us - ssd_us) / 1e3
-            kernels.append((us / 1e3, e.count, name))
-        return out, sorted(kernels, reverse=True)[:6]
-
-    logits, state = prefill(params, tokens, cfg, patches=patches)
+    logits, state = prefill(params, tokens, cfg, **inputs)
     tok = logits.argmax(-1)[:, None]
     result = {}
     for name, fn, wall_ms in (
-            ("prefill", lambda: prefill(params, tokens, cfg,
-                                        patches=patches), prefill_ms),
+            ("prefill", lambda: prefill(params, tokens, cfg, **inputs),
+             prefill_ms),
             ("decode step", lambda: decode_step(params, tok, state, cfg),
              decode_ms)):
         torch.cuda.synchronize()
-        with SsdMarked() if ssd else contextlib.nullcontext(), profile(
+        with Marked(ssm, "ssd_chunked", "ssd_chunked") if ssd else \
+                contextlib.nullcontext(), profile(
                 activities=[ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        by, top = groups(prof)
-        total = sum(by.values())
-        result[name] = dict(by, total=total)
-        if total == 0.0:
-            print(f"  [profile] {name}: the profiler saw no device time "
-                  "(busy share not measured)")
-            continue
-        parts = ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})"
-                          for k, v in sorted(by.items(),
-                                             key=lambda kv: -kv[1]))
-        print(f"  [profile] {name}: device time {total:.2f} ms: {parts}; "
-              f"busy share of the unprofiled {wall_ms:.2f} ms: "
-              f"{min(total / wall_ms, 1.0):.3f}")
-        for ms, count, kname in top:
-            print(f"    {ms:8.3f} ms in {count:5d} launches  {kname[:90]}")
+        by, top = kernel_groups(prof, moe, (("ssd_chunked", "SSD"),)
+                                if ssd else ())
+        result[name] = dict(by, total=sum(by.values()))
+        print_groups(name, by, top, wall_ms)
     return result
 
 
@@ -2606,7 +2682,7 @@ def phase_k6_timing(cases=None) -> list:
     print("[K6 timing]")
     g = torch.Generator().manual_seed(7)
     rows = []
-    for (name, b, hq, hkv, s, d, window), dtype in cases or (
+    for (name, b, hq, hkv, s, d, window, causal), dtype in cases or (
             (shape, dtype) for dtype in (torch.bfloat16, torch.float32)
             for shape in K6_SHAPES):
         tname = str(dtype).split(".")[1]
@@ -2614,18 +2690,22 @@ def phase_k6_timing(cases=None) -> list:
         q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
                    for h in (hq, hkv, hkv))
         before = flash_attention.launches_by_route.get(route, 0)
-        got = flash_attention(q, k, v, window=window)
+        got = flash_attention(q, k, v, causal=causal, window=window)
         check(flash_attention.launches_by_route.get(route, 0) == before + 1,
               f"K6 {tname} did not launch on {route}")
-        err, ratio = close_k6(got, flash_attention_plain(q, k, v, True,
+        err, ratio = close_k6(got, flash_attention_plain(q, k, v, causal,
                                                          window),
                               f"{name} {tname}: K6 ({route}) vs plain")
-        check(torch.equal(got, flash_attention(q, k, v, window=window)),
+        check(torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                               window=window)),
               f"{name} {tname}: two launches differ")
         i = torch.arange(s, device="cuda")
-        mask = dict(attn_mask=(i[None, :] <= i[:, None])
-                    & (i[:, None] - i[None, :] < window)) if window else \
-            dict(is_causal=True)
+        if window:
+            keep = i[:, None] - i[None, :] < window
+            mask = dict(attn_mask=keep & (i[None, :] <= i[:, None])
+                        if causal else keep)
+        else:
+            mask = dict(is_causal=causal)
 
         def sdpa():
             return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
@@ -2633,14 +2713,17 @@ def phase_k6_timing(cases=None) -> list:
 
         close(sdpa(), got, f"{name} {tname}: SDPA vs K6", tol, tol)
         # kernel, SDPA, kernel, SDPA: the two are compared only in one run
-        ms = cuda_ms(lambda: flash_attention(q, k, v, window=window), 10)
+        def k6():
+            return flash_attention(q, k, v, causal=causal, window=window)
+
+        ms = cuda_ms(k6, 10)
         lib_ms = cuda_ms(sdpa, 10)
-        ms2 = cuda_ms(lambda: flash_attention(q, k, v, window=window), 10)
+        ms2 = cuda_ms(k6, 10)
         lib_ms2 = cuda_ms(sdpa, 10)
-        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, True,
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal,
                                                          window), 3)
         flops, nbytes = attention_work(b, hq, hkv, s, d, window,
-                                       q.element_size())
+                                       q.element_size(), causal)
         # bfloat16: one product on the tensor cores; float32: three TF32
         # products on the tensor cores, with the CUDA cores' bound beside
         if dtype == torch.bfloat16:
@@ -2653,13 +2736,14 @@ def phase_k6_timing(cases=None) -> list:
             extra = (f"; float32 CUDA-core bound {f32_ms:.4f} ms, "
                      f"{f32_ms / ms:.4f} of it")
         print(f"  {name} {tname} B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
-              f"window={window}: K6 ({route}) {ms:.4f} / {ms2:.4f} ms per "
+              f"window={window} causal={causal}: K6 ({route}) {ms:.4f} / {ms2:.4f} ms per "
               f"launch ({flops / ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} / {lib_ms2:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({by}), {bound_ms / ms:.4f} of the "
               f"bound{extra}, K6 / SDPA {ms / lib_ms:.3f}")
         rows.append(dict(name=name, route=route, shape=f"B={b} Hq={hq} "
-                         f"Hkv={hkv} S={s} D={d} window={window} {tname}",
+                         f"Hkv={hkv} S={s} D={d} window={window} "
+                         f"causal={causal} {tname}",
                          ms=ms, ms2=ms2, plain_ms=plain_ms, lib_ms=lib_ms,
                          lib_ms2=lib_ms2, bound_ms=bound_ms, by=by,
                          f32_bound_ms=f32_ms, err=err, block_rms=ratio))
@@ -2990,11 +3074,12 @@ def ssm_layer_check(params, cfg) -> float:
     return err
 
 
-def k6_plain_prefill_check(params, cfg, tokens, patches) -> tuple:
+def k6_plain_prefill_check(params, cfg, tokens, **inputs) -> tuple:
     """One float32 prefill through K6 (counted from 0: its 3xTF32 route at
     every attention point, no other launch) and one through K6's plain
     version swapped into the attention module; returns the logits' max abs
-    error and the K6 prefill's counts."""
+    error and the K6 prefill's counts.  ``inputs``: a vlm's ``patches`` or
+    an audio model's ``frames``."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -3002,7 +3087,7 @@ def k6_plain_prefill_check(params, cfg, tokens, patches) -> tuple:
     from repro_torch.serving.decode import prefill
 
     reset_counts()
-    got, _ = prefill(params, tokens, cfg, patches=patches)
+    got, _ = prefill(params, tokens, cfg, **inputs)
     torch.cuda.synchronize()
     counts = read_counts()
     n = k6_points(cfg)
@@ -3012,7 +3097,7 @@ def k6_plain_prefill_check(params, cfg, tokens, patches) -> tuple:
     before = flash_attention.launches
     attention.flash_attention = flash_attention_plain
     try:
-        want, _ = prefill(params, tokens, cfg, patches=patches)
+        want, _ = prefill(params, tokens, cfg, **inputs)
     finally:
         attention.flash_attention = flash_attention
     check(flash_attention.launches == before, "the plain prefill launched K6")
@@ -3023,12 +3108,13 @@ def k6_plain_prefill_check(params, cfg, tokens, patches) -> tuple:
 
 def k6_points(cfg) -> int:
     """K6's launches in one prefill: one per attention layer, or per
-    application of a hybrid's shared block; none in an SSM model."""
+    application of a hybrid's shared block; none in an SSM model; an audio
+    model's encoder layers and decoder layers."""
     from repro_torch.models.transformer import attn_flags
 
     if cfg.family in ("ssm", "hybrid"):
         return sum(attn_flags(cfg))
-    return cfg.n_layers
+    return cfg.n_layers + cfg.n_encoder_layers
 
 
 def family_shape(cfg) -> str:
@@ -3164,7 +3250,7 @@ def phase_lm_family(arch: str) -> dict:
     f32_counts = None
     if n_k6:
         checks["k6_vs_plain_prefill"], f32_counts = k6_plain_prefill_check(
-            params, cfg32, tokens, patches)
+            params, cfg32, tokens, patches=patches)
     if cfg.family == "hybrid":
         checks["ssm_layer_card_vs_cpu"] = ssm_layer_check(params, cfg32)
     del params
@@ -3199,7 +3285,7 @@ def phase_k6_gate() -> dict:
           "version's error")
     rng = np.random.RandomState(K6_GATE_SEED)
     out = {}
-    for name, b, hq, hkv, s, d, window in K6_SHAPES:
+    for name, b, hq, hkv, s, d, window, _ in K6_SHAPES:
         q, k, v = (torch.as_tensor(rng.randn(b, h, s, d).astype(np.float32),
                                    device="cuda") for h in (hq, hkv, hkv))
         ref = flash_attention_plain(q.double(), k.double(), v.double(), True,
@@ -3210,6 +3296,450 @@ def phase_k6_gate() -> dict:
     failed = [k for k, v in out.items() if not v["ok"]]
     check(not failed, f"K6 precision gate failed for {failed}: error over "
                       f"{GATE_RATIO} x the plain float32 version's")
+    return out
+
+
+def phase_k6_grad() -> dict:
+    """[K6 grad]: K6 as an autograd Function on the card (the kernel's
+    forward, one counted launch; the float32 torch backward, no launch)
+    against autograd through ``ref.py``'s dense float32 softmax: the output
+    at ``K6_TOL``, dq, dk and dv at ``K6_GRAD_TOL``, at each case of
+    ``K6_GRAD_CASES`` in both types; and the backward's device time beside
+    the forward's."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_backward
+
+    print("[K6 grad] autograd through K6 (the kernel's forward, the float32 "
+          "torch backward) vs autograd through ref.py's dense float32 "
+          "softmax")
+    g = torch.Generator().manual_seed(9)
+    out = {}
+    for name, b, hq, hkv, s, d, window, causal in K6_GRAD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).split(".")[1]
+            route, tol = K6_ROUTES[tname], K6_GRAD_TOL[tname]
+            q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
+                       .requires_grad_() for h in (hq, hkv, hkv))
+            dout = torch.randn(b, hq, s, d, generator=g).to("cuda", dtype)
+            before = read_counts()
+            o = flash_attention(q, k, v, causal=causal, window=window)
+            grads = torch.autograd.grad(o, (q, k, v), dout)
+            torch.cuda.synchronize()
+            after = read_counts()
+            check(after["K6"] == before["K6"] + 1
+                  and after[f"K6 {route}"] == before[f"K6 {route}"] + 1,
+                  f"K6 grad {name} {tname}: launches {before} -> {after}, "
+                  f"expected one forward launch on {route}")
+            ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            o_ref = flash_attention_ref(*ref_in, causal=causal, window=window)
+            want = torch.autograd.grad(o_ref, ref_in, dout.float())
+            label = (f"{name} B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+                     f"window={window} causal={causal} {tname}")
+            errs = dict(out=close(o.detach(), o_ref.detach(),
+                                  f"{label}: output", K6_TOL[tname],
+                                  K6_TOL[tname])[0])
+            for part, got_t, want_t in zip(("dq", "dk", "dv"), grads, want):
+                errs[part] = close(got_t, want_t, f"{label}: {part}", tol,
+                                   tol)[0]
+            qd, kd, vd = (t.detach() for t in (q, k, v))
+            fwd_ms = cuda_ms(lambda: flash_attention(
+                qd, kd, vd, causal=causal, window=window), 5)
+            bwd_ms = cuda_ms(lambda: flash_attention_backward(
+                qd, kd, vd, dout, causal, window), 3)
+            print(f"    forward (K6, {route}) {fwd_ms:.4f} ms, backward "
+                  f"(float32 torch ops) {bwd_ms:.4f} ms")
+            out[f"{name} {tname}"] = dict(errs, shape=label, fwd_ms=fwd_ms,
+                                          bwd_ms=bwd_ms)
+            del q, k, v, o, grads, o_ref, want, ref_in
+    return out
+
+
+def audio_frames(cfg, batch: int) -> np.ndarray:
+    """Seeded stub frame embeddings (B, T_enc, D), the encoder's input."""
+    return np.random.RandomState(LM_SEED + 2).randn(
+        batch, cfg.encoder_frames, cfg.d_model).astype(np.float32)
+
+
+def audio_decode_check(params, cfg, tokens, frames) -> float:
+    """Float32 decode at position S after a prefill on S tokens against
+    ``decoder_forward`` on S + 1 tokens over the encoder's output of the
+    same frames, at ``LM_F32_TOL``; returns the max abs error."""
+    from repro_torch.models.whisper import decoder_forward, encoder_forward
+    from repro_torch.serving.decode import decode_step, prefill
+
+    s = tokens.shape[1] - 1
+    _, state = prefill(params, tokens[:, :s], cfg, frames=frames)
+    step, _ = decode_step(params, tokens[:, s:], state, cfg)
+    full = decoder_forward(params, tokens,
+                           encoder_forward(params, frames, cfg), cfg)
+    err = close(step, full[:, s], f"float32 decode after {s} tokens vs "
+                f"decoder_forward at position {s}", LM_F32_TOL,
+                LM_F32_TOL)[0]
+    del full
+    return err
+
+
+def encoder_layer_check(params, cfg, frames) -> float:
+    """Encoder layer 0 on one request's frames in float32: on the card (K6's
+    ``sm90_tf32x3`` route) against a CPU copy of its parameters (K6's plain
+    version) at ``LM_F32_TOL``; returns the max abs error."""
+    import torch
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.whisper import encoder_layer
+
+    card = layer_params(params["enc_layers"], 0)
+    host = tree_to(card, "cpu")
+    x = frames[:1] + params["enc_pos"][None]
+    pos = torch.arange(x.shape[1], device="cuda")[None]
+    got = encoder_layer(card, x, cfg, pos)
+    want = encoder_layer(host, x.cpu(), cfg, pos.cpu())
+    return close(got, want, f"encoder layer 0 at {cfg.name}'s width, B = 1, "
+                 f"T_enc = {x.shape[1]}, float32: card vs a CPU copy",
+                 LM_F32_TOL, LM_F32_TOL)[0]
+
+
+def phase_lm_audio() -> dict:
+    """[lm serve audio]: whisper-medium at full width and depth, bfloat16
+    compute, seeded weights: 4 requests of 1,500 seeded frame embeddings and
+    432-token prompts through ``prefill`` (K6's bf16 route 48 times: 24
+    bidirectional encoder layers at S = 1,500, 24 causal decoder layers), 16
+    greedy ``decode_step``s, the profile by group; then the float32 checks
+    on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.whisper import init_encdec
+    from repro_torch.serving.decode import DECODE_SLACK, decode_step, prefill
+
+    cfg = get_config(AUDIO_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_encdec(cfg, LM_SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[lm serve audio] {cfg.name}: encoder {cfg.n_encoder_layers} "
+          f"layers over {cfg.encoder_frames} frames, decoder {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}; {n_params / 1e6:.1f} M params "
+          f"({4 * n_params / 1e9:.2f} GB in float32), seeded on the card in "
+          f"{init_s:.2f} s; nothing cut")
+    tokens = torch.as_tensor(lm_tokens(cfg, AUDIO_PROMPT), device="cuda")
+    frames = torch.as_tensor(audio_frames(cfg, LM_BATCH), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, tokens.flip(1), cfg, frames=frames.flip(1))
+    decode_step(params, logits.argmax(-1)[:, None], state, cfg)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    del logits, state
+    n_k6 = k6_points(cfg)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, tokens, cfg, frames=frames)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    check(k6_route_only(counts, "sm90_bf16", n_k6),
+          f"{cfg.name} prefill launched K6 {counts}, expected {n_k6} times "
+          "on the bfloat16 route and never on another")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.padded_vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{cfg.name} prefill: bad logits")
+    kv_shape = (cfg.n_layers, LM_BATCH, AUDIO_PROMPT + DECODE_SLACK,
+                cfg.n_kv_heads, cfg.head_dim_)
+    cross_shape = (cfg.n_layers, LM_BATCH, cfg.encoder_frames,
+                   cfg.n_kv_heads, cfg.head_dim_)
+    check(tuple(state.kv.k.shape) == kv_shape
+          and tuple(state.cross_k.shape) == cross_shape
+          and tuple(state.cross_v.shape) == cross_shape,
+          f"{cfg.name} prefill: cache {tuple(state.kv.k.shape)}, cross "
+          f"{tuple(state.cross_k.shape)}")
+    tok = logits.argmax(-1)[:, None]
+    generated = [tok]
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(DECODE_SLACK + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    for i in range(DECODE_SLACK):
+        logits, state = decode_step(params, tok, state, cfg)
+        tok = logits.argmax(-1)[:, None]
+        generated.append(tok)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_SLACK
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{cfg.name} decode: non-finite logits")
+    check(int(state.kv.pos[0]) == AUDIO_PROMPT + DECODE_SLACK,
+          f"{cfg.name} decode: position {int(state.kv.pos[0])}")
+    del state
+    print(f"  cold prefill + 1 decode step (not counted): {cold_ms:.1f} ms")
+    print(f"  prefill {LM_BATCH} x ({cfg.encoder_frames} frames + "
+          f"{AUDIO_PROMPT} tokens): {prefill_ms:.1f} ms, K6 launches "
+          f"{counts['K6']} (sm90_bf16 {counts['K6 sm90_bf16']}); decode "
+          f"{DECODE_SLACK} greedy steps: {decode_ms:.2f} ms per step "
+          f"({LM_BATCH / decode_ms * 1e3:.0f} tokens/s; between device "
+          f"events min {min(step_ms):.2f}, max {max(step_ms):.2f} ms); "
+          f"max_memory_allocated {peak:.2f} GiB")
+    print(f"  request 0 generated {torch.cat(generated, 1)[0].tolist()}")
+    profile = phase_lm_profile(params, cfg, tokens, prefill_ms, decode_ms,
+                               frames=frames)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    checks = {}
+    checks["k6_vs_plain_prefill"], f32_counts = k6_plain_prefill_check(
+        params, cfg32, tokens, frames=frames)
+    checks["decode_vs_decoder_forward"] = audio_decode_check(
+        params, cfg32, tokens, frames)
+    checks["encoder_layer_card_vs_cpu"] = encoder_layer_check(
+        params, cfg32, frames)
+    del params
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, counts=counts, f32_counts=f32_counts,
+                prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gib=peak,
+                init_s=init_s, n_params=n_params, checks=checks,
+                profile=profile)
+
+
+def train_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    """Seeded tokens (B, seq + 1) on the card; an audio model's frames."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    out = {"tokens": torch.as_tensor(rng.randint(
+        0, cfg.vocab_size, (batch, seq + 1)), device="cuda")}
+    if cfg.family == "audio":
+        out["frames"] = torch.as_tensor(rng.randn(
+            batch, cfg.encoder_frames, cfg.d_model).astype(np.float32),
+            device="cuda")
+    return out
+
+
+def k6_backward_ms(cfg, batch: int, s: int, causal: bool = True) -> float:
+    """Device ms of one K6 backward (``flash_attention_backward``) at a
+    layer's attention shape in the compute dtype."""
+    import torch
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_backward
+
+    g = torch.Generator().manual_seed(10)
+    dt = getattr(torch, cfg.dtype)
+    q, dout = (torch.randn(batch, cfg.n_heads, s, cfg.head_dim_,
+                           generator=g).to("cuda", dt) for _ in range(2))
+    k, v = (torch.randn(batch, cfg.n_kv_heads, s, cfg.head_dim_,
+                        generator=g).to("cuda", dt) for _ in range(2))
+    return cuda_ms(lambda: flash_attention_backward(q, k, v, dout, causal),
+                   3)
+
+
+def train_run(cfg, params, batch: dict, n_steps: int) -> dict:
+    """``n_steps`` steps of ``make_train_step`` on the card, each counted
+    (every count 0 just before, read just after) and timed: every loss and
+    grad norm finite, the parameters changed, K6 launched at every attention
+    point on its route, twice under ``cfg.remat`` (the backward's
+    recompute); then one more step under the profiler, by group, K6's
+    backward a group of its own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    step = make_train_step(cfg, opt_cfg)
+    state = init_train_state(params, opt_cfg)
+    route = K6_ROUTES[cfg.dtype]
+    n_k6 = k6_points(cfg) * (2 if cfg.remat else 1)
+    tokens = batch["tokens"].shape[0] * (batch["tokens"].shape[1] - 1)
+    rows = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        changed = sum(not torch.equal(a, b) for a, b in
+                      zip(_leaves(state.params), _leaves(new.params)))
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"{cfg.name} train step: loss {loss}, grad norm {gnorm}")
+        check(changed > 0, f"{cfg.name} train step changed no parameter")
+        check(k6_route_only(counts, route, n_k6),
+              f"{cfg.name} train step launched K6 {counts}, expected "
+              f"{n_k6} times on {route} and never on another")
+        rows.append(dict(ms=ms, loss=loss, grad_norm=gnorm,
+                         lr=float(metrics["lr"]), k6=counts["K6"],
+                         changed=changed))
+        print(f"  step {int(new.step)}: {ms:.1f} ms ({tokens / ms * 1e3:.0f} "
+              f"tokens/s), loss {loss:.4f}, grad norm {gnorm:.4f}, K6 "
+              f"launches {counts['K6']} ({route} {counts[f'K6 {route}']}), "
+              f"{changed} of {len(list(_leaves(params)))} parameter tensors "
+              "changed")
+        state = new
+    torch.cuda.synchronize()
+    with Marked(ops, "flash_attention_backward", "k6_backward"), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    by, top = kernel_groups(prof, ranges=(("k6_backward", "K6 backward"),))
+    print_groups("train step", by, top,
+                 sum(r["ms"] for r in rows[1:]) / max(len(rows) - 1, 1))
+    return dict(rows=rows, tokens=tokens,
+                groups=dict(by, total=sum(by.values())))
+
+
+def close_tree(got: dict, want: dict, what: str, tol: float,
+               scaled: bool = False) -> float:
+    """Every leaf of ``got`` within ``tol`` of ``want`` (``scaled``: of the
+    leaf's largest magnitude); returns the largest max abs error."""
+    import torch
+
+    worst, worst_rel = 0.0, 0.0
+    for a, b in zip(_leaves(got), _leaves(want)):
+        a, b = a.double().cpu(), b.double().cpu()
+        atol = tol * float(b.abs().max()) if scaled else tol
+        err = (a - b).abs()
+        check(bool(torch.isfinite(a).all()), f"{what}: non-finite")
+        check(bool((err <= atol + tol * b.abs()).all()),
+              f"{what}: a tensor {tuple(a.shape)} off by "
+              f"{float(err.max()):.3e}, over rtol={tol}, atol={atol:.3e}")
+        worst = max(worst, float(err.max()))
+        worst_rel = max(worst_rel, float(err.max())
+                        / max(float(b.abs().max()), 1e-30))
+    print(f"  {what}: max_abs_err={worst:.3e} (largest over a tensor's max "
+          f"magnitude {worst_rel:.3e}) ok")
+    return worst
+
+
+def train_checks() -> dict:
+    """smollm-360m at full width in float32, 2 x 256 tokens: one step on
+    the card (K6's ``sm90_tf32x3`` route) against the same step on a CPU copy
+    (K6's plain version): loss, grad norm, every updated parameter at
+    ``LM_F32_TOL`` and the first moment (the clipped gradient) within
+    ``LM_F32_TOL`` of each tensor's largest value; and on the card a step
+    of 2 microbatches against one step on the whole batch, likewise."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    params = init_lm(cfg, LM_SEED + 1, device="cuda")
+    batch = train_batch(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, LM_SEED + 4)
+    step = make_train_step(cfg, opt_cfg)
+    print(f"[train, f32] {cfg.name} in float32, {TRAIN_CHECK_BATCH} x "
+          f"{TRAIN_CHECK_SEQ} tokens: the card's step vs a CPU copy's; 2 "
+          "microbatches vs the whole batch")
+    reset_counts()
+    card, m_card = step(init_train_state(params, opt_cfg), batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_k6 = k6_points(cfg) * (2 if cfg.remat else 1)
+    check(k6_route_only(counts, K6_F32_ROUTE, n_k6),
+          f"f32 train step launched K6 {counts}, expected {n_k6} times on "
+          f"{K6_F32_ROUTE}")
+    t0 = time.perf_counter()
+    cpu, m_cpu = step(init_train_state(tree_to(params, "cpu"), opt_cfg),
+                      tree_to(batch, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    out = {}
+    for name in ("loss", "grad_norm"):
+        out[name] = close(m_card[name].reshape(1), m_cpu[name].reshape(1),
+                          f"step on the card vs a CPU copy ({cpu_s:.1f} s): "
+                          f"{name}", LM_F32_TOL, LM_F32_TOL)[0]
+    out["params"] = close_tree(card.params, cpu.params, "  updated "
+                               "parameters", LM_F32_TOL)
+    out["mu"] = close_tree(card.opt.mu, cpu.opt.mu, "  first moment",
+                           LM_F32_TOL, scaled=True)
+    del cpu
+    two, m_two = make_train_step(cfg, opt_cfg, n_microbatches=2)(
+        init_train_state(params, opt_cfg), batch)
+    for name in ("loss", "grad_norm"):
+        out[f"micro_{name}"] = close(
+            m_two[name].reshape(1), m_card[name].reshape(1),
+            f"2 microbatches vs the whole batch: {name}", LM_F32_TOL,
+            LM_F32_TOL)[0]
+    out["micro_params"] = close_tree(two.params, card.params, "  updated "
+                                     "parameters", LM_F32_TOL)
+    out["micro_mu"] = close_tree(two.opt.mu, card.opt.mu, "  first moment",
+                                 LM_F32_TOL, scaled=True)
+    out["k6_launches"] = counts["K6"]
+    del params, card, two
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_to(tree: dict, device: str) -> dict:
+    """A copy of a nested dict of tensors (parameters, a batch) on
+    ``device``."""
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def phase_train() -> dict:
+    """[train]: smollm-360m at full width and depth, bfloat16 compute,
+    seeded weights, ``TRAIN_STEPS`` steps of 4 x 2,048 tokens (K6's forward
+    in every layer, and again in the backward's recompute), then one more
+    under the profiler; ``AUDIO_TRAIN_STEPS`` whisper-medium steps of 2 x
+    (1,500 frames + 448 tokens), the full-size backward through
+    bidirectional attention at a ragged S, and one more profiled; K6's
+    backward timed at both models' shapes; then the float32 checks
+    (``train_checks``)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.whisper import init_encdec
+
+    out = {}
+    for arch, init, batch, seq, n_steps in (
+            (LM_ARCH, init_lm, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS),
+            (AUDIO_ARCH, init_encdec, AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ,
+             AUDIO_TRAIN_STEPS)):
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init(cfg, LM_SEED, device="cuda")
+        data = train_batch(cfg, batch, seq, LM_SEED + 3)
+        print(f"[train] {cfg.name}: {n_steps} step(s) of {batch} x "
+              + (f"({cfg.encoder_frames} frames + {seq} tokens)"
+                 if cfg.family == "audio" else f"{seq} tokens")
+              + f", {cfg.dtype} compute, remat {cfg.remat}, AdamW "
+              f"{TRAIN_OPT}")
+        run = train_run(cfg, params, data, n_steps)
+        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del params, data
+        torch.cuda.empty_cache()
+        # K6's backward at this model's attention shapes, a layer's worth
+        if cfg.family == "audio":
+            bwd = (cfg.n_encoder_layers * k6_backward_ms(
+                cfg, batch, cfg.encoder_frames, causal=False)
+                + cfg.n_layers * k6_backward_ms(cfg, batch, seq))
+        else:
+            bwd = cfg.n_layers * k6_backward_ms(cfg, batch, seq)
+        step_ms = min(r["ms"] for r in run["rows"])
+        run.update(k6_backward_ms_per_step=bwd,
+                   k6_backward_share=bwd / step_ms)
+        print(f"  peak memory {run['peak_gib']:.2f} GiB; K6's backward at "
+              f"these shapes, every layer: {bwd:.2f} ms a step "
+              f"({bwd / step_ms:.3f} of the fastest step's {step_ms:.1f} ms)")
+        out[arch] = run
+    out["checks"] = train_checks()
     return out
 
 
@@ -3329,6 +3859,22 @@ def main() -> int:
              if not k.endswith("counts")}))
     k6_families = {r["name"]: r for r in phase_k6_timing(
         [(shape, torch.bfloat16) for shape in K6_FAMILY_SHAPES])}
+    audio = phase_lm_audio()
+    print("[lm serve audio] summary " + json.dumps(
+        {k: v for k, v in audio.items() if not k.endswith("counts")}))
+    k6_audio = {r["route"]: r for r in phase_k6_timing(
+        [(K6_AUDIO_SHAPE, torch.bfloat16), (K6_AUDIO_SHAPE, torch.float32)])}
+    k6_grad = phase_k6_grad()
+    train = phase_train()
+    print(f"[train] summary {json.dumps(train)}")
+    train_k6 = {arch: dict(launches_per_step=[r["k6"] for r in t["rows"]],
+                           ms_per_step=[r["ms"] for r in t["rows"]],
+                           tokens_per_step=t["tokens"],
+                           peak_gib=t["peak_gib"],
+                           k6_backward_ms_per_step=t[
+                               "k6_backward_ms_per_step"],
+                           k6_backward_share=t["k6_backward_share"])
+                for arch, t in train.items() if arch != "checks"}
 
     single, batch8 = after["rows"]
     tc = dict(tensor_core_route=TC_ROUTE,
@@ -3433,6 +3979,7 @@ def main() -> int:
             (K6_F32_ROUTE, "K6 flash attention, float32 (3xTF32 tensor "
              "cores)", f32_counts[f"K6 {K6_F32_ROUTE}"])):
         rows = [r for r in k6 if r["route"] == route]
+        tname = next(t for t, r in K6_ROUTES.items() if r == route)
         kernels.append(dict(
             name=name, route="cuda", source=k6_sources[route],
             replaces="src/repro/kernels/flash_attention/flash_attention.py:98",
@@ -3475,11 +4022,24 @@ def main() -> int:
                         peak_gib=f["peak_gib"], checks=f["checks"],
                         **({} if arch not in k6_families else dict(
                             timing=k6_timing_json(k6_families[arch]))))
-                        for arch, f in families.items()})
+                        for arch, f in families.items()},
+                    whisper_medium=dict(
+                        launches=audio["counts"]["K6 sm90_bf16"],
+                        prefill_ms=audio["prefill_ms"],
+                        decode_ms_per_step=audio["decode_ms"],
+                        peak_gib=audio["peak_gib"],
+                        encoder_timing=k6_timing_json(k6_audio[route])),
+                    train=train_k6)
                if route == "sm90_bf16" else
                dict(lm_f32_logits_max_abs_err=lm_f32_err, gate=k6_gate,
                     tensor_core_route=K6_F32_ROUTE,
-                    headers=tc["headers"]))))
+                    headers=tc["headers"],
+                    whisper_medium=dict(
+                        launches=audio["f32_counts"][f"K6 {K6_F32_ROUTE}"],
+                        checks=audio["checks"],
+                        encoder_timing=k6_timing_json(k6_audio[route])),
+                    train_f32_launches=train["checks"]["k6_launches"])),
+            grad={k: v for k, v in k6_grad.items() if k.endswith(tname)}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """``repro_torch/configs/registry.py`` ↔ ``repro/configs/registry.py``.
 
-Resolves an architecture id to its configuration.  The port runs the dense,
-MoE, SSM, hybrid and vlm families: ``ARCH_IDS`` lists the four dense
-architectures, the two MoE ones, mamba2-130m, zamba2-1.2b and internvl2-1b;
-the audio id the reference knows (whisper-medium) raises
-``NotImplementedError`` naming its ROADMAP item.
+Resolves an architecture id to its configuration.  The port runs every
+family of the reference: ``ARCH_IDS`` lists the four dense architectures, the
+two MoE ones, mamba2-130m, zamba2-1.2b, internvl2-1b and the audio
+encoder-decoder whisper-medium, all ten of the reference's ids;
+``NOT_PORTED`` is empty.
 """
 from __future__ import annotations
 
@@ -22,20 +22,16 @@ _MODULES = {
     "mamba2-130m": "mamba2_130m",
     "zamba2-1.2b": "zamba2_1_2b",
     "internvl2-1b": "internvl2_1b",
+    "whisper-medium": "whisper_medium",
 }
 
 ARCH_IDS = tuple(_MODULES)
 
-# the reference's other architecture: audio
-NOT_PORTED = ("whisper-medium",)
+# the reference's architectures the port does not run: none
+NOT_PORTED = ()
 
 
 def _module(arch_id: str):
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: the port runs the architectures "
-            f"{sorted(_MODULES)}; the audio family is ROADMAP Queue 1 item "
-            "12e")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

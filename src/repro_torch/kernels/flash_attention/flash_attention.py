@@ -30,6 +30,9 @@ Which query rows a tile is applied to may differ from the kernels' (they
 skip tiles per query tile, this version per row range): a tile that is
 wholly masked for a row is a no-op on that row's state (alpha = 1, p = 0),
 so the two walks agree up to the order of sums inside a tile's products.
+The walk updates its state in place, so it is not differentiated by
+autograd: a gradient goes through ``ops.flash_attention``, whose backward is
+:func:`flash_attention_backward`.
 """
 from __future__ import annotations
 
@@ -37,16 +40,41 @@ import math
 
 import torch
 
-__all__ = ["KV_TILE", "LOG2E", "NEG_BIG", "flash_attention_plain"]
+__all__ = ["BACKWARD_CHUNK", "KV_TILE", "LOG2E", "NEG_BIG",
+           "flash_attention_backward", "flash_attention_plain"]
 
 NEG_BIG = -1e30  # masked logits, as in the reference kernel
 LOG2E = math.log2(math.e)
 KV_TILE = 64     # the kernels' key tile, one wgmma N, at every width and type
+# the backward's float32 score blocks hold at most this many elements each
+BACKWARD_CHUNK = 1 << 26
+
+
+def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(S, S) boolean: key j is visible to query i."""
+    qi = torch.arange(s, device=device)[:, None]
+    kj = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window > 0:
+        mask &= (qi - kj) < window
+    return mask
+
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True,
                           window: int = 0) -> torch.Tensor:
-    """``q`` (B, Hq, S, D), ``k``/``v`` (B, Hkv, S, D) -> (B, Hq, S, D)."""
+    """``q`` (B, Hq, S, D), ``k``/``v`` (B, Hkv, S, D) -> (B, Hq, S, D).
+
+    Raises ``RuntimeError`` when grad mode is on and an input requires a
+    gradient: the walk's in-place updates cannot be differentiated.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_plain updates its state in place and cannot be "
+            "differentiated; call ops.flash_attention, whose backward is "
+            "flash_attention_backward")
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -88,3 +116,48 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m[..., lo:hi] = m_new
     out = acc / tot.clamp_min(1e-38)[..., None]
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True, window: int = 0):
+    """``(dq, dk, dv)`` of attention at ``q``, ``k``, ``v`` for the output's
+    cotangent ``dout`` (B, Hq, S, D), each in its input's dtype.
+
+    Not a port of a Pallas kernel: the reference has no Pallas backward (its
+    models differentiate a masked einsum with ``jax.value_and_grad``), so
+    this is plain torch, as the reference's backward is XLA ops.  It
+    recomputes the scores densely in float32 (float64 for float64 inputs)
+    under the forward's masks (causal, window; the dense form has no keys at
+    or past S), ``p = softmax(q k^T D^-0.5)``, then ``dv = p^T dout``,
+    ``ds = p * (dp - rowsum(p * dp))`` with ``dp = dout v^T``,
+    ``dq = ds k D^-0.5`` and ``dk = ds^T q D^-0.5``; a GQA group's query
+    heads are summed onto their key/value head.  The rowsum is taken over
+    ``p * dp``, not ``dout * out``, so the gradient does not carry the
+    forward's bfloat16 rounding.  Key/value heads are taken in chunks whose
+    score blocks hold at most ``BACKWARD_CHUNK`` elements.
+    """
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    work = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = float(d) ** -0.5
+    hidden = ~_mask(s, causal, window, q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    step = max(1, BACKWARD_CHUNK // (b * g * s * s))
+    for h0 in range(0, hkv, step):
+        h1 = min(h0 + step, hkv)
+        qc = q[:, h0 * g:h1 * g].to(work).reshape(b, h1 - h0, g, s, d)
+        doc = dout[:, h0 * g:h1 * g].to(work).reshape(b, h1 - h0, g, s, d)
+        kc = k[:, h0:h1, None].to(work)
+        vc = v[:, h0:h1, None].to(work)
+        p = torch.softmax((qc @ kc.transpose(-1, -2)).mul_(scale)
+                          .masked_fill_(hidden, float("-inf")), dim=-1)
+        dv[:, h0:h1] = (p.transpose(-1, -2) @ doc).sum(2)
+        ds = doc @ vc.transpose(-1, -2)
+        ds.sub_((p * ds).sum(-1, keepdim=True)).mul_(p)
+        del p
+        dq[:, h0 * g:h1 * g] = (ds @ kc).mul_(scale).reshape(
+            b, (h1 - h0) * g, s, d)
+        dk[:, h0:h1] = (ds.transpose(-1, -2) @ qc).sum(2).mul_(scale)
+    return dq, dk, dv

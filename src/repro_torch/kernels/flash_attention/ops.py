@@ -18,7 +18,14 @@ On CUDA tensors it launches one of them, counting the launch in
 ``flash_attention.launches`` and in ``flash_attention.launches_by_route``, or
 raises; it never falls back.  On CPU tensors it runs the plain version
 ``flash_attention.flash_attention_plain``, which walks the kernels' tiles and
-recurrence.  Both kernels take head widths 64, 128 and 256, those of the
+recurrence.
+
+The call is a ``torch.autograd.Function``: its forward is the kernel (or
+the plain version) run untaped, saving q, k and v; its backward is
+``flash_attention.flash_attention_backward``, float32 torch ops that
+recompute the scores (the reference has no Pallas backward kernel).  Only
+the forward counts a launch; a recompute under activation checkpointing
+runs, and counts, the forward again.  Both kernels take head widths 64, 128 and 256, those of the
 ported dense configurations, with q, k and v of one type.  The reference's
 ``block_q``/``block_k`` arguments are TPU tile sizes and are not taken: the
 kernels' tiles are fixed (``KV_TILE``).
@@ -33,7 +40,7 @@ import torch
 from repro_torch.kernels._build import (check_operand, launch, load_library,
                                         on_card)
 from repro_torch.kernels.flash_attention.flash_attention import (
-    KV_TILE, LOG2E, flash_attention_plain)
+    KV_TILE, LOG2E, flash_attention_backward, flash_attention_plain)
 
 __all__ = ["HEAD_DIMS", "SM90_SOURCE", "TF32X3_SOURCE", "flash_attention",
            "sm90_library", "tf32x3_library"]
@@ -73,15 +80,37 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if not on_card("flash_attention", q):
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, dout, ctx.causal,
+                                          ctx.window), None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """``q`` (B, Hq, S, D), ``k``/``v`` (B, Hkv, S, D) -> (B, Hq, S, D).
 
     Query head ``h`` attends with key/value head ``h // (Hq // Hkv)``;
-    ``window`` > 0 keeps keys with ``i - j < window``.
+    ``window`` > 0 keeps keys with ``i - j < window``.  Differentiable in q,
+    k and v.
     """
-    if not on_card("flash_attention", q):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _Attention.apply(q, k, v, bool(causal), int(window))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """One launch of K6's kernel for the operands' type, counted."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     if d not in HEAD_DIMS:

@@ -9,8 +9,11 @@ Self-attention (``kv_x is None``) runs its masked softmax through K6,
 inside the kernel (no repeated K/V), and a window at least as long as the
 sequence (``HUGE_WINDOW`` included) is passed as no window.  K6 applies the
 masks of the reference's ``_mask`` itself, so that helper has no
-counterpart here.  Cross-attention (``kv_x``) and the one-token decode keep
-the reference's einsum form in plain torch.
+counterpart here; K6 is differentiable (its backward recomputes the scores
+in float32 torch ops).  Cross-attention (``kv_x``: ``cross_kv`` projects the
+source, ``cross_attend`` attends over given K/V, as whisper's decoder does
+over its cached encoder K/V) and the one-token decode keep the reference's
+einsum form in plain torch.
 """
 from __future__ import annotations
 
@@ -22,8 +25,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import dense_init, rope
 
-__all__ = ["KVCache", "attn_apply", "attn_decode", "attn_init", "init_cache",
-           "self_attention"]
+__all__ = ["KVCache", "attn_apply", "attn_decode", "attn_init", "cross_attend",
+           "cross_kv", "init_cache", "self_attention"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +91,31 @@ def self_attention(params: dict, x: torch.Tensor, cfg,
     return o @ params["w_o"].to(dt), k, v
 
 
+def cross_kv(params: dict, kv_x: torch.Tensor, cfg):
+    """Cross-attention's K and V of the source ``kv_x`` (B, T, D_model), each
+    ``(B, T, Hkv, D)``, no RoPE."""
+    dt = kv_x.dtype
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    return (_split_heads(kv_x @ params["w_k"].to(dt), hkv, hd),
+            _split_heads(kv_x @ params["w_v"].to(dt), hkv, hd))
+
+
+def cross_attend(params: dict, x: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, cfg) -> torch.Tensor:
+    """``x`` (B, S, D_model) attending, unmasked, over ``k``/``v`` (B, T,
+    Hkv, D) -> (B, S, D_model): the einsum of the reference's cross-attention
+    (softmax in float32, probabilities in the compute dtype)."""
+    dt = x.dtype
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = _split_heads(x @ params["w_q"].to(dt), hq, hd)
+    k, v = _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
+    p = torch.softmax(logits.to(torch.float32), dim=-1).to(dt)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(
+        x.shape[0], x.shape[1], hq * hd)
+    return o @ params["w_o"].to(dt)
+
+
 def attn_apply(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                causal: bool = True, window: Optional[int] = None,
                kv_x: Optional[torch.Tensor] = None,
@@ -96,18 +124,7 @@ def attn_apply(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     if kv_x is None:
         return self_attention(params, x, cfg, positions, causal, window,
                               use_rope)[0]
-    dt = x.dtype
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = _split_heads(x @ params["w_q"].to(dt), hq, hd)
-    k = _repeat_kv(_split_heads(kv_x @ params["w_k"].to(dt), hkv, hd),
-                   hq // hkv)
-    v = _repeat_kv(_split_heads(kv_x @ params["w_v"].to(dt), hkv, hd),
-                   hq // hkv)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
-    p = torch.softmax(logits.to(torch.float32), dim=-1).to(dt)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(
-        x.shape[0], x.shape[1], hq * hd)
-    return o @ params["w_o"].to(dt)
+    return cross_attend(params, x, *cross_kv(params, kv_x, cfg), cfg)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, *, device) -> KVCache:

@@ -5,9 +5,12 @@ carried across.
 as numpy arrays (layers stacked on axis 0, as its ``jax.vmap`` init leaves
 them; an MoE layer's ``router``, its experts' ``w_gate``/``w_up``/``w_down``
 as ``(L, E, ., .)`` and its ``shared`` experts; an SSM or hybrid layer's
-``ln`` and ``ssm``; a hybrid's unstacked ``shared_attn``) and returns the
-port's parameters, so that both packages compute with the same weights.
-Every key and shape is checked against ``lm_param_shapes``.
+``ln`` and ``ssm``; a hybrid's unstacked ``shared_attn``), or the tree of
+the reference's ``init_encdec`` for the audio family (``enc_pos``,
+``enc_final_ln``, the stacked ``enc_layers``, the decoder layers' ``ln_x``
+and ``xattn``), and returns the port's parameters, so that both packages
+compute with the same weights.  Every key and shape is checked against
+``lm_param_shapes`` or ``whisper.encdec_param_shapes``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.models.transformer import lm_param_shapes
+from repro_torch.models.whisper import encdec_param_shapes
 
 __all__ = ["lm_params_from_numpy"]
 
@@ -40,4 +44,6 @@ def lm_params_from_numpy(params: dict, cfg, *, device) -> dict:
             out[key] = torch.as_tensor(a, device=dev)
         return out
 
-    return convert(params, lm_param_shapes(cfg), "")
+    shapes = (encdec_param_shapes(cfg) if cfg.family == "audio" else
+              lm_param_shapes(cfg))
+    return convert(params, shapes, "")

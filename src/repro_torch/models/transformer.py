@@ -1,22 +1,26 @@
 """``repro_torch/models/transformer.py`` ↔ ``repro/models/transformer.py``.
 
-The decoder-only LM for the dense, MoE, SSM, hybrid and vlm families.
-Parameters are a dict of float32 tensors in the reference's ``init_lm``
-layout, the layers stacked on axis 0 (``params["layers"]["attn"]["w_q"]`` is
-``(L, d_model, Hq * D)``, an MoE layer's ``params["layers"]["moe"]
-["w_gate"]`` ``(L, E, d_model, d_ff)``, an SSM layer's ``params["layers"]
-["ssm"]["in_proj"]`` ``(L, d_model, 2 Di + 2 G N + H)``; a hybrid's one
-shared attention block ``params["shared_attn"]``, unstacked); the layer loop
-is a Python loop over that axis.  Per-layer windows and the hybrid's
-attention points (``attn_flags``) are Python ints.  A vlm's ``patches``
-(B, P, D) are prepended to the token embeddings.  The reference's
-``shard_act`` / ``shard_attn_logits`` are the identity without a device
-mesh and are dropped (LM sharding is ROADMAP Queue 1 item 12g).  The audio
-family raises ``NotImplementedError`` (item 12e).
+The decoder-only LM for the dense, MoE, SSM, hybrid and vlm families (the
+audio family's encoder-decoder is ``models/whisper.py``, which shares this
+module's helpers).  Parameters are a dict of float32 tensors in the
+reference's ``init_lm`` layout, the layers stacked on axis 0
+(``params["layers"]["attn"]["w_q"]`` is ``(L, d_model, Hq * D)``, an MoE
+layer's ``params["layers"]["moe"]["w_gate"]`` ``(L, E, d_model, d_ff)``, an
+SSM layer's ``params["layers"]["ssm"]["in_proj"]`` ``(L, d_model, 2 Di + 2 G
+N + H)``; a hybrid's one shared attention block ``params["shared_attn"]``,
+unstacked); the layer loop is a Python loop over that axis.  Per-layer
+windows and the hybrid's attention points (``attn_flags``) are Python ints.
+A vlm's ``patches`` (B, P, D) are prepended to the token embeddings.  The
+reference's ``shard_act`` / ``shard_attn_logits`` are the identity without a
+device mesh and are dropped (LM sharding is ROADMAP Queue 1 item 12g).
+``cfg.remat`` (the reference's ``jax.checkpoint`` around each layer body)
+is ``torch.utils.checkpoint`` around each layer in a forward that takes a
+gradient (``remat_call``); it recomputes and changes no value.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models.attention import (attn_apply, attn_init,
@@ -27,25 +31,53 @@ from repro_torch.models.moe import moe_apply, moe_init, moe_param_shapes
 from repro_torch.models.ssm import ssm_apply, ssm_init, ssm_param_shapes
 
 __all__ = ["HUGE_WINDOW", "attn_flags", "embed_inputs", "ffn_apply",
-           "init_lm", "layer_params", "layer_windows", "lm_forward",
-           "lm_param_shapes", "require_ported", "shared_block",
-           "shared_window", "unembedding"]
+           "init_lm", "layer_params", "layer_windows", "leaves",
+           "lm_forward", "lm_param_shapes", "remat_call",
+           "require_decoder_only", "require_ported", "shared_block",
+           "shared_window", "stacked_layers", "unembedding",
+           "unstack_layers"]
 
 HUGE_WINDOW = 1 << 30  # "no window": (qi - kj) < 2^30 is always true
 
-_PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")
-# the reference's families the port does not run yet, by ROADMAP item
-_NOT_PORTED = {"audio": "12e"}
+# every family of the reference; audio runs through models/whisper.py
+_PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def require_ported(cfg) -> None:
     """Raise for a configuration outside the ported families."""
     if cfg.family not in _PORTED:
-        item = _NOT_PORTED.get(cfg.family, "12")
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            f"port runs the {', '.join(_PORTED)} LMs (this family is ROADMAP "
-            f"Queue 1 item {item})")
+            f"{cfg.name}: the {cfg.family!r} family is not ported; the port "
+            f"runs the {', '.join(_PORTED)} families (ROADMAP Queue 1 lists "
+            "what is left to port)")
+
+
+def require_decoder_only(cfg) -> None:
+    """Raise for a configuration this module's LM does not run: one outside
+    the ported families, or the audio encoder-decoder."""
+    require_ported(cfg)
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its entry points are "
+            "models.whisper's init_encdec and encdec_forward")
+
+
+def leaves(tree: dict):
+    """The tensors of a nested parameter dict, depth first."""
+    for v in tree.values():
+        yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+
+def remat_call(cfg, params: dict):
+    """How a forward calls its layer bodies: ``fn(*args)`` under
+    ``torch.utils.checkpoint`` (non-reentrant; the reference's
+    ``jax.checkpoint``) when ``cfg.remat`` is set and a gradient of
+    ``params`` is being taken, else directly.  So serving, which takes no
+    gradient, runs each layer once."""
+    if cfg.remat and torch.is_grad_enabled() and any(
+            t.requires_grad for t in leaves(params)):
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+    return lambda fn, *args: fn(*args)
 
 
 def _is_ssm(cfg) -> bool:
@@ -55,7 +87,7 @@ def _is_ssm(cfg) -> bool:
 def lm_param_shapes(cfg) -> dict:
     """The shape of every parameter, in the layout of ``init_lm`` (what
     ``models.convert`` checks the reference's parameters against)."""
-    require_ported(cfg)
+    require_decoder_only(cfg)
     n, d, vp = cfg.n_layers, cfg.d_model, cfg.padded_vocab
     hd, hq, hkv, f = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
 
@@ -98,14 +130,14 @@ def _layer_init(generator: torch.Generator, cfg, device) -> dict:
     return p
 
 
-def _stacked_layers(generator: torch.Generator, cfg, device) -> dict:
-    """Every layer's parameters, stacked on axis 0.  The stacked tensors are
-    allocated first and filled layer by layer, so that the parameters are
-    held once, plus one layer's, never twice."""
+def stacked_layers(init_one, n_layers: int) -> dict:
+    """``n_layers`` draws of ``init_one()``, stacked on axis 0.  The stacked
+    tensors are allocated first and filled layer by layer, so that the
+    parameters are held once, plus one layer's, never twice."""
     def empty(tree):
         return {k: empty(v) if isinstance(v, dict) else
-                torch.empty((cfg.n_layers, *v.shape), dtype=v.dtype,
-                            device=device) for k, v in tree.items()}
+                torch.empty((n_layers, *v.shape), dtype=v.dtype,
+                            device=v.device) for k, v in tree.items()}
 
     def fill(dst, src, i):
         for k, v in src.items():
@@ -114,12 +146,12 @@ def _stacked_layers(generator: torch.Generator, cfg, device) -> dict:
             else:
                 dst[k][i].copy_(v)
 
-    first = _layer_init(generator, cfg, device)
+    first = init_one()
     layers = empty(first)
     fill(layers, first, 0)
     del first
-    for i in range(1, cfg.n_layers):
-        fill(layers, _layer_init(generator, cfg, device), i)
+    for i in range(1, n_layers):
+        fill(layers, init_one(), i)
     return layers
 
 
@@ -128,7 +160,7 @@ def init_lm(cfg, seed: int = 0, *, device=None) -> dict:
     the reference's distributions (normal embeddings scaled by
     ``d_model ** -0.5``, truncated-normal fan-in matrices, zero norm gains),
     not its numbers."""
-    require_ported(cfg)
+    require_decoder_only(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     vp, d = cfg.padded_vocab, cfg.d_model
@@ -136,7 +168,8 @@ def init_lm(cfg, seed: int = 0, *, device=None) -> dict:
         "embed": torch.randn((vp, d), generator=gen, device=dev)
         .mul_(d ** -0.5),
         "final_ln": torch.zeros(d, device=dev),
-        "layers": _stacked_layers(gen, cfg, dev),
+        "layers": stacked_layers(lambda: _layer_init(gen, cfg, dev),
+                                 cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, d, vp, device=dev)
@@ -154,6 +187,17 @@ def layer_params(layers: dict, i: int) -> dict:
     """Layer ``i``'s parameters: every stacked tensor indexed on axis 0."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
+
+
+def unstack_layers(layers: dict, n_layers: int) -> list:
+    """Every layer's parameters, each stacked tensor unbound on axis 0 once.
+    A forward that takes a gradient walks these: the gradient of a stacked
+    tensor is then one stack of its layers' gradients, where indexing it per
+    layer (``layer_params``) would add a full-size zero-filled gradient per
+    layer."""
+    split = {k: unstack_layers(v, n_layers) if isinstance(v, dict)
+             else v.unbind(0) for k, v in layers.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n_layers)]
 
 
 def layer_windows(cfg) -> list:
@@ -217,32 +261,38 @@ def ffn_apply(lp: dict, h: torch.Tensor, cfg, dt):
     return mlp_apply(lp["mlp"], h, dt), None
 
 
+def _layer(params: dict, lp: dict, x: torch.Tensor, positions, cfg, dt,
+           window: int, flag: int):
+    """One layer of ``lm_forward``: ``(x, its MoE aux loss or None)``."""
+    if _is_ssm(cfg):
+        x = x + ssm_apply(lp["ssm"], rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                          dt)
+        if cfg.family == "hybrid" and flag:
+            x = shared_block(params["shared_attn"], x, cfg, positions)[0]
+        return x, None
+    x = x + attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                       positions, window=window)
+    m, aux = ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, dt)
+    return x + m, aux
+
+
 def lm_forward(params: dict, tokens: torch.Tensor, cfg, patches=None):
     """Full-sequence forward; returns ``(logits (B, S, Vp), aux_loss)``,
     ``aux_loss`` the MoE layers' load-balance losses summed (0 otherwise).
     ``patches`` (B, P, D): a vlm's patch embeddings, prepended (S counts
-    them)."""
-    require_ported(cfg)
+    them).  Differentiable in ``params``; with ``cfg.remat`` a gradient's
+    forward checkpoints each layer (``remat_call``)."""
+    require_decoder_only(cfg)
     dt = Dtypes.compute(cfg)
     x = embed_inputs(params, tokens, cfg, patches)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    flags = attn_flags(cfg)
-    for i, w in enumerate(layer_windows(cfg)):
-        lp = layer_params(params["layers"], i)
-        if _is_ssm(cfg):
-            x = x + ssm_apply(lp["ssm"], rms_norm(x, lp["ln"], cfg.norm_eps),
-                              cfg, dt)
-            if cfg.family == "hybrid" and flags[i]:
-                x = shared_block(params["shared_attn"], x, cfg, positions)[0]
-            continue
-        x = x + attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-                           cfg, positions, window=w)
-        m, aux_l = ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
-                             dt)
+    run = remat_call(cfg, params)
+    for lp, w, flag in zip(unstack_layers(params["layers"], cfg.n_layers),
+                           layer_windows(cfg), attn_flags(cfg)):
+        x, aux_l = run(_layer, params, lp, x, positions, cfg, dt, w, flag)
         if aux_l is not None:
             aux = aux + aux_l
-        x = x + m
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return x @ unembedding(params, cfg, dt), aux

@@ -1,6 +1,7 @@
 """``repro_torch/serving/decode.py`` ↔ ``repro/serving/decode.py``.
 
-Serving for the families the port runs (dense, MoE, SSM, hybrid, vlm):
+Serving for every family the port runs (dense, MoE, SSM, hybrid, vlm,
+audio):
 ``prefill`` runs the context through the model and builds the caches,
 ``decode_step`` extends them by one token.  An MoE layer routes the tokens
 of each call among themselves: at decode that is the batch's B tokens, so
@@ -15,19 +16,26 @@ Cache layouts (stacked over layers):
   hybrid        : ``SSMCache`` ``(L, ...)`` and a ``KVCache`` over the shared
                   attention block's applications; a ring if the model has a
                   window.
+  audio         : the decoder's self-attention ``KVCache`` ``(L, ...)``
+                  (linear, ``DECODE_SLACK`` free slots) and the
+                  cross-attention K/V of the encoder's output,
+                  ``cross_k``/``cross_v`` ``(L, B, T_enc, Hkv, D)``.
 
 A vlm's ``patches`` (B, P, D) precede the prompt, so its decode starts at
-position P + S.  ``prefill`` computes each attention's K/V once and takes
-them from its self-attention, and each SSM layer's conv cache from its own
-``in_proj`` product (the reference computes both a second time, to the same
-values).  Attention in ``prefill`` goes through K6; ``decode_step`` runs the
-reference's one-query attention and the SSM recurrence in plain torch.
+position P + S; an audio model's ``frames`` (B, T_enc, D) go through the
+encoder.  ``prefill`` computes each attention's K/V once and takes them from
+its self-attention, each cross-attention's from one projection of the
+encoder's output, and each SSM layer's conv cache from its own ``in_proj``
+product (the reference computes all three a second time, to the same
+values).  Self-attention in ``prefill`` (the encoder's too) goes through K6;
+``decode_step`` runs the reference's one-query attention, cross-attention
+against the cached K/V and the SSM recurrence in plain torch.
 
 A ring keeps ``min(S, window)`` slots, as the reference's does: when the
 prompt is shorter than the window, the first decoded token takes slot
 ``S % S = 0`` and evicts token 0, though the window still covers it.  The
 port keeps that behaviour so that it stays held to the reference (ROADMAP
-Queue 3).  The audio cache (ROADMAP Queue 1 item 12e) is not ported yet.
+Queue 3).
 
 Deprecated as a serving entry point, as in the reference: the
 label-propagation names it re-exports (``PropagateEngine``,
@@ -43,7 +51,8 @@ from typing import Optional
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.models.attention import (KVCache, attn_decode, init_cache,
+from repro_torch.models.attention import (KVCache, attn_decode,
+                                          cross_attend, cross_kv, init_cache,
                                           self_attention)
 from repro_torch.models.layers import Dtypes, mlp_apply, rms_norm
 from repro_torch.models.ssm import (SSMCache, init_ssm_cache, ssm_apply,
@@ -53,6 +62,7 @@ from repro_torch.models.transformer import (attn_flags, embed_inputs,
                                             layer_windows, require_ported,
                                             shared_block, shared_window,
                                             unembedding)
+from repro_torch.models.whisper import encoder_forward
 # Label-propagation requests ride the same serving layer: propagate_many
 # pads/buckets variable-width label matrices into batched VDT dispatches,
 # and PropagateEngine serves a live queue of them with continuous batching.
@@ -103,6 +113,8 @@ class DecodeState:
     kv: Optional[KVCache] = None          # stacked over layers
     ssm: Optional[SSMCache] = None        # stacked over layers
     shared_kv: Optional[KVCache] = None   # hybrid: stacked over attn points
+    cross_k: Optional[torch.Tensor] = None  # audio: (L, B, T_enc, Hkv, D)
+    cross_v: Optional[torch.Tensor] = None
 
 
 def _is_ring(cfg) -> bool:
@@ -134,10 +146,18 @@ def _index(cache, i: int):
 def init_state(cfg, batch: int, max_len: int, *, device=None) -> DecodeState:
     """An empty cache of ``max_len`` slots per attention layer (for a
     hybrid, per shared attention point), an empty SSM state per SSM
-    layer."""
+    layer, and for an audio model empty cross-attention K/V."""
     require_ported(cfg)
     dev = resolve_device(device)
     dt = Dtypes.compute(cfg)
+    if cfg.family == "audio":
+        shape = (cfg.n_layers, batch, cfg.encoder_frames, cfg.n_kv_heads,
+                 cfg.head_dim_)
+        return DecodeState(
+            kv=_repeat(init_cache(cfg, batch, max_len, dt, device=dev),
+                       cfg.n_layers),
+            cross_k=torch.zeros(shape, dtype=dt, device=dev),
+            cross_v=torch.zeros(shape, dtype=dt, device=dev))
     if cfg.family in ("ssm", "hybrid"):
         ssm = _repeat(init_ssm_cache(cfg, batch, dt, device=dev),
                       cfg.n_layers)
@@ -150,14 +170,18 @@ def init_state(cfg, batch: int, max_len: int, *, device=None) -> DecodeState:
         init_cache(cfg, batch, max_len, dt, device=dev), cfg.n_layers))
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg, patches=None):
+def prefill(params: dict, tokens: torch.Tensor, cfg, patches=None,
+            frames=None):
     """Run the context ``tokens`` (B, S) through the model, building the
-    caches; a vlm's ``patches`` (B, P, D) precede the tokens.
+    caches; a vlm's ``patches`` (B, P, D) precede the tokens; an audio
+    model's ``frames`` (B, T_enc, D) are its encoder's input.
 
     Returns ``(last-position logits (B, Vp), DecodeState)``.
     """
     require_ported(cfg)
     dt = Dtypes.compute(cfg)
+    if cfg.family == "audio":
+        return _prefill_audio(params, tokens, frames, cfg, dt)
     x = embed_inputs(params, tokens, cfg, patches)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -214,6 +238,36 @@ def _prefill_ssm(params: dict, x: torch.Tensor, pos: torch.Tensor, cfg, dt):
     return _logits(params, x, cfg, dt), state
 
 
+def _prefill_audio(params: dict, tokens, frames, cfg, dt):
+    enc = encoder_forward(params, frames, cfg)
+    x = embed_inputs(params, tokens, cfg)
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    ks, vs, cks, cvs = [], [], [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        a, k, v = self_attention(lp["attn"],
+                                 rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                                 pos)
+        x = x + a
+        ck, cv = cross_kv(lp["xattn"], enc, cfg)
+        x = x + cross_attend(lp["xattn"],
+                             rms_norm(x, lp["ln_x"], cfg.norm_eps), ck, cv,
+                             cfg)
+        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), dt)
+        ks.append(k)
+        vs.append(v)
+        cks.append(ck)
+        cvs.append(cv)
+    ks, vs = _finalize_kv(torch.stack(ks), torch.stack(vs), s, False, None)
+    state = DecodeState(
+        kv=KVCache(k=ks, v=vs, pos=torch.full((cfg.n_layers,), s,
+                                              dtype=torch.int32,
+                                              device=x.device)),
+        cross_k=torch.stack(cks), cross_v=torch.stack(cvs))
+    return _logits(params, x, cfg, dt), state
+
+
 def decode_step(params: dict, token: torch.Tensor, state: DecodeState, cfg):
     """``token`` (B, 1) -> ``(logits (B, Vp), new DecodeState)``."""
     require_ported(cfg)
@@ -221,6 +275,8 @@ def decode_step(params: dict, token: torch.Tensor, state: DecodeState, cfg):
     x = embed_inputs(params, token, cfg)                  # (B, 1, D)
     if cfg.family in ("ssm", "hybrid"):
         x, new_state = _decode_ssm(params, x, state, cfg, dt)
+    elif cfg.family == "audio":
+        x, new_state = _decode_audio(params, x, state, cfg, dt)
     else:
         x, new_state = _decode_attn(params, x, state, cfg, dt)
     return _logits(params, x, cfg, dt), new_state
@@ -238,6 +294,24 @@ def _decode_attn(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):
                           dt)[0]
         caches.append(cache)
     return x, DecodeState(kv=_stack(caches))
+
+
+def _decode_audio(params: dict, x: torch.Tensor, state: DecodeState, cfg,
+                  dt):
+    caches = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        a, cache = attn_decode(lp["attn"],
+                               rms_norm(x, lp["ln1"], cfg.norm_eps),
+                               _index(state.kv, i), cfg)
+        x = x + a
+        x = x + cross_attend(lp["xattn"],
+                             rms_norm(x, lp["ln_x"], cfg.norm_eps),
+                             state.cross_k[i], state.cross_v[i], cfg)
+        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), dt)
+        caches.append(cache)
+    return x, DecodeState(kv=_stack(caches), cross_k=state.cross_k,
+                          cross_v=state.cross_v)
 
 
 def _decode_ssm(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):

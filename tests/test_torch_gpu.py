@@ -941,3 +941,132 @@ def test_cuda_ssm_hybrid_and_vlm_serve_like_a_cpu_copy(arch, k6_launches):
         k6_launches
     assert sum(after.values()) - sum(before.values()) == k6_launches
     assert bool(torch.isfinite(logits.float()).all())
+
+
+# ------------------------------- K6's gradient, the audio family, training
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (2, 15, 5, 130, 64, True, 0), (1, 4, 1, 200, 128, True, 48),
+    (2, 4, 4, 100, 256, False, 0), (1, 6, 2, 1_500, 64, False, 0)])
+def test_cuda_k6_gradient_matches_autograd_reference(b, hq, hkv, s, d, causal,
+                                                     window, dtype):
+    """dq, dk, dv through K6's autograd route (the kernel's forward, one
+    counted launch; the float32 torch backward, none) against autograd
+    through ``ref.py``'s dense float32 softmax: ``2e-4`` in float32,
+    ``1e-2`` in bfloat16 (the gradients' own rounding)."""
+    _card()
+    tol = 2e-4 if dtype == torch.float32 else 1e-2
+    g = torch.Generator().manual_seed(s + d)
+    q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
+               .requires_grad_() for h in (hq, hkv, hkv))
+    dout = torch.randn(b, hq, s, d, generator=g).to("cuda", dtype)
+    before = flash_attention.launches
+    got = torch.autograd.grad(flash_attention(q, k, v, causal, window),
+                              (q, k, v), dout)
+    assert flash_attention.launches == before + 1
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*ref_in, causal, window),
+                               ref_in, dout.float())
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k6_bidirectional_at_the_whisper_encoder_shape(dtype):
+    """whisper-medium's encoder attention (16/16 heads of 64, S = 1,500, not
+    a multiple of the 64-key tile, ``causal=False``) against K6's plain
+    version."""
+    _card()
+    g = torch.Generator().manual_seed(15)
+    q, k, v = (torch.randn(2, 16, 1_500, 64, generator=g).to("cuda", dtype)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        _assert_k6_bf16_matches_plain(got, want)
+
+
+def _small(arch):
+    from repro_torch.configs.registry import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                               d_model=128, n_heads=2, n_kv_heads=2,
+                               d_ff=256)
+
+
+@pytest.mark.gpu
+def test_cuda_whisper_serves_like_a_cpu_copy():
+    """whisper at d_model 128 (heads of 64, 100 frames): ``encdec_forward``,
+    prefill and three decode steps in float32 on the card against the same
+    parameters on the CPU at 2e-3; K6 launched at every encoder and decoder
+    layer of a prefill on its float32 route."""
+    _card()
+    from repro_torch.models import whisper
+    from repro_torch.serving import decode
+
+    cfg = dataclasses.replace(_small("whisper-medium"), encoder_frames=100)
+    host = whisper.init_encdec(cfg, 6, device="cpu")
+    card = _to(host, "cuda")
+    rng = np.random.RandomState(6)
+    tokens = rng.randint(0, cfg.vocab_size, (2, 23))
+    frames = torch.as_tensor(rng.randn(2, 100, 128).astype(np.float32))
+    results = []
+    for params, dev in ((card, "cuda"), (host, "cpu")):
+        full, _ = whisper.encdec_forward(params, tokens, frames.to(dev), cfg)
+        before = dict(flash_attention.launches_by_route)
+        logits, state = decode.prefill(params, tokens[:, :20], cfg,
+                                       frames=frames.to(dev))
+        after = flash_attention.launches_by_route
+        if dev == "cuda":
+            n = cfg.n_layers + cfg.n_encoder_layers
+            assert after["sm90_tf32x3"] - before["sm90_tf32x3"] == n
+            assert sum(after.values()) - sum(before.values()) == n
+        steps = [logits]
+        for t in range(20, 23):
+            logits, state = decode.decode_step(params, tokens[:, t:t + 1],
+                                               state, cfg)
+            steps.append(logits)
+        results.append((full.cpu(), torch.stack(steps).cpu()))
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-360m", "whisper-medium"])
+def test_cuda_train_step_matches_a_cpu_copy(arch):
+    """One ``make_train_step`` step in float32 on the card (K6's float32
+    route forward, its torch backward) against the same step on a CPU copy:
+    loss, grad norm and every updated parameter at 2e-3."""
+    _card()
+    from repro_torch.models import transformer, whisper
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    cfg = _small(arch)
+    if arch == "whisper-medium":
+        cfg = dataclasses.replace(cfg, encoder_frames=100)
+        host = whisper.init_encdec(cfg, 7, device="cpu")
+    else:
+        host = transformer.init_lm(cfg, 7, device="cpu")
+    rng = np.random.RandomState(7)
+    batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                                   (2, 41)))}
+    if arch == "whisper-medium":
+        batch["frames"] = torch.as_tensor(
+            rng.randn(2, 100, 128).astype(np.float32))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt)
+    got, m_got = step(init_train_state(_to(host, "cuda"), opt),
+                      _to(batch, "cuda"))
+    want, m_want = step(init_train_state(host, opt), batch)
+    for name in ("loss", "grad_norm"):
+        torch.testing.assert_close(m_got[name].cpu(), m_want[name],
+                                   rtol=2e-3, atol=2e-3)
+    for a, b in zip(transformer.leaves(got.params),
+                    transformer.leaves(want.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=2e-3)

@@ -151,20 +151,17 @@ def test_streaming_is_not_ported_yet(small_fitted_vdt):
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-130m",
                                   "whisper-medium"])
 def test_non_dense_architectures_name_their_roadmap_item(arch):
-    """The MoE (ROADMAP Queue 1 item 12b) and SSM (12c) families resolve;
-    audio (12e) still names its item."""
+    """The MoE (ROADMAP Queue 1 item 12b), SSM (12c) and audio (12e)
+    families resolve to their configurations; nothing is left unported."""
     from repro_torch.configs.registry import (ARCH_IDS, NOT_PORTED,
                                               get_config, get_smoke_config)
 
-    assert sorted(NOT_PORTED) == ["whisper-medium"]
-    family = {"mixtral-8x7b": "moe", "mamba2-130m": "ssm"}
+    assert NOT_PORTED == ()
+    family = {"mixtral-8x7b": "moe", "mamba2-130m": "ssm",
+              "whisper-medium": "audio"}
+    assert arch in ARCH_IDS
     for get in (get_config, get_smoke_config):
-        if arch in ARCH_IDS:
-            assert get(arch).family == family[arch]
-            continue
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 12e"):
-            get(arch)
+        assert get(arch).family == family[arch]
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
 
