@@ -213,7 +213,27 @@ Phases (any failure exits non-zero):
    (1,500 frames + 448 tokens) (96 launches each; the first cold), and one
    more profiled; K6's backward timed at both models' shapes; then smollm-360m in float32 at 2 x 256 tokens: the step on the
    card against the same step on a CPU copy, and 2 microbatches against
-   the whole batch, loss, grad norm and updated parameters at ``2e-3``.
+   the whole batch, loss, grad norm and updated parameters at ``2e-3``;
+19. ``[train launcher]``: the training launcher (``launch/train.py``) at
+   smollm-360m's full configuration and its own defaults (8 x 128 tokens,
+   bfloat16 compute, remat: K6 64 launches a step, all ``sm90_bf16``), 8
+   steps, a checkpoint every 4 (4.9 GB: parameters, ``mu``, ``nu`` in
+   float32), under ``build/train_launcher`` (removed at the end): (a) an
+   uninterrupted run in this process, each step timed; (b) the same
+   command as a subprocess, SIGTERM after its step-2 line: it must print
+   ``preemption requested``, checkpoint and exit 0; (c) the same command
+   again: ``resumed from step k``, on to step 8; (d) its final checkpoint
+   against (a)'s, bit for bit (if not, (a) again: two uninterrupted runs
+   that agree put the fault on the resume; two that differ hold (d) at
+   ``2e-3`` of each tensor's largest magnitude); (e) (a)'s checkpoint
+   restored onto the CPU and onto the card, equal bit for bit, a
+   synchronous and an async save timed; (f) one step's full-width gradients
+   through ``compress_tree``: bf16 and int8 under replayed uniforms equal to
+   a CPU copy bit for bit, int8 from the card's generator within one
+   quantisation step, both timed; (g) the 32 layers as 4 stages of 8 on
+   ``["cuda:0"] * 4`` (``distributed/pipeline.py``), 8 microbatches of 1 x
+   512 tokens, K6 256 launches on ``sm90_bf16``, bit for bit the stages run
+   one after another.
 
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
@@ -238,6 +258,9 @@ rescale moves a whole block.  SDPA is held to K6 at the reference's bfloat16 tol
 from __future__ import annotations
 
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -335,6 +358,16 @@ TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 2_048
 AUDIO_TRAIN_STEPS, AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ = 2, 2, 448
 TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 256
+# [train launcher]: launch/train.py on smollm-360m's full configuration at
+# its own defaults (8 x 128 tokens), 8 steps, a checkpoint every 4; the
+# preempted run gets SIGTERM after its "step 2" line; checkpoints under
+# build/ (git-ignored), removed when the phase ends.  The pipeline: its 32
+# layers as 4 stages of 8 on ["cuda:0"] * 4, 8 microbatches of 1 x 512
+LAUNCH_FLAGS = ["--arch", LM_ARCH, "--steps", "8", "--ckpt-every", "4",
+                "--log-every", "1", "--device", "cuda"]
+LAUNCH_STEPS, LAUNCH_TOKENS, LAUNCH_PREEMPT_AFTER = 8, 8 * 128, 2
+LAUNCH_DIR = REPO / "build" / "train_launcher"
+PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS = 4, 8, 512
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3743,6 +3776,439 @@ def phase_train() -> dict:
     return out
 
 
+def launcher_step_probe(rows: list):
+    """A ``make_train_step`` that times each step of the launcher (the
+    card synchronised before and after) and records K6's launches in it,
+    read as differences of the counters (none is reset)."""
+    import torch
+    from repro_torch.training import train_step
+
+    def make(*args, **kwargs):
+        step = train_step.make_train_step(*args, **kwargs)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            before = read_counts()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = read_counts()
+            rows.append(dict(ms=ms, **{k: after[k] - before[k] for k in
+                                       ("K6", "K6 sm90_bf16")}))
+            return out
+        return timed
+    return make
+
+
+def launcher_cmd(ckpt_dir: Path) -> list:
+    return [sys.executable, "-u", "-m", "repro_torch.launch.train",
+            *LAUNCH_FLAGS, "--ckpt-dir", str(ckpt_dir)]
+
+
+def launcher_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src") + (
+        ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def run_launcher(ckpt_dir: Path, preempt_after: int | None = None):
+    """The launcher as a subprocess from the checkout's root (it reuses the
+    kernels ``phase_build`` built under ``build/repro_torch``); with
+    ``preempt_after``, SIGTERM once it prints that step's line.  Returns
+    (exit code, its output, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(launcher_cmd(ckpt_dir), cwd=REPO,
+                            env=launcher_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            print("    | " + line.rstrip())
+            if preempt_after is not None and line.startswith(
+                    f"step {preempt_after:5d} "):
+                proc.send_signal(signal.SIGTERM)
+                preempt_after = None
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, "".join(lines), time.perf_counter() - t0
+
+
+def ckpt_arrays(step_dir: Path) -> list:
+    n = json.loads((step_dir / "manifest.json").read_text())["n_leaves"]
+    with np.load(step_dir / "arrays.npz") as data:
+        return [data[str(i)] for i in range(n)]
+
+
+def differing_leaves(a: list, b: list) -> list:
+    """The indices of the leaves that differ in value or bits."""
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if x.dtype != y.dtype or x.shape != y.shape
+            or x.tobytes() != y.tobytes()]
+
+
+def launcher_run_a(ckpt_dir: Path) -> dict:
+    """(a): ``main`` in this process, each step timed and counted, every
+    count 0 just before and read just after the run."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.launch import train as launcher
+
+    rows = []
+    real = launcher.make_train_step
+    launcher.make_train_step = launcher_step_probe(rows)
+    out = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = launcher.main(LAUNCH_FLAGS + ["--ckpt-dir", str(ckpt_dir)])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        launcher.make_train_step = real
+    for line in out.getvalue().splitlines():
+        print("    | " + line)
+    check(rc == 0, f"launcher (a) exited {rc}")
+    return dict(rows=rows, counts=counts, wall_s=wall, text=out.getvalue(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def launcher_io(a_dir: Path, work: Path, arrays_a: list) -> dict:
+    """(e): A's final checkpoint restored onto the CPU and onto the card,
+    equal bit for bit; a synchronous save of the card state and an async
+    one (the blocking snapshot, then the background write) timed, the
+    async file equal to A's bit for bit."""
+    import torch
+    from repro_torch._tree import flatten
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.training import AdamWConfig, init_train_state
+
+    like = init_train_state(init_lm(get_config(LM_ARCH), 0, device="cuda"),
+                            AdamWConfig())
+    t0 = time.perf_counter()
+    host, step = ckpt.restore(a_dir, like, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    del like
+    t0 = time.perf_counter()
+    card, _ = ckpt.restore(a_dir, host, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    leaves_h, leaves_c = flatten(host)[0], flatten(card)[0]
+    check(step == LAUNCH_STEPS and len(leaves_h) == len(arrays_a),
+          f"restore: step {step}, {len(leaves_h)} leaves")
+    bad = [i for i, (h, c) in enumerate(zip(leaves_h, leaves_c))
+           if c.device.type != "cuda" or not torch.equal(h, c.cpu())]
+    check(not bad, f"restore onto the card != onto the CPU at leaves {bad}")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves_h)
+    del host
+    t0 = time.perf_counter()
+    ckpt.save(work / "sync", step, card)
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save_async(work / "async", step, card)
+    block_s = time.perf_counter() - t0
+    ckpt.wait_for_saves()
+    write_s = time.perf_counter() - t0 - block_s
+    bad = differing_leaves(ckpt_arrays(work / "async" / f"step_{step:08d}"),
+                       arrays_a)
+    check(not bad, f"async save of the restored state != A at leaves {bad}")
+    shutil.rmtree(work / "sync")
+    shutil.rmtree(work / "async")
+    return dict(gb=nbytes / 1e9, restore_cpu_s=cpu_s, restore_card_s=card_s,
+                save_s=sync_s, save_gb_per_s=nbytes / 1e9 / sync_s,
+                async_block_s=block_s, async_write_s=write_s,
+                card=card)
+
+
+def launcher_profile(state, step_ms: float) -> dict:
+    """One step of the launcher's shape (``make_train_step`` on the
+    restored state, its ``TokenPipeline`` batch of step 8) under the
+    profiler: device time by group, K6's backward a group of its own, the
+    busy share of the launcher's median warm step, and the kernels
+    launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.training import AdamWConfig, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=2,
+                                            total_steps=LAUNCH_STEPS))
+    batch = {"tokens": torch.as_tensor(TokenPipeline(
+        cfg.vocab_size, 128, 8).batch(LAUNCH_STEPS), device="cuda")}
+    step(state, batch)
+    torch.cuda.synchronize()
+    with Marked(ops, "flash_attention_backward", "k6_backward"), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    by, top = kernel_groups(prof, ranges=(("k6_backward", "K6 backward"),))
+    print_groups("launcher step", by, top, step_ms)
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key != "k6_backward")
+    print(f"    {n} kernel launches in the step")
+    return dict(groups=dict(by, total=sum(by.values())), kernels=n)
+
+
+def launcher_compression(state) -> dict:
+    """(f): one step's full-width gradients (bfloat16 compute, remat) through
+    ``compress_tree`` / ``decompress_tree`` on the card: bf16 equal to a CPU
+    copy bit for bit; int8 under uniforms drawn once, equal to a CPU copy
+    bit for bit; int8 from the card's generator within one quantisation
+    step a tensor; both timed (CUDA events)."""
+    import torch
+    from repro_torch._tree import flatten, unflatten
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.compression import (compress_tree,
+                                                     decompress_tree)
+    from repro_torch.training.train_step import lm_loss
+
+    cfg = get_config(LM_ARCH)
+    leaves, treedef = flatten(state.params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    tokens = TokenPipeline(cfg.vocab_size, 128, 8).batch(LAUNCH_STEPS)
+    with torch.enable_grad():
+        loss, _ = lm_loss(unflatten(treedef, leaves), {"tokens": tokens}, cfg)
+        grads = unflatten(treedef, [g.detach() for g in torch.autograd.grad(
+            loss, leaves)])
+    del leaves
+    host = flatten(grads)[0]
+    host = unflatten(treedef, [g.cpu() for g in host])
+    out = dict(n_floats=sum(g.numel() for g in flatten(grads)[0]))
+
+    c, _ = compress_tree(grads, "bf16")
+    bad = [i for i, (a, b) in enumerate(zip(
+        flatten(c)[0], flatten(compress_tree(host, "bf16")[0])[0]))
+        if not torch.equal(a.cpu().view(torch.int16), b.view(torch.int16))]
+    check(not bad, f"bf16 compression on the card != CPU at leaves {bad}")
+    del c
+    out["bf16_ms"] = cuda_ms(lambda: decompress_tree(
+        compress_tree(grads, "bf16")[0], None, "bf16"), 5)
+    c, _ = compress_tree(grads, "bf16")
+    out["bf16_compress_ms"] = cuda_ms(lambda: compress_tree(grads, "bf16"),
+                                      5)
+    out["bf16_decompress_ms"] = cuda_ms(lambda: decompress_tree(
+        c, None, "bf16"), 5)
+    del c
+
+    gen = torch.Generator("cuda").manual_seed(LM_SEED + 7)
+    uniforms = unflatten(treedef, [torch.rand(g.shape, generator=gen,
+                                              device="cuda")
+                                   for g in flatten(grads)[0]])
+    q, s = compress_tree(grads, "int8", uniforms=uniforms)
+    qh, sh = compress_tree(host, "int8", uniforms=unflatten(
+        treedef, [u.cpu() for u in flatten(uniforms)[0]]))
+    del uniforms
+    bad = [i for i, (a, b, x, y) in enumerate(zip(
+        flatten(q)[0], flatten(qh)[0], flatten(s)[0], flatten(sh)[0]))
+        if not (torch.equal(a.cpu(), b) and torch.equal(x.cpu(), y))]
+    check(not bad, f"int8 under replayed uniforms on the card != CPU at "
+                   f"leaves {bad}")
+    del q, s, qh, sh, host
+    q, s = compress_tree(grads, "int8", generator=gen)
+    deq = decompress_tree(q, s, "int8")
+    worst = max(float((d - g).abs().max()) / float(sc) for d, g, sc in zip(
+        flatten(deq)[0], flatten(grads)[0], flatten(s)[0]))
+    check(worst <= 1 + 1e-6, f"int8: an error of {worst} quantisation steps")
+    del q, s, deq
+    out.update(int8_worst_steps=worst, int8_ms=cuda_ms(
+        lambda: decompress_tree(*compress_tree(grads, "int8", generator=gen),
+                                "int8"), 5))
+    print(f"  (f) compression of one step's gradients ({out['n_floats']:,} "
+          f"floats): bf16 == a CPU copy bit for bit, {out['bf16_ms']:.3f} ms "
+          f"compress + decompress ({out['bf16_compress_ms']:.3f} + "
+          f"{out['bf16_decompress_ms']:.3f} ms apart); int8 under replayed uniforms == a CPU "
+          f"copy bit for bit, with the card's generator within "
+          f"{worst:.4f} of a step, {out['int8_ms']:.3f} ms")
+    return out
+
+
+def launcher_pipeline(params) -> dict:
+    """(g): the 32 layers as PIPE_STAGES stages on ``["cuda:0"] * 4``, 8
+    microbatches of 1 x 512 tokens, through K6: bit for bit the stages run
+    one after another on each microbatch; K6 once a layer and microbatch,
+    every launch on ``sm90_bf16``.  One card checks the schedule, not a
+    speed-up."""
+    import torch
+    from repro_torch._tree import map_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Dtypes
+
+    cfg = get_config(LM_ARCH)
+    per = cfg.n_layers // PIPE_STAGES
+    windows, dt = transformer.layer_windows(cfg), Dtypes.compute(cfg)
+
+    def stage_fn(sp, x, s):
+        b, t, _ = x.shape
+        positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        for i in range(per):
+            x, _ = transformer._layer({}, transformer.layer_params(sp, i), x,
+                                      positions, cfg, dt,
+                                      windows[s * per + i], 0)
+        return x
+
+    stages = map_leaves(lambda p: p.reshape(PIPE_STAGES, per, *p.shape[1:]),
+                        params["layers"])
+    tokens = np.random.RandomState(LM_SEED + 8).randint(
+        0, cfg.vocab_size, (PIPE_MICRO, PIPE_TOKENS))
+    with torch.no_grad():
+        x = transformer.embed_inputs(params, tokens, cfg)[:, None]
+        mesh = make_local_mesh(data=PIPE_STAGES,
+                               devices=["cuda:0"] * PIPE_STAGES)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = pipeline_forward(stage_fn, stages, x, mesh, axis="data")
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        n = PIPE_MICRO * cfg.n_layers
+        check(k6_route_only(counts, "sm90_bf16", n),
+              f"pipeline launched K6 {counts}, expected {n} on sm90_bf16")
+        t0 = time.perf_counter()
+        bad = []
+        for m in range(PIPE_MICRO):
+            h = x[m]
+            for s in range(PIPE_STAGES):
+                h = stage_fn(map_leaves(lambda p: p[s], stages), h, s)
+            if not torch.equal(got[m], h):
+                bad.append(m)
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+    check(not bad, f"pipeline != the stages in sequence at microbatches {bad}")
+    check(bool(torch.isfinite(got.float()).all()), "pipeline: non-finite")
+    print(f"  (g) pipeline: {PIPE_STAGES} stages of {per} layers on "
+          f"['cuda:0'] * {PIPE_STAGES}, {PIPE_MICRO} microbatches of 1 x "
+          f"{PIPE_TOKENS}: == the stages in sequence bit for bit; K6 "
+          f"{counts['K6']} launches (sm90_bf16 {counts['K6 sm90_bf16']}); "
+          f"{pipe_ms:.1f} ms, in sequence {seq_ms:.1f} ms (one card: the "
+          "schedule, not a speed-up)")
+    return dict(k6=counts["K6"], k6_bf16=counts["K6 sm90_bf16"],
+                ms=pipe_ms, sequential_ms=seq_ms)
+
+
+def phase_train_launcher() -> dict:
+    """[train launcher]: ``launch/train.py`` at smollm-360m's full
+    configuration, ``LAUNCH_FLAGS``: (a) uninterrupted, in this process;
+    (b) the same command as a subprocess, SIGTERM after its step-2 line: it
+    prints ``preemption requested``, checkpoints and exits 0; (c) the same
+    command again, resumed to the end; (d) its final checkpoint against
+    (a)'s, bit for bit (else a second (a), and if the two uninterrupted runs
+    differ, the train-step tolerance); (e) restores and saves timed; (f)
+    gradient compression; (g) the pipeline."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.runtime import checkpoint as ckpt
+
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    LAUNCH_DIR.mkdir(parents=True)
+    free = shutil.disk_usage(LAUNCH_DIR).free / 1e9
+    print(f"[train launcher] {LM_ARCH} through launch/train.py "
+          f"{' '.join(LAUNCH_FLAGS)}; {free:.1f} GB free under build/")
+    try:
+        a_dir, b_dir = LAUNCH_DIR / "a", LAUNCH_DIR / "b"
+        final = f"step_{LAUNCH_STEPS:08d}"
+        a = launcher_run_a(a_dir)
+        steps = a["rows"]
+        cfg = get_config(LM_ARCH)
+        n_k6 = k6_points(cfg) * (2 if cfg.remat else 1)  # + the recompute
+        for r in steps:
+            check(r["K6"] == n_k6 and r["K6 sm90_bf16"] == n_k6,
+                  f"launcher step launched K6 {r}, expected {n_k6} on "
+                  "sm90_bf16")
+        check(k6_route_only(a["counts"], "sm90_bf16", n_k6 * LAUNCH_STEPS),
+              f"launcher (a) launched K6 {a['counts']}")
+        warm = [r["ms"] for r in steps[1:]]
+        print(f"  (a) uninterrupted, in process: {a['wall_s']:.2f} s; steps "
+              + ", ".join(f"{r['ms']:.1f}" for r in steps) + " ms; warm "
+              f"{min(warm):.1f}-{max(warm):.1f} ms a step "
+              f"({LAUNCH_TOKENS / np.median(warm) * 1e3:.0f} tokens/s at the "
+              f"median); K6 {n_k6} launches a step, all sm90_bf16; peak "
+              f"{a['peak_gib']:.2f} GiB")
+        torch.cuda.empty_cache()
+        shutil.rmtree(a_dir / f"step_{LAUNCH_STEPS // 2:08d}")
+        rc_b, out_b, wall_b = run_launcher(b_dir, LAUNCH_PREEMPT_AFTER)
+        check(rc_b == 0 and "preemption requested" in out_b,
+              f"launcher (b) exited {rc_b} without a clean preemption")
+        stopped = ckpt.latest_step(b_dir)
+        check(stopped is not None and stopped < LAUNCH_STEPS,
+              f"launcher (b) left step {stopped}")
+        print(f"  (b) preempted after step {LAUNCH_PREEMPT_AFTER}'s line: "
+              f"exit 0, checkpoint at step {stopped}, {wall_b:.2f} s")
+        rc_c, out_c, wall_c = run_launcher(b_dir)
+        check(rc_c == 0 and f"resumed from step {stopped}" in out_c
+              and f"step {LAUNCH_STEPS - 1:5d} " in out_c,
+              f"launcher (c) exited {rc_c} or did not resume from {stopped}")
+        print(f"  (c) restarted: resumed from step {stopped}, ran to step "
+              f"{LAUNCH_STEPS}, {wall_c:.2f} s")
+        arrays_a = ckpt_arrays(a_dir / final)
+        bad = differing_leaves(ckpt_arrays(b_dir / final), arrays_a)
+        verdict = "bit for bit"
+        if bad:
+            a2 = launcher_run_a(LAUNCH_DIR / "a2")
+            twin = differing_leaves(ckpt_arrays(LAUNCH_DIR / "a2" / final),
+                                arrays_a)
+            check(bool(twin), f"two uninterrupted runs agree but the "
+                              f"resumed one differs at leaves {bad}")
+            print(f"  two uninterrupted runs differ at leaves {twin} "
+                  f"({len(a2['rows'])} steps)")
+            b_arrays = ckpt_arrays(b_dir / final)
+            for i in bad:
+                x, y = b_arrays[i].astype(np.float64), arrays_a[i]
+                err = float(np.abs(x - y).max())
+                tol = 2e-3 * float(np.abs(y).max())
+                print(f"    leaf {i} {y.shape}: max abs {err:.3e}")
+                check(err <= tol, f"leaf {i} off by {err} > {tol}")
+            verdict = f"within 2e-3 of each tensor's max (leaves {bad})"
+        print(f"  (d) resumed run's step-{LAUNCH_STEPS} checkpoint == the "
+              f"uninterrupted run's: {verdict}")
+        shutil.rmtree(b_dir)
+        io = launcher_io(a_dir, LAUNCH_DIR, arrays_a)
+        del arrays_a
+        print(f"  (e) restore of {io['gb']:.2f} GB: onto the CPU "
+              f"{io['restore_cpu_s']:.2f} s, onto the card "
+              f"{io['restore_card_s']:.2f} s, equal bit for bit; synchronous "
+              f"save {io['save_s']:.2f} s ({io['save_gb_per_s']:.2f} GB/s); "
+              f"save_async blocks {io['async_block_s']:.2f} s, writes "
+              f"{io['async_write_s']:.2f} s in the background")
+        card = io.pop("card")
+        prof = launcher_profile(card, float(np.median(warm)))
+        comp = launcher_compression(card)
+        params = card.params
+        del card
+        pipe = launcher_pipeline(params)
+        del params
+    finally:
+        shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"  three launcher runs' wall times: (a) {a['wall_s']:.2f} s, (b) "
+          f"{wall_b:.2f} s, (c) {wall_c:.2f} s")
+    return dict(step_ms=[r["ms"] for r in steps], k6_per_step=n_k6,
+                tokens_per_step=LAUNCH_TOKENS, peak_gib=a["peak_gib"],
+                wall_s=dict(a=a["wall_s"], b=wall_b, c=wall_c),
+                preempted_at=stopped, resume=verdict, io=io,
+                profile=prof, compression=comp, pipeline=pipe)
+
 def main() -> int:
     import torch
 
@@ -3867,6 +4333,8 @@ def main() -> int:
     k6_grad = phase_k6_grad()
     train = phase_train()
     print(f"[train] summary {json.dumps(train)}")
+    launcher = phase_train_launcher()
+    print(f"[train launcher] summary {json.dumps(launcher)}")
     train_k6 = {arch: dict(launches_per_step=[r["k6"] for r in t["rows"]],
                            ms_per_step=[r["ms"] for r in t["rows"]],
                            tokens_per_step=t["tokens"],
@@ -4029,7 +4497,13 @@ def main() -> int:
                         decode_ms_per_step=audio["decode_ms"],
                         peak_gib=audio["peak_gib"],
                         encoder_timing=k6_timing_json(k6_audio[route])),
-                    train=train_k6)
+                    train=train_k6,
+                    train_launcher=dict(
+                        launches_per_step=launcher["k6_per_step"],
+                        ms_per_step=launcher["step_ms"],
+                        tokens_per_step=launcher["tokens_per_step"],
+                        peak_gib=launcher["peak_gib"],
+                        pipeline_launches=launcher["pipeline"]["k6_bf16"]))
                if route == "sm90_bf16" else
                dict(lm_f32_logits_max_abs_err=lm_f32_err, gate=k6_gate,
                     tensor_core_route=K6_F32_ROUTE,

@@ -15,17 +15,37 @@ an all-gather is a concatenation of the shards' tensors moved to each
 shard's device.  A device may hold more than one shard, which plays the part
 of the reference's forced host device count: the CPU tests run 2, 4 and 8
 shards on ``["cpu"] * D``, the card runs them on ``cuda:0``.
+
+The LM half: :class:`ShardCtx` over a
+``launch.mesh`` mesh, ``current_ctx`` / ``use_ctx`` (thread-local),
+``shard_act``, ``shard_attn_logits`` and ``param_shardings``.  The
+reference's model code calls ``shard_act(x, kind)``, which constrains ``x``
+to a ``PartitionSpec`` when a mesh context is active.  On one controller
+there is nothing to constrain: ``shard_act`` and ``shard_attn_logits`` look
+the spec up as the reference does (an unknown ``kind`` raises ``KeyError``
+with a context active) and return their input, and the port's models do
+not call them.  ``param_shardings`` gives, per parameter, the reference's
+``PartitionSpec`` as a tuple of axis names (or tuples of them) and
+``None``, one entry a dimension: the same path-name rules, stacked-layer
+leading ``None`` and divisibility guard, so a sharded layout can be planned
+from the port's parameters.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch._device import resolve_device
 
-__all__ = ["LEAF_AXIS", "LeafMesh", "LeafSharding", "leaf_mesh",
-           "leaf_sharding"]
+__all__ = ["LEAF_AXIS", "LeafMesh", "LeafSharding", "ShardCtx", "current_ctx",
+           "leaf_mesh", "leaf_sharding", "param_shardings", "shard_act",
+           "use_ctx"]
+
+_tls = threading.local()
 
 LEAF_AXIS = "leaves"
 
@@ -98,3 +118,150 @@ def leaf_mesh(devices=None, *, axis: str = LEAF_AXIS) -> LeafMesh:
 def leaf_sharding(mesh: LeafMesh) -> LeafSharding:
     """Row-stripe layout for leaf-order ``(n_leaves, K)`` arrays."""
     return LeafSharding(mesh)
+
+
+# ------------------------------------------------------------------ LM side
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    mesh: object                          # launch.mesh.LocalMesh
+    dp: Tuple[str, ...] = ("data",)       # batch / FSDP axes
+    tp: str = "model"                     # tensor-parallel axis
+    seq_shard: bool = False               # sequence parallelism for long ctx
+    fsdp: bool = True                     # shard params over dp too
+    # when n_heads % tp_size != 0, shard the S^2 attention scores over the
+    # query sequence instead of the heads
+    attn_seq_shard: bool = False
+
+    @property
+    def dp_spec(self):
+        return self.dp if len(self.dp) > 1 else self.dp[0]
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.shape[self.tp]
+
+
+def current_ctx() -> Optional[ShardCtx]:
+    return getattr(_tls, "ctx", None)
+
+
+@contextlib.contextmanager
+def use_ctx(ctx: Optional[ShardCtx]):
+    prev = current_ctx()
+    _tls.ctx = ctx
+    try:
+        yield
+    finally:
+        _tls.ctx = prev
+
+
+_ACT_SPECS = {
+    # kind -> fn(ctx) -> spec
+    "btd": lambda c: (c.dp_spec, c.tp if c.seq_shard else None, None),
+    "btv": lambda c: (c.dp_spec, None, c.tp),          # logits: vocab sharded
+    "bthd": lambda c: (c.dp_spec, None, c.tp, None),   # heads sharded
+    "btf": lambda c: (c.dp_spec, None, c.tp),          # mlp hidden
+    "bd": lambda c: (c.dp_spec, None),
+    "cache": lambda c: (c.dp_spec, None, c.tp, None),  # (B, W, Hkv, D)
+    "cache_seq": lambda c: (c.dp_spec, c.tp, None, None),  # few kv heads
+    "ecd": lambda c: (c.tp, None, None),               # EP expert buffers
+}
+
+
+def shard_act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The reference's named activation constraint: with a context active
+    its spec is looked up (``KeyError`` for an unknown ``kind``); one
+    controller has nothing to constrain, so ``x`` is returned."""
+    ctx = current_ctx()
+    if ctx is not None:
+        _ACT_SPECS[kind](ctx)
+    return x
+
+
+def shard_attn_logits(logits: torch.Tensor) -> torch.Tensor:
+    """(B, H, Sq, Sk) attention scores: heads over tp when divisible, else
+    query-sequence over tp; returned as they are (one controller)."""
+    return logits
+
+
+# --------------------------------------------------------------------------
+# parameter shardings, by path-name rules
+# --------------------------------------------------------------------------
+
+def _spec_for(path: str, shape: Tuple[int, ...], ctx: ShardCtx,
+              expert_parallel: bool) -> tuple:
+    fsdp = ctx.dp_spec if ctx.fsdp else None
+    tp = ctx.tp
+    name = path.split("/")[-1]
+    ndim = len(shape)
+    base: Tuple = ()
+
+    if name in ("embed", "patch_proj_in"):
+        base = (tp, None)                       # vocab over tp only
+    elif name == "unembed":
+        base = (fsdp, tp)                       # (D, V)
+    elif name in ("w_q", "w_k", "w_v"):
+        base = (fsdp, tp)                       # (D, H*hd)
+    elif name == "w_o":
+        base = (tp, fsdp)                       # (H*hd, D)
+    elif name in ("w_gate", "w_up"):
+        if ndim == 3:                           # MoE experts (E, D, F)
+            base = (tp, fsdp, None) if expert_parallel else (None, fsdp, tp)
+        else:
+            base = (fsdp, tp)                   # (D, F)
+    elif name == "w_down":
+        if ndim == 3:                           # (E, F, D)
+            base = (tp, None, fsdp) if expert_parallel else (None, tp, fsdp)
+        else:
+            base = (tp, fsdp)                   # (F, D)
+    elif name == "router":
+        base = (fsdp, None)
+    elif name == "in_proj":
+        base = (fsdp, tp)                       # ssm: (D, Din)
+    elif name == "out_proj":
+        base = (tp, fsdp)                       # ssm: (Din, D)
+    elif name in ("conv_w", "conv_b"):
+        base = (None,) * (ndim - 1) + (tp,)     # channels over tp
+    elif name in ("a_log", "d_skip", "dt_bias"):
+        base = (tp,)
+    else:                                       # norms, scalars: replicated
+        base = (None,) * ndim
+
+    base = tuple(base)[:ndim] + (None,) * max(0, ndim - len(base))
+    # stacked-layer leading dim (scan over layers): never sharded
+    if ndim > len(base):
+        base = (None,) + base
+    return base
+
+
+def param_shardings(params, ctx: ShardCtx, expert_parallel: bool = False,
+                    n_layers_stacked: bool = True):
+    """The reference's ``PartitionSpec`` of every parameter, as a tuple of
+    one entry a dimension (an axis name, a tuple of them, or ``None``), in
+    a tree matching ``params``."""
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        shape = tuple(node.shape)
+        stacked = n_layers_stacked and "/layers/" in path + "/"
+        core_shape = shape[1:] if stacked and len(shape) > 1 else shape
+        parts = _spec_for(path, core_shape, ctx, expert_parallel)
+        if stacked and len(shape) > 1:
+            parts = (None,) + parts
+        parts = parts[: len(shape)]
+        parts = parts + (None,) * (len(shape) - len(parts))
+        # divisibility guard: drop axis sharding that does not divide
+        fixed = []
+        for dim, ax in zip(shape, parts):
+            if ax is None:
+                fixed.append(None)
+                continue
+            size = 1
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                size *= ctx.mesh.shape[a]
+            fixed.append(ax if dim % size == 0 else None)
+        return tuple(fixed)
+
+    return walk(params, "")

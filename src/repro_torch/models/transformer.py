@@ -12,7 +12,8 @@ unstacked); the layer loop is a Python loop over that axis.  Per-layer
 windows and the hybrid's attention points (``attn_flags``) are Python ints.
 A vlm's ``patches`` (B, P, D) are prepended to the token embeddings.  The
 reference's ``shard_act`` / ``shard_attn_logits`` are the identity without a
-device mesh and are dropped (LM sharding is ROADMAP Queue 1 item 12g).
+device mesh and are dropped here (``distributed/sharding.py`` has them, the
+identity on one controller).
 ``cfg.remat`` (the reference's ``jax.checkpoint`` around each layer body)
 is ``torch.utils.checkpoint`` around each layer in a forward that takes a
 gradient (``remat_call``); it recomputes and changes no value.

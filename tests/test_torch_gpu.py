@@ -1070,3 +1070,165 @@ def test_cuda_train_step_matches_a_cpu_copy(arch):
     for a, b in zip(transformer.leaves(got.params),
                     transformer.leaves(want.params)):
         torch.testing.assert_close(a.cpu(), b, rtol=2e-3, atol=2e-3)
+
+
+def _random_state(cfg, seed, device):
+    """A train state of ``cfg`` on ``device`` with seeded parameters and
+    moments, each leaf distinct (so that a swap would show)."""
+    from repro_torch._tree import map_leaves
+    from repro_torch.models import transformer
+    from repro_torch.training import AdamWConfig, init_train_state
+
+    state = init_train_state(transformer.init_lm(cfg, seed, device="cpu"),
+                             AdamWConfig())
+    g = torch.Generator().manual_seed(seed)
+    for tree in (state.opt.mu, state.opt.nu):
+        for t in transformer.leaves(tree):
+            t.copy_(torch.randn(t.shape, generator=g))
+    return map_leaves(lambda t: t.to(device), state)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_moves_between_the_card_and_the_cpu(tmp_path):
+    """A card train state saved, restored onto the CPU, saved from there and
+    restored onto the card: every leaf bit for bit, on the asked device."""
+    _card()
+    from repro_torch._tree import flatten
+    from repro_torch.runtime import checkpoint as ckpt
+
+    state = _random_state(_small("smollm-360m"), 8, "cuda")
+    ckpt.save(tmp_path / "card", 3, state, fingerprint="fp")
+    host, step = ckpt.restore(tmp_path / "card", state, device="cpu",
+                              expect_fingerprint="fp")
+    ckpt.save(tmp_path / "host", step, host, fingerprint="fp")
+    back, _ = ckpt.restore(tmp_path / "host", host, device="cuda")
+    want = flatten(state)[0]
+    for a, b, c in zip(want, flatten(host)[0], flatten(back)[0]):
+        assert b.device.type == "cpu" and c.device.type == "cuda"
+        assert a.dtype == b.dtype == c.dtype
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_cuda_compress_tree_matches_a_cpu_copy():
+    """bf16 bit for bit; int8 bit for bit under the same uniforms, and with
+    the card's own generator within one quantisation step a tensor."""
+    _card()
+    from repro_torch.distributed.compression import (compress_tree,
+                                                     decompress_tree)
+
+    g = torch.Generator().manual_seed(12)
+    host = {"layers": {"w": torch.randn(4, 96, 80, generator=g) * 3},
+            "embed": torch.randn(1000, 96, generator=g) * 1e-3,
+            "ln": torch.zeros(96)}
+    card = _to(host, "cuda")
+    got, want = (compress_tree(t, "bf16")[0] for t in (card, host))
+    assert torch.equal(got["embed"].cpu().view(torch.int16),
+                       want["embed"].view(torch.int16))
+    assert torch.equal(got["layers"]["w"].cpu().view(torch.int16),
+                       want["layers"]["w"].view(torch.int16))
+    uniforms = {"layers": {"w": torch.rand(4, 96, 80, generator=g)},
+                "embed": torch.rand(1000, 96, generator=g),
+                "ln": torch.rand(96, generator=g)}
+    (q_c, s_c), (q_h, s_h) = (compress_tree(t, "int8", uniforms=u) for t, u
+                              in ((card, _to(uniforms, "cuda")),
+                                  (host, uniforms)))
+    for key in ("embed", "ln"):
+        assert torch.equal(q_c[key].cpu(), q_h[key])
+        assert torch.equal(s_c[key].cpu(), s_h[key])
+    assert torch.equal(q_c["layers"]["w"].cpu(), q_h["layers"]["w"])
+    q, s = compress_tree(card, "int8",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    deq = decompress_tree(q, s, "int8")
+    for d, x, step, qq in ((deq["embed"], card["embed"], s["embed"],
+                            q["embed"]),
+                           (deq["layers"]["w"], card["layers"]["w"],
+                            s["layers"]["w"], q["layers"]["w"])):
+        assert qq.dtype == torch.int8
+        assert float((d - x).abs().max()) <= float(step) * (1 + 1e-6)
+
+
+def _stage_fn(cfg, per_stage):
+    """``pipeline_forward``'s stage: ``per_stage`` layers of the LM."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import Dtypes
+
+    windows = transformer.layer_windows(cfg)
+
+    def stage_fn(sp, x, s):
+        b, t, _ = x.shape
+        positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        for i in range(per_stage):
+            x, _ = transformer._layer({}, transformer.layer_params(sp, i), x,
+                                      positions, cfg, Dtypes.compute(cfg),
+                                      windows[s * per_stage + i], 0)
+        return x
+    return stage_fn
+
+
+@pytest.mark.gpu
+def test_cuda_pipeline_forward_equals_the_stages_in_sequence():
+    """8 layers at d_model 128 as 4 stages of 2 on ``["cuda:0"] * 4``, 6
+    microbatches: bit for bit the stages run one after another on each
+    microbatch; K6 launched once a layer and microbatch."""
+    _card()
+    from repro_torch._tree import map_leaves
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(_small("smollm-360m"), n_layers=8)
+    params = transformer.init_lm(cfg, 9, device="cuda")
+    stages = map_leaves(lambda v: v.reshape(4, 2, *v.shape[1:]),
+                        params["layers"])
+    x = torch.randn(6, 2, 40, 128, device="cuda")
+    stage_fn = _stage_fn(cfg, 2)
+    before = flash_attention.launches_by_route["sm90_tf32x3"]
+    got = pipeline_forward(stage_fn, stages, x, make_local_mesh(
+        data=4, devices=["cuda:0"] * 4), axis="data")
+    assert flash_attention.launches_by_route["sm90_tf32x3"] - before == 48
+    for m in range(6):
+        h = x[m]
+        for s in range(4):
+            h = stage_fn(map_leaves(lambda p: p[s], stages), h, s)
+        assert torch.equal(got[m], h)
+
+
+@pytest.mark.gpu
+def test_cuda_launcher_steps_match_a_cpu_copy(tmp_path, monkeypatch, capsys):
+    """Two launcher steps at d_model 128 on the card and on the CPU, both
+    resumed from one step-0 checkpoint: the final checkpoints agree at the
+    train-step tolerance (parameters 2e-3, moments 2e-3 of each tensor's
+    largest magnitude), K6 launched once a layer a step on the card."""
+    _card()
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.training import AdamWConfig, init_train_state
+
+    cfg = _small("smollm-360m")
+    monkeypatch.setattr(train, "get_smoke_config", lambda arch: cfg)
+    start = init_train_state(transformer.init_lm(cfg, 3, device="cpu"),
+                             AdamWConfig())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ckpt.save(tmp_path / dev, 0, start,
+                  fingerprint=ckpt.config_fingerprint(cfg))
+        before = flash_attention.launches
+        assert train.main(["--arch", "smollm-360m", "--smoke", "--steps", "2",
+                           "--batch", "2", "--seq", "64", "--ckpt-every", "5",
+                           "--device", dev, "--ckpt-dir",
+                           str(tmp_path / dev)]) == 0
+        if dev == "cuda":
+            assert flash_attention.launches - before == 2 * cfg.n_layers
+        assert "resumed from step 0" in capsys.readouterr().out
+        out[dev], _ = ckpt.restore(tmp_path / dev, start, device="cpu")
+    for a, b in zip(transformer.leaves(out["cuda"].params),
+                    transformer.leaves(out["cpu"].params)):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+    for tree in ("mu", "nu"):
+        for a, b in zip(transformer.leaves(getattr(out["cuda"].opt, tree)),
+                        transformer.leaves(getattr(out["cpu"].opt, tree))):
+            torch.testing.assert_close(
+                a, b, rtol=2e-3, atol=2e-3 * float(b.abs().max()))
+    assert int(out["cuda"].step) == int(out["cpu"].step) == 2

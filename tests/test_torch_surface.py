@@ -47,6 +47,10 @@ def test_import_pulls_neither_jax_nor_reference_and_is_warning_free():
             "repro_torch.models.moe, repro_torch.distributed, "
             "repro_torch.core.distributed, "
             "repro_torch.configs.registry, repro_torch.serving, "
+            "repro_torch.data, repro_torch.runtime.checkpoint, "
+            "repro_torch.runtime.preemption, repro_torch.launch.mesh, "
+            "repro_torch.launch.train, repro_torch.distributed.pipeline, "
+            "repro_torch.distributed.compression, "
             + "".join(f"repro_torch.serving.{m}, " for m in SERVING_PRIVATE)
             + "repro_torch.kernels.flash_attention\n"
             "from repro_torch.serving import (PropagateEngine, "
@@ -75,7 +79,11 @@ def test_no_port_file_imports_jax_or_reference():
                 "core/streaming.py", "core/divergence.py",
                 "serving/_sharded.py", "core/distributed.py",
                 "distributed/sharding.py", "models/moe.py",
-                "configs/deepseek_moe_16b.py", "configs/mixtral_8x7b.py"):
+                "configs/deepseek_moe_16b.py", "configs/mixtral_8x7b.py",
+                "data/pipeline.py", "runtime/checkpoint.py",
+                "runtime/preemption.py", "distributed/compression.py",
+                "distributed/pipeline.py", "launch/mesh.py",
+                "launch/train.py"):
         assert PORT / new in files, new
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
@@ -283,3 +291,31 @@ def test_divergence_name_is_the_fitted_divergence(small_fitted_vdt):
     own = VariationalDualTree.fit(x, max_blocks=48, device="cpu",
                                   divergence=None)
     assert own.divergence_name == own.stats.divergence == "sqeuclidean"
+
+
+# the reference's names a port module leaves out, each with its reason
+NOT_IN_PORT = {"launch.mesh": {"make_production_mesh"}}   # ROADMAP 12h
+
+
+@pytest.mark.parametrize("module", ["data.pipeline", "runtime.checkpoint",
+                                    "runtime.preemption",
+                                    "distributed.compression",
+                                    "distributed.pipeline", "launch.mesh"])
+def test_new_modules_export_the_reference_names(module):
+    """Each module this slice ported exports the reference's ``__all__``;
+    ``launch/mesh.py`` all of it but the TPU production mesh (item 12h)."""
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    want = set(ref.__all__) - NOT_IN_PORT.get(module, set())
+    assert sorted(port.__all__) == sorted(want)
+    for name in port.__all__:
+        assert callable(getattr(port, name))
+
+
+def test_sharding_exports_the_reference_names_and_the_leaf_layout():
+    import repro.distributed.sharding as ref
+    import repro_torch.distributed.sharding as port
+
+    extra = set(port.__all__) - set(ref.__all__)
+    assert set(ref.__all__) <= set(port.__all__)
+    assert extra == {"LEAF_AXIS", "LeafMesh", "LeafSharding"}
