@@ -233,7 +233,28 @@ Phases (any failure exits non-zero):
    quantisation step, both timed; (g) the 32 layers as 4 stages of 8 on
    ``["cuda:0"] * 4`` (``distributed/pipeline.py``), 8 microbatches of 1 x
    512 tokens, K6 256 launches on ``sm90_bf16``, bit for bit the stages run
-   one after another.
+   one after another;
+20. ``[dryrun]``: the dry-run tooling (``launch/dryrun.py``): (a) ``python -m
+   repro_torch.launch.dryrun --all --force`` in a subprocess, every cell of
+   10 architectures x 4 shapes on the single-pod mesh and the paper cell
+   counted on ``meta`` tensors at full size (34 ok, 7 skipped, 0 errors);
+   (b) meanwhile, each cell's count on meta at its card batch, and K6 held
+   to its plain version (``[K6 timing]``) at the attention shapes of the
+   cells that launch it, B = 1, S = 32,768 and B = 2, S = 4,096 (15/5
+   heads, D = 64, causal); (c) once the grid has ended, so that no other
+   work shares the host, on the card at a batch it holds, with seeded
+   weights and inputs: smollm-360m ``prefill_32k`` at batch 1 (K6 32
+   launches at S = 32,768), ``train_4k`` at batch 2 (remat, AdamW; K6 64), ``decode_32k``
+   at batch 8 (one step against a cache of 32,768 + 16 slots), mamba2-130m
+   ``long_500k`` at batch 1 (one token against its state), and the paper
+   cell at full size (N = 2^18, C = 8, |B| = 4N: seeded block node ids and
+   weights, not a fitted tree; held to a CPU copy at ``rtol=1e-4,
+   atol=1e-5``): each step's work counted on the card (``count_work``)
+   equal to its meta count at the same batch, flops and bytes; 5 warm steps
+   timed with CUDA events (median), the one-card roofline
+   (``launch/roofline.py``, H100 constants), measured / roofline, MFU, the
+   device's busy share (device time of 5 profiled steps over 5 medians),
+   peak memory.
 
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
@@ -270,10 +291,6 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 RTOL, ATOL = 1e-4, 1e-5
-# NVIDIA H100 SXM data sheet, at the 700 W power limit
-PEAK_FP32_FLOPS = 67e12      # float32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense
-PEAK_HBM_BYTES = 3.35e12
 N_SECSTR, D_SECSTR = 83_679, 315
 VDT_ITERS, EXACT_ITERS, BATCH = 50, 10, 8
 K5_RTOL, K5_ATOL = 1e-5, 1e-6
@@ -281,7 +298,6 @@ KNN_K = 4                       # |B| / N = 4: the paper's kNN equivalent
 GRF_ITERS, GRF_SEED = 50, 0
 N_VALIDATE, VDT_GRF_ITERS, VDT_GRF_WALKERS = 4_096, 20, 128
 K3_BATCH, K3_N, K4_ROWS = 8, 16_384, 2_048
-PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_SEED = "smollm-360m", 4, 2_048, 0
 LM_TOL, LM_F32_TOL = 0.15, 2e-3
 K6_TOL = {"float32": 2e-4, "bfloat16": 5e-2}   # K6 vs the reference, SDPA
@@ -368,6 +384,19 @@ LAUNCH_FLAGS = ["--arch", LM_ARCH, "--steps", "8", "--ckpt-every", "4",
 LAUNCH_STEPS, LAUNCH_TOKENS, LAUNCH_PREEMPT_AFTER = 8, 8 * 128, 2
 LAUNCH_DIR = REPO / "build" / "train_launcher"
 PIPE_STAGES, PIPE_MICRO, PIPE_TOKENS = 4, 8, 512
+# [dryrun]: launch/dryrun.py's grid on meta (10 architectures x 4 shapes on
+# single_pod and the paper cell) in a subprocess, expected (ok, skipped,
+# errors); meanwhile the cells' meta counts and K6 against its plain version
+# at the cells' attention shapes; once the grid has ended, cells on the card
+# at a batch it holds (arch, shape, batch, K6 launches a step, all
+# sm90_bf16), then the paper cell at full size; each card count equal to its
+# meta count, DRYRUN_REPS warm steps timed and DRYRUN_REPS profiled
+DRYRUN_GRID = (34, 7, 0)
+DRYRUN_CELLS = (("smollm-360m", "prefill_32k", 1, 32),
+                ("smollm-360m", "train_4k", 2, 64),
+                ("smollm-360m", "decode_32k", 8, 0),
+                ("mamba2-130m", "long_500k", 1, 0))
+DRYRUN_REPS, DRYRUN_VDT_SEED = 5, 23
 
 
 def check(cond: bool, msg: str) -> None:
@@ -391,14 +420,6 @@ def close(got, want, what: str, rtol: float = RTOL,
           f" {'ok' if ok else 'MISMATCH'}")
     check(ok, f"{what}: outside rtol={rtol}, atol={atol}")
     return float(err.max()), rel
-
-
-def bound(flops: float, nbytes: float,
-          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    """Least time on the card in ms, and what sets it (H100 SXM peaks)."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
-        else "bytes"
 
 
 def counters():
@@ -449,11 +470,14 @@ def tc_bound(m: int, n: int, d: int, k: int, nbytes: float) -> tuple:
     """K1-K4's least time in ms on the tensor-core route, what sets it, and
     the float32 CUDA-core bound of the same function: the cross term as
     three TF32 products (3 x 2 m n d) at the TF32 peak, plus p @ Y (2 m n k)
-    at the float32 peak; or the bytes at the memory rate."""
-    t_ops = (3 * 2.0 * m * n * d / PEAK_TF32_FLOPS
-             + 2.0 * m * n * k / PEAK_FP32_FLOPS)
-    t_bytes = nbytes / PEAK_HBM_BYTES
-    f32_ms = max(2.0 * m * n * (d + k) / PEAK_FP32_FLOPS, t_bytes) * 1e3
+    at the float32 peak; or the bytes at the memory rate (H100 SXM,
+    ``launch/roofline.py::HW``)."""
+    from repro_torch.launch.roofline import HW
+
+    t_ops = (3 * 2.0 * m * n * d / HW.PEAK_TF32_FLOPS
+             + 2.0 * m * n * k / HW.PEAK_FP32_FLOPS)
+    t_bytes = nbytes / HW.HBM_BW
+    f32_ms = max(2.0 * m * n * (d + k) / HW.PEAK_FP32_FLOPS, t_bytes) * 1e3
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", f32_ms)
 
@@ -958,6 +982,7 @@ def phase_k5_timing(graph, out) -> dict:
     from repro_torch.kernels.grf import (default_draw, grf_feature_matvec,
                                          grf_feature_plain, walk_step)
     from repro_torch.kernels.grf.walkers import start_state
+    from repro_torch.launch.roofline import bound
 
     print("[K5 at the GRF path's shapes: walkers after 3 steps]")
     n, rows = graph.n, []
@@ -2366,21 +2391,6 @@ def close_k6(got, want, what: str) -> tuple[float, float]:
     return err, ratio
 
 
-def attention_work(b: int, hq: int, hkv: int, s: int, d: int, window: int,
-                   itemsize: int, causal: bool = True) -> tuple[float, float]:
-    """Operations and bytes of attention over the unmasked pairs: two
-    products of 2 B Hq D flops per pair; q, k, v read and out written once."""
-    if causal:
-        pairs = sum(min(i + 1, window) if window else i + 1
-                    for i in range(s))
-    else:
-        pairs = sum(s - max(0, i - window + 1) if window else s
-                    for i in range(s))
-    flops = 4.0 * b * hq * d * pairs
-    nbytes = itemsize * (2.0 * b * hq * s * d + 2.0 * b * hkv * s * d)
-    return flops, nbytes
-
-
 def phase_k6_small() -> dict:
     """K6 against its plain version at small shapes, both routes; returns the
     max error by route."""
@@ -2711,6 +2721,9 @@ def phase_k6_timing(cases=None) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        attention_work
+    from repro_torch.launch.roofline import HW, bound
 
     print("[K6 timing]")
     g = torch.Generator().manual_seed(7)
@@ -2760,12 +2773,12 @@ def phase_k6_timing(cases=None) -> list:
         # bfloat16: one product on the tensor cores; float32: three TF32
         # products on the tensor cores, with the CUDA cores' bound beside
         if dtype == torch.bfloat16:
-            bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            bound_ms, by = bound(flops, nbytes, HW.PEAK_FLOPS)
             f32_ms = None
             extra = ""
         else:
-            bound_ms, by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
-            f32_ms = bound(flops, nbytes, PEAK_FP32_FLOPS)[0]
+            bound_ms, by = bound(3.0 * flops, nbytes, HW.PEAK_TF32_FLOPS)
+            f32_ms = bound(flops, nbytes, HW.PEAK_FP32_FLOPS)[0]
             extra = (f"; float32 CUDA-core bound {f32_ms:.4f} ms, "
                      f"{f32_ms / ms:.4f} of it")
         print(f"  {name} {tname} B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
@@ -4107,6 +4120,230 @@ def launcher_pipeline(params) -> dict:
                 ms=pipe_ms, sequential_ms=seq_ms)
 
 
+def dryrun_grid_start():
+    """``python -m repro_torch.launch.dryrun --all --force`` (every cell
+    counted on meta tensors, no card) as a subprocess."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--force"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+
+
+def dryrun_grid_finish(proc, t0: float) -> dict:
+    """Wait for the grid; its cells' statuses must be ``DRYRUN_GRID``."""
+    out, _ = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.splitlines()
+    status = [ln.split("]")[0].strip("[ ") for ln in lines
+              if ln.startswith("[")]
+    got = tuple(status.count(k) for k in ("ok", "skipped", "error"))
+    print(f"  (a) the grid on meta (python -m repro_torch.launch.dryrun "
+          f"--all): {got[0]} ok, {got[1]} skipped, {got[2]} errors, "
+          f"{wall:.1f} s wall; its last line: {lines[-1] if lines else ''}")
+    check(proc.returncode == 0 and got == DRYRUN_GRID,
+          f"dryrun grid: exit {proc.returncode}, (ok, skipped, errors) = "
+          f"{got}, expected {DRYRUN_GRID}:\n" + "\n".join(lines[-20:]))
+    return dict(ok=got[0], skipped=got[1], errors=got[2], wall_s=wall)
+
+
+def dryrun_measure(name: str, run, meta_work: tuple, model_flops: float,
+                   tokens: int, k6: int) -> dict:
+    """Drive ``run()`` once on the card with the launch counts at 0 (K6
+    ``k6`` times, all ``sm90_bf16``), count its work on the card (equal to
+    ``meta_work`` exactly), time ``DRYRUN_REPS`` warm runs with CUDA events,
+    profile ``DRYRUN_REPS`` more (the busy share: their device time a step
+    over the median); returns the readings and ``run``'s first output."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.dryrun import count_work
+    from repro_torch.launch.roofline import HW, roofline_terms
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(k6_route_only(counts, "sm90_bf16", k6)
+          and all(counts[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5")),
+          f"{name}: launches {counts}, expected K6 {k6} on sm90_bf16 and "
+          "no other kernel")
+    card_work = count_work(run)
+    check(card_work == tuple(meta_work),
+          f"{name}: counted on the card (flops, bytes) = {card_work}, on "
+          f"meta {tuple(meta_work)}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(DRYRUN_REPS):
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DRYRUN_REPS):
+            run()
+            torch.cuda.synchronize()
+    by, _ = kernel_groups(prof)
+    by = {k: v / DRYRUN_REPS for k, v in by.items()}
+    device_ms = sum(by.values())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rl = roofline_terms({"flops": card_work[0],
+                         "bytes accessed": card_work[1]}, {}, 1,
+                        model_flops=model_flops, tokens_per_step=tokens)
+    roof_ms = rl.step_time * 1e3
+    mfu = model_flops / HW.PEAK_FLOPS / (ms / 1e3)
+    busy = min(device_ms / ms, 1.0) if device_ms else None
+    print(f"  {name}: {ms:.3f} ms median of {DRYRUN_REPS} warm steps "
+          f"({', '.join(f'{t:.3f}' for t in times)}); one-card roofline "
+          f"{roof_ms:.4f} ms ({rl.bottleneck}: {card_work[0]:.6e} flops, "
+          f"{card_work[1]:.6e} bytes, card == meta), measured / roofline "
+          f"{ms / roof_ms:.3f}, MFU {mfu:.6f}, device busy "
+          + (f"{busy:.3f}" if busy is not None else "not measured")
+          + f" ({device_ms:.3f} ms a step over {DRYRUN_REPS} profiled: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+              by.items(), key=lambda kv: -kv[1]))
+          + f"), peak {peak:.2f} GiB, K6 {counts['K6']} on sm90_bf16")
+    return out, dict(ms=ms, times=times, roofline_ms=roof_ms,
+                     bottleneck=rl.bottleneck, flops=card_work[0],
+                     bytes=card_work[1], measured_over_roofline=ms / roof_ms,
+                     mfu=mfu, busy=busy, device_ms=device_ms, groups=by,
+                     peak_gib=peak, k6=counts["K6"])
+
+
+def dryrun_lm_cell(arch: str, shape_name: str, batch: int, k6: int,
+                   meta_work: tuple) -> dict:
+    """One LM cell of the grid at ``batch`` on the card, against
+    ``meta_work``, its meta count at the same batch."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    fn, args, _, cfg, shape, meta, _, _ = dryrun.build_cell(
+        arch, shape_name, False, batch_override=batch, device="cuda")
+    mult = 6 if shape.kind == "train" else 2
+    tokens = meta["tokens_per_step"]
+    out, r = dryrun_measure(f"{arch} {shape_name} batch {batch}",
+                            lambda: fn(*args), meta_work,
+                            mult * cfg.active_param_count() * tokens,
+                            tokens, k6)
+    if shape.kind == "train":
+        loss = out[1]["loss"]
+        check(bool(torch.isfinite(loss)), f"{arch} {shape_name}: loss {loss}")
+    else:
+        logits = out[0]
+        check(tuple(logits.shape) == (batch, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch} {shape_name}: logits {tuple(logits.shape)} not "
+              "finite or misshapen")
+    return dict(r, batch=batch, tokens=tokens)
+
+
+def dryrun_vdt_cell(meta_work: tuple) -> dict:
+    """The paper cell at full size (N = 2^18, C = 8, |B| = 4N) on the card:
+    seeded ``a``, ``b`` over the tree's node ids and ``q`` in [0, 1) (not
+    a fitted tree), against ``meta_work`` and a CPU copy (``index_add_``
+    reduces with atomics on the card)."""
+    import torch
+    from repro_torch.configs import paper_vdt
+    from repro_torch.launch import dryrun
+
+    specs, meta = paper_vdt.input_specs()
+    fn = dryrun.vdt_step_fn()
+    n_nodes = (1 << (meta["L"] + 1)) - 1
+    g = torch.Generator().manual_seed(DRYRUN_VDT_SEED)
+    cpu = {k: (torch.randint(0, n_nodes, x.shape, generator=g,
+                             dtype=x.dtype) if k in ("a", "b")
+               else torch.rand(x.shape, generator=g))
+           for k, x in specs.items()}
+    card = {k: v.cuda() for k, v in cpu.items()}
+    out, r = dryrun_measure(
+        "paper-vdt lp_1m (N = 2^18, seeded blocks, not a fitted tree)",
+        lambda: fn(*card.values()), meta_work, dryrun.vdt_model_flops(),
+        meta["tokens_per_step"], 0)
+    err = close(out, fn(*cpu.values()), "  paper-vdt: card vs a CPU copy")[0]
+    return dict(r, max_abs_err=err, n_points=paper_vdt.N_POINTS,
+                n_classes=paper_vdt.N_CLASSES,
+                blocks=paper_vdt.BLOCKS_PER_POINT * paper_vdt.N_POINTS)
+
+
+def dryrun_meta_counts() -> dict:
+    """Each ``DRYRUN_CELLS`` cell's and the paper cell's work counted on
+    meta at its card batch (host only)."""
+    from repro_torch.configs import paper_vdt
+    from repro_torch.launch import dryrun
+
+    counts = {}
+    for arch, shape_name, batch, _ in DRYRUN_CELLS:
+        fn, args, *_ = dryrun.build_cell(arch, shape_name, False,
+                                         batch_override=batch)
+        counts[f"{arch} {shape_name}"] = dryrun.count_work(fn, *args)
+    counts["paper-vdt lp_1m"] = dryrun.count_work(
+        dryrun.vdt_step_fn(), *paper_vdt.input_specs()[0].values())
+    return counts
+
+
+def dryrun_k6_shapes() -> list:
+    """K6's attention shape in each ``DRYRUN_CELLS`` cell that launches it:
+    ``phase_k6_timing`` cases, bfloat16."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import SHAPES
+
+    cases = []
+    for arch, shape_name, batch, k6 in DRYRUN_CELLS:
+        if k6:
+            cfg = get_config(arch)
+            cases.append(((f"{arch} {shape_name}", batch, cfg.n_heads,
+                           cfg.n_kv_heads, SHAPES[shape_name].seq_len,
+                           cfg.head_dim_, cfg.sliding_window or 0, True),
+                          torch.bfloat16))
+    return cases
+
+
+def phase_dryrun() -> dict:
+    """[dryrun]: (a) the whole grid counted on meta in a subprocess; (b)
+    meanwhile, the cells' meta counts and K6 against its plain version at
+    the cells' attention shapes (launches of milliseconds each, timed on the
+    device); (c) once the grid has ended, each ``DRYRUN_CELLS`` cell and the
+    paper cell timed on the card with no other work on the host."""
+    import torch
+
+    print("[dryrun] (a) the grid on meta in a subprocess; (b) meanwhile the "
+          "cells' meta counts and K6 at their shapes; (c) then the cells on "
+          "the card at a batch it holds, each against its meta count")
+    t0 = time.perf_counter()
+    grid = dryrun_grid_start()
+    try:
+        meta_work = dryrun_meta_counts()
+        k6 = phase_k6_timing(dryrun_k6_shapes())
+        result = dict(grid=dryrun_grid_finish(grid, t0))
+    finally:
+        if grid.poll() is None:
+            grid.kill()
+            grid.wait()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    cells = {}
+    for arch, shape_name, batch, n_k6 in DRYRUN_CELLS:
+        cell = f"{arch} {shape_name}"
+        cells[cell] = dryrun_lm_cell(arch, shape_name, batch, n_k6,
+                                     meta_work[cell])
+        torch.cuda.empty_cache()
+    cells["paper-vdt lp_1m"] = dryrun_vdt_cell(meta_work["paper-vdt lp_1m"])
+    result.update(cells=cells, k6={r["name"]: r for r in k6},
+                  cells_wall_s=time.perf_counter() - t1,
+                  wall_s=time.perf_counter() - t0)
+    print(f"  [dryrun] phase wall {result['wall_s']:.1f} s (the cells "
+          f"alone {result['cells_wall_s']:.1f} s)")
+    return result
+
+
 def phase_train_launcher() -> dict:
     """[train launcher]: ``launch/train.py`` at smollm-360m's full
     configuration, ``LAUNCH_FLAGS``: (a) uninterrupted, in this process;
@@ -4335,6 +4572,8 @@ def main() -> int:
     print(f"[train] summary {json.dumps(train)}")
     launcher = phase_train_launcher()
     print(f"[train launcher] summary {json.dumps(launcher)}")
+    dry = phase_dryrun()
+    print(f"[dryrun] summary {json.dumps(dry)}")
     train_k6 = {arch: dict(launches_per_step=[r["k6"] for r in t["rows"]],
                            ms_per_step=[r["ms"] for r in t["rows"]],
                            tokens_per_step=t["tokens"],
@@ -4503,7 +4742,13 @@ def main() -> int:
                         ms_per_step=launcher["step_ms"],
                         tokens_per_step=launcher["tokens_per_step"],
                         peak_gib=launcher["peak_gib"],
-                        pipeline_launches=launcher["pipeline"]["k6_bf16"]))
+                        pipeline_launches=launcher["pipeline"]["k6_bf16"]),
+                    dryrun={cell: dict(
+                        launches=r["k6"], step_ms=r["ms"], batch=r["batch"],
+                        **({} if cell not in dry["k6"] else dict(
+                            timing=k6_timing_json(dry["k6"][cell]))))
+                        for cell, r in dry["cells"].items()
+                        if "batch" in r})
                if route == "sm90_bf16" else
                dict(lm_f32_logits_max_abs_err=lm_f32_err, gate=k6_gate,
                     tensor_core_route=K6_F32_ROUTE,

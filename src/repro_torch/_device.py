@@ -4,13 +4,14 @@
 caller must ask for the CPU (``device="cpu"``), as the tests do, or the call
 raises.  Resolving a device also turns TF32 off for float32 matrix products
 and convolutions, so every matmul in the port runs in full float32 like the
-reference.
+reference.  A ``meta`` device holds shapes and types only (the dry run,
+``launch/dryrun.py``, counts work on it); it is no fallback.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "seeded_generator"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -26,3 +27,11 @@ def resolve_device(device=None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
+    """``torch.Generator(device).manual_seed(seed)``; for a ``meta`` device,
+    which has no generator and draws no values, a CPU one."""
+    dev = torch.device(device)
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev) \
+        .manual_seed(int(seed))

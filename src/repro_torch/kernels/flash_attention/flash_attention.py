@@ -40,8 +40,9 @@ import math
 
 import torch
 
-__all__ = ["BACKWARD_CHUNK", "KV_TILE", "LOG2E", "NEG_BIG",
-           "flash_attention_backward", "flash_attention_plain"]
+__all__ = ["BACKWARD_CHUNK", "KV_TILE", "LOG2E", "NEG_BIG", "attention_pairs",
+           "attention_work", "flash_attention_backward",
+           "flash_attention_plain"]
 
 NEG_BIG = -1e30  # masked logits, as in the reference kernel
 LOG2E = math.log2(math.e)
@@ -60,6 +61,28 @@ def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
     if window > 0:
         mask &= (qi - kj) < window
     return mask
+
+
+def attention_pairs(s: int, window: int, causal: bool = True) -> int:
+    """(query, key) pairs attention keeps at length ``s``: causal keys
+    ``j <= i`` (and ``i - j < window`` when ``window`` > 0); bidirectional
+    keys ``j > i - window`` (all when ``window`` is 0)."""
+    if causal:
+        if not window or window >= s:
+            return s * (s + 1) // 2
+        return window * (window + 1) // 2 + (s - window) * window
+    if not window or window > s:
+        return s * s
+    return s * s - (s - window) * (s - window + 1) // 2
+
+
+def attention_work(b: int, hq: int, hkv: int, s: int, d: int, window: int,
+                   itemsize: int, causal: bool = True) -> tuple[float, float]:
+    """Operations and bytes of attention over the unmasked pairs: two
+    products of 2 B Hq D flops per pair; q, k, v read and out written once."""
+    flops = 4.0 * b * hq * d * attention_pairs(s, window, causal)
+    nbytes = itemsize * (2.0 * b * hq * s * d + 2.0 * b * hkv * s * d)
+    return flops, nbytes
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

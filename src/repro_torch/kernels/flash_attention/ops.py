@@ -20,8 +20,11 @@ raises; it never falls back.  On CPU tensors it runs the plain version
 ``flash_attention.flash_attention_plain``, which walks the kernels' tiles and
 recurrence.
 
-The call is a ``torch.autograd.Function``: its forward is the kernel (or
-the plain version) run untaped, saving q, k and v; its backward is
+The call is a ``torch.autograd.Function``: its forward is the operator
+``repro_torch::flash_attention_fwd`` (:func:`flash_attention_fwd`: the
+kernel, or the plain version, run untaped; on ``meta`` tensors a fake that
+gives the output's shape; its FLOPs registered as the unmasked pairs'
+products), saving q, k and v; its backward is
 ``flash_attention.flash_attention_backward``, float32 torch ops that
 recompute the scores (the reference has no Pallas backward kernel).  Only
 the forward counts a launch; a recompute under activation checkpointing
@@ -36,14 +39,16 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import (check_operand, launch, load_library,
                                         on_card)
 from repro_torch.kernels.flash_attention.flash_attention import (
-    KV_TILE, LOG2E, flash_attention_backward, flash_attention_plain)
+    KV_TILE, LOG2E, attention_work, flash_attention_backward,
+    flash_attention_plain)
 
 __all__ = ["HEAD_DIMS", "SM90_SOURCE", "TF32X3_SOURCE", "flash_attention",
-           "sm90_library", "tf32x3_library"]
+           "flash_attention_fwd", "sm90_library", "tf32x3_library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SM90_SOURCE = _CSRC / "flash_attention_sm90.cu"       # bfloat16, "sm90_bf16"
@@ -80,15 +85,38 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: int) -> torch.Tensor:
+    """K6's forward as one operator: the kernel on CUDA tensors, the plain
+    version on CPU ones.  A dispatch mode (``FlopCounterMode``,
+    ``launch/dryrun.py``'s byte counter) sees this one call and not the
+    operations inside it; on ``meta`` tensors only its fake runs."""
+    if not on_card("flash_attention", q):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _launch(q, k, v, causal, window)
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_attention_fwd_flops(q_shape, k_shape, v_shape, causal, window,
+                               *args, **kwargs) -> int:
+    """The unmasked pairs' two products (:func:`attention_work`)."""
+    b, hq, s, d = q_shape
+    return int(attention_work(b, hq, k_shape[1], s, d, window, 0,
+                              causal)[0])
+
+
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        if not on_card("flash_attention", q):
-            return flash_attention_plain(q, k, v, causal=causal,
-                                         window=window)
-        return _launch(q, k, v, causal, window)
+        return flash_attention_fwd(q, k, v, causal, window)
 
     @staticmethod
     def backward(ctx, dout):

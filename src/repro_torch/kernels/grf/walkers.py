@@ -33,6 +33,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch._device import seeded_generator
+
 __all__ = ["Draw", "default_draw", "sample_walks", "start_state", "walk_step"]
 
 Draw = Callable[[int], torch.Tensor]
@@ -40,8 +42,7 @@ Draw = Callable[[int], torch.Tensor]
 
 def default_draw(seed: int, n_walkers_total: int, device) -> Draw:
     """``draw(t)``: ``(W, 2)`` float32 uniforms for step ``t``, steps in order 1, 2, ..."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    gen = seeded_generator(device, seed)
     expected = [1]
 
     def draw(t: int) -> torch.Tensor:

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch._device import resolve_device
 
-__all__ = ["make_local_mesh", "mesh_axis_names"]
+__all__ = ["make_production_mesh", "make_local_mesh", "mesh_axis_names"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +47,14 @@ class LocalMesh:
         k = self.axis_names.index(axis)
         stride = math.prod(self.sizes[k + 1:])
         return tuple(self.devices[i * stride] for i in range(self.sizes[k]))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LocalMesh:
+    """16x16 single-pod (256 chips) or 2x16x16 multi-pod (512 chips), over
+    ``meta`` devices: a layout to plan shardings on, not to run."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return LocalMesh(axes, shape, (torch.device("meta"),) * math.prod(shape))
 
 
 def make_local_mesh(data: int | None = None, model: int = 1, devices=None):

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, seeded_generator
 from repro_torch.models.attention import (attn_apply, attn_init,
                                           self_attention)
 from repro_torch.models.layers import (Dtypes, dense_init, mlp_apply,
@@ -157,13 +157,13 @@ def stacked_layers(init_one, n_layers: int) -> dict:
 
 
 def init_lm(cfg, seed: int = 0, *, device=None) -> dict:
-    """Random parameters from ``torch.Generator(device).manual_seed(seed)``:
+    """Random parameters from ``seeded_generator(device, seed)``:
     the reference's distributions (normal embeddings scaled by
     ``d_model ** -0.5``, truncated-normal fan-in matrices, zero norm gains),
     not its numbers."""
     require_decoder_only(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = seeded_generator(dev, seed)
     vp, d = cfg.padded_vocab, cfg.d_model
     params = {
         "embed": torch.randn((vp, d), generator=gen, device=dev)

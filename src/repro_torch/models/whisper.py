@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, seeded_generator
 from repro_torch.models.attention import attn_apply, attn_init
 from repro_torch.models.layers import (Dtypes, dense_init, mlp_apply,
                                        mlp_init, rms_norm)
@@ -81,13 +81,13 @@ def _dec_layer_init(generator: torch.Generator, cfg, device) -> dict:
 
 
 def init_encdec(cfg, seed: int = 0, *, device=None) -> dict:
-    """Random parameters from ``torch.Generator(device).manual_seed(seed)``:
+    """Random parameters from ``seeded_generator(device, seed)``:
     the reference's distributions (normal embeddings scaled by
     ``d_model ** -0.5``, encoder positions by 0.02, truncated-normal fan-in
     matrices, zero norm gains), not its numbers."""
     _require_audio(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = seeded_generator(dev, seed)
     vp, d = cfg.padded_vocab, cfg.d_model
     return {
         "embed": torch.randn((vp, d), generator=gen, device=dev)

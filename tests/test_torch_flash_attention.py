@@ -95,9 +95,17 @@ def test_cpu_tensors_run_the_plain_version_and_do_not_count():
 
 
 def test_other_devices_raise():
+    """K6 runs its kernel on CUDA tensors and its plain version on CPU ones;
+    a tensor on any other device that reaches it raises.  ``meta`` tensors
+    (shapes only, the dry run's) do not reach it: the operator's fake gives
+    the output's shape and type."""
+    from repro_torch.kernels._build import on_card
+
     q = torch.zeros((1, 1, 4, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention(q, q, q)
+        on_card("flash_attention", q)
+    out = flash_attention(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,window", [

@@ -1232,3 +1232,29 @@ def test_cuda_launcher_steps_match_a_cpu_copy(tmp_path, monkeypatch, capsys):
             torch.testing.assert_close(
                 a, b, rtol=2e-3, atol=2e-3 * float(b.abs().max()))
     assert int(out["cuda"].step) == int(out["cpu"].step) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,k6", [("prefill_32k", 2), ("decode_32k", 0),
+                                      ("train_4k", 2)])
+def test_cuda_counted_work_equals_the_meta_count(shape, k6):
+    """``launch/dryrun.py::count_work`` of one cell's step (smollm cut to
+    d_model 128, heads of 64, batch 1) counts on the card what it counts on
+    meta tensors, FLOPs and bytes; K6 launches once a layer (float32 route),
+    counted by its formula and not by what runs inside it."""
+    _card()
+    from repro_torch.launch import dryrun
+
+    cfg = _small("smollm-360m")
+    fn, args, *_ = dryrun.build_cell("smollm-360m", shape, False,
+                                     cfg_override=cfg, batch_override=1)
+    want = dryrun.count_work(fn, *args)
+    fn, args, *_ = dryrun.build_cell("smollm-360m", shape, False,
+                                     cfg_override=cfg, batch_override=1,
+                                     device="cuda")
+    before = flash_attention.launches_by_route.get("sm90_tf32x3", 0)
+    got = dryrun.count_work(fn, *args)
+    torch.cuda.synchronize()
+    assert got == want
+    assert flash_attention.launches_by_route.get("sm90_tf32x3", 0) == \
+        before + k6
