@@ -256,6 +256,24 @@ Phases (any failure exits non-zero):
    device's busy share (device time of 5 profiled steps over 5 medians),
    peak memory.
 
+21. ``[spmd]``: the dense LM as an SPMD program (``distributed/sharding.py``:
+   parameters as DTensors under the reference's ``param_shardings``, inputs
+   sharded by batch, ``shard_act`` at the reference's points, K6 through its
+   DTensor sharding rule): (a) smollm-360m at full width over a one-rank
+   NCCL ``DeviceMesh`` ("data", "model"), a bfloat16 prefill of 4 x 2,048
+   tokens (K6 32 launches on ``sm90_bf16``) and one float32 train step of 2
+   x 2,048 (remat; K6 64 on ``sm90_tf32x3``), each against the same call on
+   plain tensors (f32 ``rtol=1e-5``, ``atol`` 1e-6 of the largest
+   magnitude, at least 1, 1e-5 of it for the first moment; bf16 ``1e-2``;
+   whether bit for bit is printed); (b) the dry run's own sharded cells
+   (``launch/dryrun.py::build_sharded_cell``: its parameter, batch and
+   decode-cache placements, the cache write through ``local_map``) for
+   smollm-360m's ``train_4k``, ``prefill_32k`` and ``decode_32k`` at
+   reduced batches (``SPMD_FAKE_CELLS``) on a fake process group of 2 x 2
+   ranks, each counted per device (``count_sharded``) with CUDA shards and
+   with meta shards: FLOPs, bytes and every collective record equal.  The
+   phase's wall time on its own line.
+
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
 be on ``tf32x3``, the tensor-core route (K1-K3 also by divergence tile); every float32 K6 launch must be on
@@ -397,6 +415,18 @@ DRYRUN_CELLS = (("smollm-360m", "prefill_32k", 1, 32),
                 ("smollm-360m", "decode_32k", 8, 0),
                 ("mamba2-130m", "long_500k", 1, 0))
 DRYRUN_REPS, DRYRUN_VDT_SEED = 5, 23
+# [spmd]: smollm-360m at full width as DTensors, (a) over a one-rank NCCL
+# mesh (a FileStore in a temporary directory): a bfloat16 prefill of
+# LM_BATCH x LM_PROMPT tokens and one float32 train step of SPMD_TRAIN
+# (AdamW with SPMD_OPT: eps 1e-4 keeps g / (|g| + eps) smooth, as in
+# tests/test_torch_spmd.py), each against the same call on plain tensors;
+# (b) the dry run's sharded cells (shape, batch) counted per device on a
+# fake group of 2 x 2 ranks, on the card and on meta, equal exactly
+SPMD_TRAIN = (2, 2_048)
+SPMD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-4)
+SPMD_F32_RTOL, SPMD_BF16_TOL = 1e-5, 1e-2
+SPMD_FAKE_MESH = (2, 2)
+SPMD_FAKE_CELLS = (("train_4k", 2), ("prefill_32k", 2), ("decode_32k", 8))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4143,7 +4173,9 @@ def dryrun_grid_finish(proc, t0: float) -> dict:
           f"{wall:.1f} s wall; its last line: {lines[-1] if lines else ''}")
     check(proc.returncode == 0 and got == DRYRUN_GRID,
           f"dryrun grid: exit {proc.returncode}, (ok, skipped, errors) = "
-          f"{got}, expected {DRYRUN_GRID}:\n" + "\n".join(lines[-20:]))
+          f"{got}, expected {DRYRUN_GRID}:\n" + "\n".join(
+              [ln for ln in lines if ln.startswith("[error")]
+              + lines[-20:]))
     return dict(ok=got[0], skipped=got[1], errors=got[2], wall_s=wall)
 
 
@@ -4342,6 +4374,200 @@ def phase_dryrun() -> dict:
     print(f"  [dryrun] phase wall {result['wall_s']:.1f} s (the cells "
           f"alone {result['cells_wall_s']:.1f} s)")
     return result
+
+
+def spmd_full(t):
+    from repro_torch._device import is_dtensor
+
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def spmd_close(name: str, got, want, rtol: float, atol_frac: float) -> tuple:
+    """``got`` (a DTensor, gathered) within ``rtol`` and ``atol_frac`` of
+    ``want``'s largest magnitude (at least 1; a first moment's own);
+    returns (max abs err, bit for bit)."""
+    import torch
+
+    got = spmd_full(got)
+    diff = (got.double() - want.double()).abs()
+    scale = float(want.abs().max())
+    atol = rtol * scale if name.startswith("mu") else \
+        atol_frac * max(1.0, scale)
+    err = float(diff.max())
+    check(bool(torch.isfinite(got.float()).all())
+          and bool((diff <= atol + rtol * want.double().abs()).all()),
+          f"[spmd] {name}: max abs err {err:.3e} outside rtol={rtol}, "
+          f"atol={atol:.3e}")
+    return err, bool(torch.equal(got, want))
+
+
+def spmd_one_rank() -> dict:
+    """(a): the one-rank NCCL mesh, prefill and train step against plain
+    tensors, K6's launches counted in each sharded call."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import (ShardCtx, shard_batch,
+                                                  shard_params, use_ctx)
+    from repro_torch.launch.mesh import device_mesh, file_process_group
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving.decode import prefill
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    out = {}
+    cfg = get_config(LM_ARCH)
+    with tempfile.TemporaryDirectory() as tmp, file_process_group(
+            "nccl", 0, 1, Path(tmp) / "store", device="cuda:0"):
+        mesh = device_mesh((1, 1), ("data", "model"), "cuda")
+        ctx = ShardCtx(mesh=mesh)
+        params = init_lm(cfg, LM_SEED, device="cuda")
+        tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
+        want = prefill(params, tokens, cfg)[0]
+        sharded, stokens = shard_params(params, ctx), shard_batch(tokens, ctx)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with use_ctx(ctx):
+            got = prefill(sharded, stokens, cfg)[0]
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        counts = read_counts()
+        check(k6_route_only(counts, "sm90_bf16", cfg.n_layers),
+              f"[spmd] sharded prefill: launches {counts}, expected K6 "
+              f"{cfg.n_layers} on sm90_bf16")
+        out["prefill_k6"] = counts["K6"]
+        out["prefill_err"], out["prefill_bitwise"] = spmd_close(
+            "prefill logits", got, want, SPMD_BF16_TOL, SPMD_BF16_TOL)
+        print(f"  (a) one-rank NCCL mesh, bf16 prefill {LM_BATCH} x "
+              f"{LM_PROMPT}: {out['prefill_s']:.2f} s host (first call), K6 "
+              f"{counts['K6']} on sm90_bf16, logits vs plain tensors "
+              f"max abs err {out['prefill_err']:.3e}, bit for bit "
+              f"{out['prefill_bitwise']}")
+        del got, want, sharded
+
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        opt = AdamWConfig(**SPMD_OPT)
+        step = make_train_step(cfg32, opt)
+        b, seq = SPMD_TRAIN
+        batch = torch.as_tensor(np.random.RandomState(LM_SEED + 5).randint(
+            0, cfg.vocab_size, (b, seq + 1)), device="cuda")
+        plain, pm = step(init_train_state(params, opt), {"tokens": batch})
+        state = init_train_state(shard_params(params, ctx), opt)
+        sbatch = {"tokens": shard_batch(batch, ctx)}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with use_ctx(ctx):
+            new, m = step(state, sbatch)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        counts = read_counts()
+        check(k6_route_only(counts, K6_F32_ROUTE, 2 * cfg.n_layers),
+              f"[spmd] sharded f32 train step: launches {counts}, expected "
+              f"K6 {2 * cfg.n_layers} on {K6_F32_ROUTE}")
+        out["train_k6"] = counts["K6"]
+        errs, bitwise = {}, {}
+        for name, got_t, want_t in (
+                [("loss", m["loss"], pm["loss"]),
+                 ("grad_norm", m["grad_norm"], pm["grad_norm"])]
+                + [(f"param {k}", g, w) for k, (g, w) in
+                   _spmd_pairs(new.params, plain.params)]
+                + [(f"mu {k}", g, w) for k, (g, w) in
+                   _spmd_pairs(new.opt.mu, plain.opt.mu)]):
+            errs[name], bitwise[name] = spmd_close(
+                name, got_t, want_t, SPMD_F32_RTOL, 1e-6)
+        out["train_max_abs_err"] = max(errs.values())
+        out["train_bitwise"] = sorted(k for k, v in bitwise.items() if v)
+        out["train_not_bitwise"] = sorted(k for k, v in bitwise.items()
+                                          if not v)
+        print(f"  (a) one-rank NCCL mesh, f32 train step {b} x {seq}: "
+              f"{out['train_s']:.2f} s host (first call), K6 {counts['K6']} "
+              f"on {K6_F32_ROUTE}, loss {float(spmd_full(m['loss'])):.6f} vs "
+              f"{float(pm['loss']):.6f}, max abs err over loss, grad norm, "
+              f"params and moments {out['train_max_abs_err']:.3e}; bit for "
+              f"bit: {len(out['train_bitwise'])} of {len(bitwise)} "
+              f"(not: {', '.join(out['train_not_bitwise'][:8])}"
+              f"{' ...' if len(out['train_not_bitwise']) > 8 else ''})")
+        del new, plain, state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spmd_pairs(a: dict, b: dict, prefix: str = ""):
+    for k in a:
+        if isinstance(a[k], dict):
+            yield from _spmd_pairs(a[k], b[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, (a[k], b[k])
+
+
+def spmd_fake_count(shape_name: str, batch: int, device: str):
+    """(b): one smollm-360m cell of the dry run, as ``build_sharded_cell``
+    makes it, counted per device on a fake group of ``SPMD_FAKE_MESH``
+    ranks, its shards on ``device``."""
+    import torch
+    from repro_torch.launch.dryrun import build_sharded_cell, count_sharded
+    from repro_torch.launch.mesh import device_mesh
+
+    mesh = device_mesh(SPMD_FAKE_MESH, ("data", "model"), "cuda")
+    fn, args, *_ = build_sharded_cell(LM_ARCH, shape_name, False,
+                                      batch_override=batch, device=device,
+                                      mesh=mesh)
+    t0 = time.perf_counter()
+    work = count_sharded(fn, *args)
+    if device != "meta":
+        torch.cuda.synchronize()
+    return work, time.perf_counter() - t0
+
+
+def phase_spmd() -> dict:
+    """[spmd]: (a) the one-rank NCCL mesh against plain tensors; (b) the
+    dry run's sharded cells on a fake 2 x 2 group, card == meta."""
+    import torch
+    from repro_torch.launch.mesh import fake_process_group
+    from repro_torch.launch.roofline import collective_bytes
+
+    print(f"[spmd] smollm-360m as DTensors (torch {torch.__version__}): (a) "
+          "over a one-rank NCCL mesh against plain tensors; (b) the dry "
+          "run's sharded cells counted per device on a fake group of "
+          f"{SPMD_FAKE_MESH[0]} x {SPMD_FAKE_MESH[1]} ranks, CUDA shards == "
+          "meta shards")
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    out = spmd_one_rank()
+    cells = {}
+    with fake_process_group(SPMD_FAKE_MESH[0] * SPMD_FAKE_MESH[1]):
+        for shape_name, batch in SPMD_FAKE_CELLS:
+            card, card_s = spmd_fake_count(shape_name, batch, "cuda")
+            torch.cuda.empty_cache()
+            meta, meta_s = spmd_fake_count(shape_name, batch, "meta")
+            coll = collective_bytes(card.collectives)
+            print(f"  (b) {shape_name} at batch {batch}, fake group "
+                  f"{SPMD_FAKE_MESH}: per device on the card "
+                  f"{card.flops:.6e} flops, {card.bytes:.6e} bytes, "
+                  f"collectives {coll} ({card_s:.2f} s host); on meta "
+                  f"{meta.flops:.6e} flops, {meta.bytes:.6e} bytes, "
+                  f"{len(meta.collectives)} collectives ({meta_s:.2f} s host)")
+            check((card.flops, card.bytes, card.collectives)
+                  == (meta.flops, meta.bytes, meta.collectives),
+                  f"[spmd] {shape_name}: the fake group's count on the card "
+                  f"differs from meta: flops {card.flops} vs {meta.flops}, "
+                  f"bytes {card.bytes} vs {meta.bytes}, collectives "
+                  f"{coll} vs {collective_bytes(meta.collectives)}")
+            check(card.flops > 0 and card.bytes > 0 and coll["count"] > 0,
+                  f"[spmd] {shape_name}: an empty count on the fake group")
+            cells[shape_name] = dict(
+                batch=batch, flops_per_device=card.flops,
+                bytes_per_device=card.bytes, collectives=coll,
+                card_count_s=card_s, meta_count_s=meta_s)
+    torch.cuda.empty_cache()
+    out.update(fake_mesh=list(SPMD_FAKE_MESH), fake_cells=cells)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[spmd] phase wall {out['wall_s']:.1f} s")
+    return out
 
 
 def phase_train_launcher() -> dict:
@@ -4574,6 +4800,8 @@ def main() -> int:
     print(f"[train launcher] summary {json.dumps(launcher)}")
     dry = phase_dryrun()
     print(f"[dryrun] summary {json.dumps(dry)}")
+    spmd = phase_spmd()
+    print(f"[spmd] summary {json.dumps(spmd)}")
     train_k6 = {arch: dict(launches_per_step=[r["k6"] for r in t["rows"]],
                            ms_per_step=[r["ms"] for r in t["rows"]],
                            tokens_per_step=t["tokens"],
@@ -4743,6 +4971,9 @@ def main() -> int:
                         tokens_per_step=launcher["tokens_per_step"],
                         peak_gib=launcher["peak_gib"],
                         pipeline_launches=launcher["pipeline"]["k6_bf16"]),
+                    spmd=dict(prefill_launches=spmd["prefill_k6"],
+                              prefill_max_abs_err=spmd["prefill_err"],
+                              prefill_bitwise=spmd["prefill_bitwise"]),
                     dryrun={cell: dict(
                         launches=r["k6"], step_ms=r["ms"], batch=r["batch"],
                         **({} if cell not in dry["k6"] else dict(
@@ -4757,7 +4988,10 @@ def main() -> int:
                         launches=audio["f32_counts"][f"K6 {K6_F32_ROUTE}"],
                         checks=audio["checks"],
                         encoder_timing=k6_timing_json(k6_audio[route])),
-                    train_f32_launches=train["checks"]["k6_launches"])),
+                    train_f32_launches=train["checks"]["k6_launches"],
+                    spmd=dict(train_launches=spmd["train_k6"],
+                              train_max_abs_err=spmd[
+                                  "train_max_abs_err"]))),
             grad={k: v for k, v in k6_grad.items() if k.endswith(tname)}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

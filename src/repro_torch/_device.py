@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "seeded_generator"]
+__all__ = ["is_dtensor", "resolve_device", "seeded_generator"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,3 +35,11 @@ def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
     dev = torch.device(device)
     return torch.Generator(device="cpu" if dev.type == "meta" else dev) \
         .manual_seed(int(seed))
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor`` (a sharded
+    LM's parameter or activation, ``distributed/sharding.py``)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)

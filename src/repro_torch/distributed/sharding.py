@@ -16,30 +16,35 @@ shard's device.  A device may hold more than one shard, which plays the part
 of the reference's forced host device count: the CPU tests run 2, 4 and 8
 shards on ``["cpu"] * D``, the card runs them on ``cuda:0``.
 
-The LM half: :class:`ShardCtx` over a
-``launch.mesh`` mesh, ``current_ctx`` / ``use_ctx`` (thread-local),
-``shard_act``, ``shard_attn_logits`` and ``param_shardings``.  The
-reference's model code calls ``shard_act(x, kind)``, which constrains ``x``
-to a ``PartitionSpec`` when a mesh context is active.  On one controller
-there is nothing to constrain: ``shard_act`` and ``shard_attn_logits`` look
-the spec up as the reference does (an unknown ``kind`` raises ``KeyError``
-with a context active) and return their input, and the port's models do
-not call them.  ``param_shardings`` gives, per parameter, the reference's
-``PartitionSpec`` as a tuple of axis names (or tuples of them) and
-``None``, one entry a dimension: the same path-name rules, stacked-layer
-leading ``None`` and divisibility guard, so a sharded layout can be planned
-from the port's parameters.
+The LM half (the reference's GSPMD sharding, as ``torch.distributed.tensor``
+DTensors): :class:`ShardCtx` over a mesh, ``current_ctx`` / ``use_ctx``
+(thread-local), ``shard_act``, ``shard_attn_logits``, ``param_shardings``,
+``placements`` and ``shard_params``.  ``param_shardings`` gives, per
+parameter, the reference's ``PartitionSpec`` as a tuple of axis names (or
+tuples of them) and ``None``, one entry a dimension: the same path-name
+rules, stacked-layer leading ``None`` and divisibility guard.  Over a
+``DeviceMesh`` (``launch/mesh.py::device_mesh``), ``shard_params`` makes
+every parameter a DTensor with those placements, and the model code's
+``shard_act(x, kind)`` redistributes a DTensor activation to the spec of
+``kind``, where the reference's ``with_sharding_constraint`` pins it: the
+collectives that DTensor then inserts (an all-reduce of a row-parallel
+product's ``Partial`` sum, an all-gather of FSDP weights) are the SPMD
+program's.  A plain tensor, a ``launch.mesh.LocalMesh`` context (one
+controller: nothing to constrain) or no context leaves ``x`` as it is; an
+unknown ``kind`` raises ``KeyError`` whenever a context is active.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import is_dtensor, resolve_device
+from repro_torch.launch.mesh import LocalMesh, axis_sizes, mesh_axis_names
 
 __all__ = ["LEAF_AXIS", "LeafMesh", "LeafSharding", "ShardCtx", "current_ctx",
            "leaf_mesh", "leaf_sharding", "param_shardings", "shard_act",
@@ -124,7 +129,7 @@ def leaf_sharding(mesh: LeafMesh) -> LeafSharding:
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    mesh: object                          # launch.mesh.LocalMesh
+    mesh: object                          # DeviceMesh, or a LocalMesh layout
     dp: Tuple[str, ...] = ("data",)       # batch / FSDP axes
     tp: str = "model"                     # tensor-parallel axis
     seq_shard: bool = False               # sequence parallelism for long ctx
@@ -139,7 +144,12 @@ class ShardCtx:
 
     @property
     def tp_size(self) -> int:
-        return self.mesh.shape[self.tp]
+        return axis_sizes(self.mesh)[self.tp]
+
+    @property
+    def spmd(self) -> bool:
+        """The mesh is a ``DeviceMesh``: tensors are sharded over it."""
+        return not isinstance(self.mesh, LocalMesh)
 
 
 def current_ctx() -> Optional[ShardCtx]:
@@ -148,10 +158,20 @@ def current_ctx() -> Optional[ShardCtx]:
 
 @contextlib.contextmanager
 def use_ctx(ctx: Optional[ShardCtx]):
+    """``ctx`` active in this thread for the block.  Over a ``DeviceMesh``
+    the block also lets DTensor ops take plain tensors as replicated: the
+    model code's own positions, masks and rotary tables, which every rank
+    makes alike."""
     prev = current_ctx()
     _tls.ctx = ctx
     try:
-        yield
+        if ctx is not None and ctx.spmd:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                yield
+        else:
+            yield
     finally:
         _tls.ctx = prev
 
@@ -169,20 +189,120 @@ _ACT_SPECS = {
 }
 
 
-def shard_act(x: torch.Tensor, kind: str) -> torch.Tensor:
-    """The reference's named activation constraint: with a context active
-    its spec is looked up (``KeyError`` for an unknown ``kind``); one
-    controller has nothing to constrain, so ``x`` is returned."""
+def placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements, one a mesh dimension, of a per-dimension spec
+    (``param_shardings``' or ``_ACT_SPECS``' form): a tensor dimension
+    sharded over an axis is ``Shard(dim)`` on that mesh dimension, over a
+    tuple of axes ``Shard(dim)`` on each (the first axis outermost, as
+    JAX splits it); every other mesh dimension ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh_axis_names(mesh)
+    out = [Replicate()] * len(names)
+    for dim, ax in enumerate(spec):
+        for a in (() if ax is None else ax if isinstance(ax, tuple)
+                  else (ax,)):
+            out[names.index(a)] = Shard(dim)
+    return tuple(out)
+
+
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``want``, and its cotangent too: what
+    ``with_sharding_constraint`` does to a value and, in the transpose, to
+    its cotangent (a ``Partial`` gradient of the residual stream is
+    all-reduced here, as GSPMD reduces it; a masked-partial embedding's
+    forward reduction gets a gradient it can take)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh, ctx.want = mesh, want
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(ctx.mesh, ctx.want)
+        return g, None, None
+
+
+def _redistribute(x, spec: tuple, ctx: ShardCtx):
+    want = placements(spec, ctx.mesh)
+    if tuple(x.placements) == want:
+        return x
+    return _Constrain.apply(x, ctx.mesh, want)
+
+
+def shard_act(x: torch.Tensor, kind: str, lead: int = 0) -> torch.Tensor:
+    """The reference's named activation constraint.  With a context active
+    the spec of ``kind`` is looked up (``KeyError`` for an unknown one); a
+    DTensor ``x`` under a ``DeviceMesh`` context is redistributed to it (a
+    ``Partial`` sum is reduced, a dimension sharded elsewhere moved), any
+    other ``x`` is returned as it is.  ``lead`` unsharded dimensions come
+    first (a stack over layers)."""
     ctx = current_ctx()
-    if ctx is not None:
-        _ACT_SPECS[kind](ctx)
-    return x
+    if ctx is None:
+        return x
+    spec = (None,) * lead + _ACT_SPECS[kind](ctx)
+    if not (ctx.spmd and is_dtensor(x)):
+        return x
+    return _redistribute(x, spec, ctx)
 
 
 def shard_attn_logits(logits: torch.Tensor) -> torch.Tensor:
-    """(B, H, Sq, Sk) attention scores: heads over tp when divisible, else
-    query-sequence over tp; returned as they are (one controller)."""
-    return logits
+    """(B, H, Sq, Sk) attention scores: with ``attn_seq_shard``, heads over
+    tp when they divide, else the query sequence over tp.  The port's
+    self-attention forms no score tensor (K6 keeps its tiles on chip, and
+    its sharding rule shards by batch or heads only), so this only pins a
+    DTensor given to it; anything else is returned as it is."""
+    ctx = current_ctx()
+    if ctx is None or not ctx.attn_seq_shard or not (
+            ctx.spmd and is_dtensor(logits)):
+        return logits
+    if logits.shape[1] % ctx.tp_size == 0:
+        spec = (ctx.dp_spec, ctx.tp, None, None)
+    else:
+        spec = (ctx.dp_spec, None, ctx.tp, None)
+    return _redistribute(logits, spec, ctx)
+
+
+def shard_batch(x: torch.Tensor, ctx: ShardCtx):
+    """An input ``x`` (B, ...) as a DTensor, its batch over the data axes
+    when they divide it (else replicated), as the dry run lays inputs out."""
+    from torch.distributed.tensor import distribute_tensor
+
+    dp = ctx.dp_spec
+    dp_size = math.prod(axis_sizes(ctx.mesh)[a] for a in
+                        (dp if isinstance(dp, tuple) else (dp,)))
+    spec = (dp if x.shape[0] % dp_size == 0 else None,) + (None,) * (
+        x.dim() - 1)
+    return distribute_tensor(x, ctx.mesh, placements(spec, ctx.mesh),
+                             src_data_rank=None)
+
+
+def cache_kind(n_kv_heads: int) -> str:
+    """The reference's KV-cache spec: ``"cache"`` (heads over tp) when the
+    kv heads divide tp, else ``"cache_seq"`` (cache slots over tp)."""
+    ctx = current_ctx()
+    return "cache" if ctx is None or n_kv_heads % ctx.tp_size == 0 \
+        else "cache_seq"
+
+
+def shard_params(params, ctx: ShardCtx, expert_parallel: bool = False):
+    """``params`` as DTensors on ``ctx.mesh`` under ``param_shardings``.
+    Every rank passes the same full tensors (made from one seed, or carried
+    across from the reference) and keeps its own shard: no collective.
+    A stacked layers' leading dimension stays replicated."""
+    from torch.distributed.tensor import distribute_tensor
+
+    specs = param_shardings(params, ctx, expert_parallel=expert_parallel)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(node[k], spec[k]) for k in node}
+        return distribute_tensor(node, ctx.mesh, placements(spec, ctx.mesh),
+                                 src_data_rank=None)
+
+    return walk(params, specs)
 
 
 # --------------------------------------------------------------------------
@@ -260,7 +380,7 @@ def param_shardings(params, ctx: ShardCtx, expert_parallel: bool = False,
                 continue
             size = 1
             for a in (ax if isinstance(ax, tuple) else (ax,)):
-                size *= ctx.mesh.shape[a]
+                size *= axis_sizes(ctx.mesh)[a]
             fixed.append(ax if dim % size == 0 else None)
         return tuple(fixed)
 

@@ -28,7 +28,18 @@ products), saving q, k and v; its backward is
 ``flash_attention.flash_attention_backward``, float32 torch ops that
 recompute the scores (the reference has no Pallas backward kernel).  Only
 the forward counts a launch; a recompute under activation checkpointing
-runs, and counts, the forward again.  Both kernels take head widths 64, 128 and 256, those of the
+runs, and counts, the forward again.  On DTensor operands (an LM sharded over a ``DeviceMesh``,
+``distributed/sharding.py``) the operator has a sharding rule,
+:func:`_attention_sharding`: the batch sharded over any mesh axes, or the
+heads of q, k, v and the output together over an axis that both ``Hq`` and
+``Hkv`` divide (query head ``h``'s key/value head ``h // (Hq / Hkv)`` is then
+in the same shard), or all replicated; DTensor takes the one that moves
+least and runs the kernel on each rank's shard.  The query sequence is not
+offered: the kernels take one ``S`` for q and k and no query offset, so a
+query stripe would mask its keys wrongly.  The backward runs on each
+rank's shard too (``local_map``), at the placements the forward took: its
+torch ops slice, assign and batch heads in ways DTensor does not shard
+alike in every PyTorch version, and they need no collective.  Both kernels take head widths 64, 128 and 256, those of the
 ported dense configurations, with q, k and v of one type.  The reference's
 ``block_q``/``block_k`` arguments are TPU tile sizes and are not taken: the
 kernels' tiles are fixed (``KV_TILE``).
@@ -41,6 +52,7 @@ from pathlib import Path
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch._device import is_dtensor
 from repro_torch.kernels._build import (check_operand, launch, load_library,
                                         on_card)
 from repro_torch.kernels.flash_attention.flash_attention import (
@@ -111,16 +123,63 @@ def _flash_attention_fwd_flops(q_shape, k_shape, v_shape, causal, window,
                               causal)[0])
 
 
+def _attention_sharding(q, k, v, causal, window):
+    """K6's DTensor strategies, one mesh dimension at a time (DTensor
+    expands them over the mesh): (output placement, input placements)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    rules = [([Replicate()], [Replicate()] * 3 + [None, None]),
+             ([Shard(0)], [Shard(0)] * 3 + [None, None])]
+    hq, hkv = q.shape[1], k.shape[1]
+    if all(hq % m == 0 and hkv % m == 0 for m in q.mesh.shape):
+        rules.append(([Shard(1)], [Shard(1)] * 3 + [None, None]))
+    return rules
+
+
+def _register_sharding():
+    from torch.distributed.tensor.experimental import register_sharding
+
+    register_sharding(torch.ops.repro_torch.flash_attention_fwd.default)(
+        _attention_sharding)
+
+
+if torch.distributed.is_available():
+    _register_sharding()
+
+
+def _backward_on_shards(q, k, v, dout, causal: bool, window: int,
+                        placements: tuple):
+    """:func:`flash_attention_backward` of DTensor operands, run on each
+    rank's shard at the forward's output ``placements`` (batch, heads or
+    replicated on each mesh dimension; q, k, v and ``dout`` brought
+    there)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = q.device_mesh, list(placements)
+    q, k, v, dout = (t.redistribute(mesh, pl) for t in (q, k, v, dout))
+    return local_map(
+        lambda q, k, v, d: flash_attention_backward(q, k, v, d, causal,
+                                                    window),
+        out_placements=(pl, pl, pl), in_placements=(pl, pl, pl, pl),
+        device_mesh=mesh)(q, k, v, dout)
+
+
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return flash_attention_fwd(q, k, v, causal, window)
+        out = flash_attention_fwd(q, k, v, causal, window)
+        ctx.placements = tuple(out.placements) if is_dtensor(out) else None
+        return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
+        if ctx.placements is not None:
+            return (*_backward_on_shards(q, k, v, dout, ctx.causal,
+                                         ctx.window, ctx.placements),
+                    None, None)
         return (*flash_attention_backward(q, k, v, dout, ctx.causal,
                                           ctx.window), None, None)
 

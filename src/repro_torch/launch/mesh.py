@@ -6,22 +6,35 @@ and a flat, row-major tuple of torch devices (repeats allowed, so that
 ``distributed.sharding.leaf_mesh`` allows).  It plays the part of the
 reference's ``jax.sharding.Mesh`` for ``ShardCtx`` (``shape``, axis names)
 and for ``distributed.pipeline.pipeline_forward`` (the devices along an
-axis).  Defined as functions, so importing this module touches no device.
+axis).  ``make_production_mesh`` is the reference's 16 x 16 (or 2 x 16 x 16)
+mesh as such a layout, over ``meta`` devices.  Defined as functions, so
+importing this module touches no device.
 
-The reference's ``make_production_mesh`` (a 16 x 16 or 2 x 16 x 16 TPU
-mesh for the dry run) is not here: it belongs to the dry-run tooling,
-ROADMAP Queue 1 item 12h.
+The SPMD form: :func:`device_mesh` is a ``torch.distributed`` ``DeviceMesh``
+over the same axis names, one rank a device, built over whatever default
+process group the caller has set up (``torch.distributed.tensor`` shards
+the LM over it, ``distributed/sharding.py``).  :func:`file_process_group`
+sets one up from a ``FileStore`` (NCCL on the card, gloo on the CPU; no
+network), :func:`fake_process_group` a fake one of any size, whose
+collectives move nothing, for counting a sharded step on one process
+(``launch/dryrun.py``).  ``LocalMesh`` stays for ``pipeline_forward`` and
+the serving engine's single controller.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 
 __all__ = ["make_production_mesh", "make_local_mesh", "mesh_axis_names"]
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +65,7 @@ class LocalMesh:
 def make_production_mesh(*, multi_pod: bool = False) -> LocalMesh:
     """16x16 single-pod (256 chips) or 2x16x16 multi-pod (512 chips), over
     ``meta`` devices: a layout to plan shardings on, not to run."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = PRODUCTION[multi_pod]
     return LocalMesh(axes, shape, (torch.device("meta"),) * math.prod(shape))
 
 
@@ -73,4 +85,67 @@ def make_local_mesh(data: int | None = None, model: int = 1, devices=None):
 
 
 def mesh_axis_names(mesh) -> tuple[str, ...]:
-    return tuple(mesh.axis_names)
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a :class:`LocalMesh` or a ``DeviceMesh``."""
+    if isinstance(mesh, LocalMesh):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def device_mesh(sizes: tuple, axis_names: tuple, device_type: str):
+    """A ``DeviceMesh`` of ``sizes`` over ``axis_names``, rank-major, over
+    the default process group, whose world size must be their product."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh needs a default process group: "
+                           "set one up first (file_process_group, "
+                           "fake_process_group or torchrun)")
+    n = math.prod(sizes)
+    if dist.get_world_size() != n:
+        raise ValueError(f"a mesh of shape {tuple(sizes)} needs {n} ranks, "
+                         f"the process group has {dist.get_world_size()}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(tuple(sizes)),
+                      mesh_dim_names=tuple(axis_names))
+
+
+def production_device_mesh(*, multi_pod: bool = False):
+    """:func:`make_production_mesh`'s shape as a ``DeviceMesh`` of device
+    type ``cuda`` (256 or 512 ranks: a fake process group, for counting;
+    DTensor leaves ``meta`` shards on ``meta``)."""
+    return device_mesh(*PRODUCTION[multi_pod], "cuda")
+
+
+@contextlib.contextmanager
+def file_process_group(backend: str, rank: int, world_size: int,
+                       store_path: str, device=None):
+    """The default process group for the block, rendezvous through a
+    ``FileStore`` at ``store_path`` (every rank passes the same new path);
+    destroyed on exit.  ``device``: NCCL's device for this rank."""
+    store = dist.FileStore(str(store_path), world_size)
+    kw = {"device_id": torch.device(device)} if device is not None else {}
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world_size, **kw)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """A default process group of ``world_size`` ranks driven by this one
+    process as rank 0: collectives are issued and return at once, moving
+    nothing.  A sharded step runs rank 0's part of the program on it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -13,9 +13,14 @@ Variants (each is one hypothesis from the §Perf log):
   noremat        — disable activation checkpointing (FLOPs down, memory up)
   all            — attn_seq_shard + chunked_ce
 
-Counts are global and taken on ``meta`` tensors (``dryrun.count_work``).
-One process drives the port, so its ``ShardCtx`` constrains nothing:
-``attn_seq_shard`` changes no count here, and the output says so.
+Counts are taken on ``meta`` tensors: a dense cell's per device as the
+sharded program (``dryrun.count_sharded``), any other family's globally
+(``dryrun.count_work``).  ``attn_seq_shard`` still changes no count: the
+port's self-attention is K6, which forms no score tensor for
+``shard_attn_logits`` to pin, and K6's sharding rule offers the batch and
+the heads but not the query sequence (it takes one ``S`` for q and k and no
+query offset; a query stripe with a ``row_base``, as K1 has, is queued in
+ROADMAP).  The output says so.
 """
 import argparse
 import dataclasses
@@ -32,8 +37,9 @@ VARIANTS = {
                 train=dict(chunked_ce=512)),
 }
 
-SEQ_SHARD_NOTE = ("attn_seq_shard changes no count on one controller: "
-                  "ShardCtx is the identity there")
+SEQ_SHARD_NOTE = ("attn_seq_shard changes no count: K6 forms no score "
+                  "tensor to pin and its sharding rule has no query-sequence "
+                  "strategy (one S for q and k, no query offset)")
 
 
 def run_variant(arch: str, shape: str, variant: str, force=False):

@@ -10,9 +10,12 @@ The reference reads FLOPs and bytes from XLA's ``compiled.cost_analysis()``
 and collective bytes from the optimized HLO text, at TPU v5e constants.
 PyTorch eager has no compiled program: the port counts FLOPs and bytes by
 running the step on ``meta`` tensors (``launch/dryrun.py::count_work``) and
-prices them at the NVIDIA H100 SXM's constants (:class:`HW`).  One process
-drives one card, so there are no collectives to count: ``collective_bytes``
-(an HLO parser) is not ported and ``coll_bytes`` is 0.
+prices them at the NVIDIA H100 SXM's constants (:class:`HW`).  The
+reference parses collective bytes out of the partitioned program's HLO
+text; the port's :func:`collective_bytes` sums the records of the
+collectives that the dry run's counter saw one device issue in the
+sharded step (``launch/dryrun.py::count_sharded``), to the reference's
+dict.  ``LINK_BW`` prices them at NVLink's rate out of one card.
 
 :func:`bound` is the yardstick ``chip_smoke.py`` holds every kernel's time
 against, so the smoke and the dry run share one.  A kernel's own work (K6's
@@ -24,7 +27,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-__all__ = ["HW", "roofline_terms", "Roofline"]
+__all__ = ["HW", "collective_bytes", "roofline_terms", "Roofline"]
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
 
 
 class HW:
@@ -99,11 +105,27 @@ class Roofline:
         }
 
 
+def collective_bytes(records) -> Dict[str, int]:
+    """Result-shape bytes per collective kind over one device's
+    ``(kind, bytes)`` records, with their ``count`` and ``total``: the
+    reference's dict (there from the optimized HLO)."""
+    out = {k: 0 for k in COLLECTIVES}
+    out["count"] = 0
+    for kind, nbytes in records:
+        if kind not in out or kind == "count":
+            raise ValueError(f"unknown collective kind {kind!r}")
+        out[kind] += int(nbytes)
+        out["count"] += 1
+    out["total"] = sum(out[k] for k in COLLECTIVES)
+    return out
+
+
 def roofline_terms(cost: dict, coll: Dict[str, int], n_chips: int,
                    model_flops: float = 0.0,
                    tokens_per_step: int = 0) -> Roofline:
     """``cost``: ``{"flops", "bytes accessed"}`` of the whole step (all
-    chips); ``coll``: ``{"total": bytes}`` or ``{}``."""
+    chips); ``coll``: ``{"total": bytes}`` of one device's collectives
+    (counted once, as the reference passes them), or ``{}``."""
     flops = float(cost.get("flops", 0.0))
     byts = float(cost.get("bytes accessed", 0.0))
     return Roofline(

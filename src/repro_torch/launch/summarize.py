@@ -5,8 +5,10 @@ Aggregate dry-run artifacts into the EXPERIMENTS.md summary tables.
     PYTHONPATH=src python -m repro_torch.launch.summarize
 writes artifacts/roofline_torch.md and artifacts/summary_torch.json (beside
 the reference's roofline.md and summary.json) from the port's records
-(``artifacts/dryrun_torch``), and prints the headline counts.  The port's
-records have no collectives (one controller): their column reads 0.  They
+(``artifacts/dryrun_torch``), and prints the headline counts.  A dense
+cell's record is the sharded program's (``sharded: true``), with one
+device's collective bytes; every other record has ``collectives: null``
+(not counted), and its collective columns read ``-``.  They
 are counted on meta (``"counted": "meta"``), with no compile: their compile
 column reads ``-``, and a record with a roofline shows it even at 0 FLOPs
 (the paper cell counts no products), where the reference's ``(scanned-only)``
@@ -31,8 +33,15 @@ def load_cells():
     return cells
 
 
-def _coll_gb(c) -> float:
-    return c.get("collectives", {}).get("total", 0) / 1e9
+def _coll_gb(c) -> str:
+    """One device's collective GB, or ``-`` where none were counted."""
+    coll = c.get("collectives")
+    return "-" if coll is None else f"{coll['total'] / 1e9:.2f}"
+
+
+def _t_coll(c, rl) -> str:
+    return "-" if c.get("collectives") is None else \
+        f"{rl['t_collective_s']:.4g}"
 
 
 def main():
@@ -55,14 +64,14 @@ def main():
         if not rl or not (rl.get("flops") or c.get("counted") == "meta"):
             md.append(f"| {c['cell']} | {compile_s} | - | - | - | "
                       f"(scanned-only) | - | - | "
-                      f"{_coll_gb(c):.2f} |")
+                      f"{_coll_gb(c)} |")
             continue
         md.append(
             f"| {c['cell']} | {compile_s} | "
             f"{rl['t_compute_s']:.4g} | {rl['t_memory_s']:.4g} | "
-            f"{rl['t_collective_s']:.4g} | {rl['bottleneck']} | "
+            f"{_t_coll(c, rl)} | {rl['bottleneck']} | "
             f"{rl['useful_flops_frac']:.3f} | {rl['mfu_at_roofline']:.2%} | "
-            f"{_coll_gb(c):.2f} |")
+            f"{_coll_gb(c)} |")
     md.append("")
     md.append("## Skipped by design")
     for c in sorted(skipped, key=lambda c: c["cell"]):
@@ -86,9 +95,9 @@ def main():
                 continue
             md.append(
                 f"| {c['cell']} | {rl['t_compute_s']:.4g} | "
-                f"{rl['t_memory_s']:.4g} | {rl['t_collective_s']:.4g} | "
+                f"{rl['t_memory_s']:.4g} | {_t_coll(c, rl)} | "
                 f"{rl['bottleneck']} | {rl['useful_flops_frac']:.3f} | "
-                f"{_coll_gb(c):.2f} |")
+                f"{_coll_gb(c)} |")
 
     out = ART.parent / "roofline_torch.md"
     out.write_text("\n".join(md) + "\n")

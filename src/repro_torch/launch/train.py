@@ -18,8 +18,10 @@ schedule (``warmup_steps=max(steps // 20, 2)``, ``total_steps=steps``),
 checkpoint cadence (``save_async`` every ``--ckpt-every`` steps, a
 synchronous final save, a save on preemption), watchdog and printed lines as
 the reference.  The step runs inside ``use_ctx(ShardCtx(...))`` over a
-one-device ``launch.mesh`` mesh; the port's models run on one device and
-place nothing by it.  The reference jits the step with its state donated;
+one-device ``launch.mesh.LocalMesh``, where ``shard_act`` constrains
+nothing: the launcher drives one card.  (The dense LM runs sharded over a
+``DeviceMesh``, ``distributed/sharding.py``; the launcher on several cards
+is queued in ROADMAP.)  The reference jits the step with its state donated;
 here the step returns a new state and the old one is freed when the loop
 drops it.
 

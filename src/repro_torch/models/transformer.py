@@ -10,10 +10,13 @@ SSM layer's ``params["layers"]["ssm"]["in_proj"]`` ``(L, d_model, 2 Di + 2 G
 N + H)``; a hybrid's one shared attention block ``params["shared_attn"]``,
 unstacked); the layer loop is a Python loop over that axis.  Per-layer
 windows and the hybrid's attention points (``attn_flags``) are Python ints.
-A vlm's ``patches`` (B, P, D) are prepended to the token embeddings.  The
-reference's ``shard_act`` / ``shard_attn_logits`` are the identity without a
-device mesh and are dropped here (``distributed/sharding.py`` has them, the
-identity on one controller).
+A vlm's ``patches`` (B, P, D) are prepended to the token embeddings.
+``shard_act`` is called where the reference calls it (the embeddings, each
+residual add, the logits): the identity on plain tensors, a redistribution
+of DTensors when the parameters are sharded over a ``DeviceMesh``
+(``distributed/sharding.py``).  The embedding lookup is
+``torch.nn.functional.embedding``, the same gather as indexing, which
+DTensor shards over a vocabulary-sharded table.
 ``cfg.remat`` (the reference's ``jax.checkpoint`` around each layer body)
 is ``torch.utils.checkpoint`` around each layer in a forward that takes a
 gradient (``remat_call``); it recomputes and changes no value.
@@ -21,9 +24,11 @@ gradient (``remat_call``); it recomputes and changes no value.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device, seeded_generator
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.models.attention import (attn_apply, attn_init,
                                           self_attention)
 from repro_torch.models.layers import (Dtypes, dense_init, mlp_apply,
@@ -231,21 +236,21 @@ def shared_block(sp: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     ``(x, k, v)``, the attention's K (after RoPE) and V for the cache."""
     a, k, v = self_attention(sp["attn"], rms_norm(x, sp["ln1"], cfg.norm_eps),
                              cfg, positions, window=shared_window(cfg))
-    x = x + a
+    x = x + shard_act(a, "btd")
     m = mlp_apply(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps), x.dtype)
-    return x + m, k, v
+    return x + shard_act(m, "btd"), k, v
 
 
 def embed_inputs(params: dict, tokens, cfg, patches=None) -> torch.Tensor:
     """Token embeddings in the compute dtype, a vlm's ``patches`` (B, P, D)
-    prepended."""
+    prepended, constrained to ``"btd"``."""
     emb = params["embed"]
-    x = emb[torch.as_tensor(tokens, device=emb.device)].to(
+    x = F.embedding(torch.as_tensor(tokens, device=emb.device), emb).to(
         Dtypes.compute(cfg))
     if patches is not None:
         x = torch.cat([torch.as_tensor(patches, device=emb.device).to(x.dtype),
                        x], dim=1)
-    return x
+    return shard_act(x, "btd")
 
 
 def unembedding(params: dict, cfg, dt) -> torch.Tensor:
@@ -266,15 +271,17 @@ def _layer(params: dict, lp: dict, x: torch.Tensor, positions, cfg, dt,
            window: int, flag: int):
     """One layer of ``lm_forward``: ``(x, its MoE aux loss or None)``."""
     if _is_ssm(cfg):
-        x = x + ssm_apply(lp["ssm"], rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
-                          dt)
+        x = x + shard_act(ssm_apply(lp["ssm"],
+                                    rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                                    dt), "btd")
         if cfg.family == "hybrid" and flag:
             x = shared_block(params["shared_attn"], x, cfg, positions)[0]
         return x, None
-    x = x + attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                       positions, window=window)
+    x = x + shard_act(attn_apply(lp["attn"],
+                                 rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                                 positions, window=window), "btd")
     m, aux = ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg, dt)
-    return x + m, aux
+    return x + shard_act(m, "btd"), aux
 
 
 def lm_forward(params: dict, tokens: torch.Tensor, cfg, patches=None):
@@ -296,4 +303,4 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg, patches=None):
         if aux_l is not None:
             aux = aux + aux_l
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x @ unembedding(params, cfg, dt), aux
+    return shard_act(x @ unembedding(params, cfg, dt), "btv"), aux

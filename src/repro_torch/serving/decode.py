@@ -31,6 +31,15 @@ values).  Self-attention in ``prefill`` (the encoder's too) goes through K6;
 ``decode_step`` runs the reference's one-query attention, cross-attention
 against the cached K/V and the SSM recurrence in plain torch.
 
+Sharded (parameters as DTensors over a ``DeviceMesh``, inputs sharded by
+batch, ``distributed/sharding.py``), the dense path constrains the
+embeddings and each residual add to ``"btd"`` as the reference's prefill
+does (its decode step leaves that to GSPMD; here ``decode_step`` pins the
+same points), and the cache (once laid out for decoding) and each layer's
+cache to the reference's cache spec:
+``"cache"`` (kv heads over tp) when the kv heads divide tp, else
+``"cache_seq"`` (slots over tp).
+
 A ring keeps ``min(S, window)`` slots, as the reference's does: when the
 prompt is shorter than the window, the first decoded token takes slot
 ``S % S = 0`` and evicts token 0, though the window still covers it.  The
@@ -50,7 +59,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import is_dtensor, resolve_device
+from repro_torch.distributed.sharding import cache_kind, shard_act
 from repro_torch.models.attention import (KVCache, attn_decode,
                                           cross_attend, cross_kv, init_cache,
                                           self_attention)
@@ -103,9 +113,26 @@ def _finalize_kv(ks: torch.Tensor, vs: torch.Tensor, s: int, ring: bool,
             ks = torch.roll(ks, shift, dims=2)
             vs = torch.roll(vs, shift, dims=2)
         return ks, vs
+    return _pad_slots(ks), _pad_slots(vs)
+
+
+def _pad_slots(t: torch.Tensor) -> torch.Tensor:
+    """(L, B, S, H, D) with ``DECODE_SLACK`` zero slots after the S; a
+    DTensor shard by shard (``local_map``), its slots gathered first if
+    they are sharded (DTensor's own pad rule fails to plan a
+    redistribution in some PyTorch versions)."""
     pad = (0, 0, 0, 0, 0, DECODE_SLACK)
-    return (torch.nn.functional.pad(ks, pad),
-            torch.nn.functional.pad(vs, pad))
+    if not is_dtensor(t):
+        return torch.nn.functional.pad(t, pad)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = t.device_mesh
+    pl = [Replicate() if p == Shard(2) else p for p in t.placements]
+    t = t.redistribute(mesh, pl)
+    return local_map(lambda x: torch.nn.functional.pad(x, pad),
+                     out_placements=pl, in_placements=(pl,),
+                     device_mesh=mesh)(t)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,14 +215,15 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, patches=None,
     if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, x, pos, cfg, dt)
     ks, vs = [], []
+    kind = cache_kind(cfg.n_kv_heads)
     for i, w in enumerate(layer_windows(cfg)):
         lp = layer_params(params["layers"], i)
         a, k, v = self_attention(lp["attn"],
                                  rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                                  pos, window=w)
-        x = x + a
-        x = x + ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
-                          dt)[0]
+        x = x + shard_act(a, "btd")
+        x = x + shard_act(ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                    cfg, dt)[0], "btd")
         ks.append(k)
         vs.append(v)
 
@@ -203,7 +231,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, patches=None,
     ks, vs = _finalize_kv(torch.stack(ks), torch.stack(vs), s, ring,
                           cfg.sliding_window)
     state = DecodeState(kv=KVCache(
-        k=ks, v=vs, pos=torch.full((cfg.n_layers,), s, dtype=torch.int32,
+        k=shard_act(ks, kind, lead=1), v=shard_act(vs, kind, lead=1), pos=torch.full((cfg.n_layers,), s, dtype=torch.int32,
                                    device=x.device), ring=ring))
     return _logits(params, x, cfg, dt), state
 
@@ -284,14 +312,18 @@ def decode_step(params: dict, token: torch.Tensor, state: DecodeState, cfg):
 
 def _decode_attn(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):
     caches = []
+    kind = cache_kind(cfg.n_kv_heads)
     for i, w in enumerate(layer_windows(cfg)):
         lp = layer_params(params["layers"], i)
+        cache = _index(state.kv, i)
+        cache = dataclasses.replace(cache, k=shard_act(cache.k, kind),
+                                    v=shard_act(cache.v, kind))
         a, cache = attn_decode(
-            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-            _index(state.kv, i), cfg, window=w)
-        x = x + a
-        x = x + ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg,
-                          dt)[0]
+            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cache, cfg,
+            window=w)
+        x = x + shard_act(a, "btd")
+        x = x + shard_act(ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                    cfg, dt)[0], "btd")
         caches.append(cache)
     return x, DecodeState(kv=_stack(caches))
 

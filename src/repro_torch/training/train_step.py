@@ -9,6 +9,20 @@ zero gradient, as ``jax.grad`` gives it.  The compute dtype is the
 configuration's; parameters, gradients and optimizer moments are float32.
 With ``cfg.remat`` the forward checkpoints each layer and recomputes it in
 the backward, which launches K6 a second time for each layer.
+
+Sharded (parameters as DTensors, ``distributed/sharding.py::shard_params``;
+the batch sharded over the data axes), the same code runs as DTensor ops.
+The cross-entropy of vocabulary-sharded logits (``"btv"``) is an explicit
+reduction in DTensor ops (``_ce_sharded``): each rank's log-sum-exp over
+its vocabulary shard, the max and the sums reduced across shards, the
+label's logit picked against a sharded vocabulary index, so the (B, S, V)
+logits are never gathered.  (``torch.distributed.tensor.parallel.
+loss_parallel()`` takes a 1-D mesh only in the PyTorch the card runs.)
+The loss is reduced to a replicated scalar.  Each gradient is
+redistributed to its parameter's placements (an FSDP gradient's
+``Partial`` sum reduce-scattered), so the optimizer's update, and the
+global norm's sum over shards (a ``Partial`` DTensor reduced by DTensor),
+run on each rank's shard.
 """
 from __future__ import annotations
 
@@ -16,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch._device import is_dtensor
 from repro_torch.models.transformer import leaves, lm_forward
 from repro_torch.models.whisper import encdec_forward
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
@@ -42,6 +57,8 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
     length, so the (B, S, V) float32 log-softmax is never formed at once;
     as in the reference, positions past the last whole chunk are not
     scored, and the sum is divided by B S."""
+    if is_dtensor(logits):
+        return _ce_sharded(logits, labels, chunked)
     if chunked:
         b, s, _ = logits.shape
         tot = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -52,6 +69,32 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
         return tot / (b * s)
     ls = torch.log_softmax(logits.to(torch.float32), dim=-1)
     return -ls.gather(-1, labels[..., None]).mean()
+
+
+def _ce_sharded(logits, labels, chunked: int):
+    """:func:`_ce` of DTensor logits (B, S, V), the vocabulary sharded:
+    ``logsumexp - the label's logit`` from each rank's vocabulary shard,
+    the max and the sums reduced across shards by DTensor; the label's
+    logit picked by comparing the labels with a vocabulary index sharded
+    as the logits are, so no rank forms the whole vocabulary."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    b, s, v = logits.shape
+    mesh = logits.device_mesh
+    vocab = distribute_tensor(
+        torch.arange(v, device=logits.device), mesh,
+        [Shard(0) if p.is_shard(logits.ndim - 1) else Replicate()
+         for p in logits.placements], src_data_rank=None)
+    parts = ([slice(i * chunked, (i + 1) * chunked)
+              for i in range(s // chunked)] if chunked else [slice(None)])
+    tot = 0.0
+    for sl in parts:
+        x = logits[:, sl].to(torch.float32)
+        z = x - x.detach().amax(dim=-1, keepdim=True)
+        lse = z.exp().sum(dim=-1).log()
+        picked = torch.where(labels[:, sl, None] == vocab, z, 0.0).sum(dim=-1)
+        tot = tot + (lse - picked).sum()
+    return (tot / (b * s)).redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def lm_loss(params: dict, batch: dict, cfg, aux_weight: float = 0.01,
@@ -76,11 +119,14 @@ def _value_and_grad(loss_fn, params: dict, batch: dict):
     """``(loss, metrics), grads`` of ``loss_fn(params, batch)``; the
     gradients float32 tensors, detached."""
     leafs = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    flat = list(leaves(leafs))
+    sharded = is_dtensor(flat[0])
     with torch.enable_grad():
         loss, metrics = loss_fn(leafs, batch)
-        flat = list(leaves(leafs))
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    by_id = {id(p): (torch.zeros_like(p) if g is None else g)
+    by_id = {id(p): (torch.zeros_like(p) if g is None else
+                     g.redistribute(p.device_mesh, p.placements) if sharded
+                     else g)
              for p, g in zip(flat, grads)}
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             tree_map(lambda p: by_id[id(p)], leafs))

@@ -274,9 +274,35 @@ def test_run_cell_on_a_smoke_override_is_ok(tmp_path, monkeypatch):
     assert rec["roofline"]["flops"] == rec["flops"] > 0
     assert 0 < rec["argument_bytes_per_device"] < 3 * 4 * cfg.param_count()
     assert "compile_s" not in rec
+    # a dense cell is counted per device as the sharded program and
+    # globalised as the reference does: FLOPs and bytes x chips, the
+    # collectives once (the row-parallel products' reductions among them)
+    assert rec["sharded"] is True
+    assert rec["flops"] == rec["flops_per_device"] * 256
+    assert rec["bytes"] == rec["bytes_per_device"] * 256
+    coll = rec["collectives"]
+    assert coll["all-reduce"] > 0 and coll["all-gather"] > 0
+    assert coll["total"] == rec["roofline"]["coll_bytes"] > 0
     assert json.loads((tmp_path / f"{rec['cell']}.json").read_text()) == rec
     # a second call reads the record back
     assert dryrun.run_cell("smollm-360m", "train_4k", False) == rec
+
+
+def test_run_cell_of_a_family_not_sharded_counts_globally(tmp_path,
+                                                          monkeypatch):
+    """A family outside ``SHARDED_FAMILIES`` keeps the unsharded count over
+    the chips, its collectives not counted (null, not 0)."""
+    monkeypatch.setattr(dryrun, "ART", tmp_path)
+    cfg = dataclasses.replace(registry.get_smoke_config("mamba2-130m"),
+                              ssm_chunk=8)
+    assert cfg.family not in dryrun.SHARDED_FAMILIES
+    rec = dryrun.run_cell("mamba2-130m", "train_4k", False,
+                          cfg_override=cfg)
+    assert rec["status"] == "ok", rec.get("trace")
+    assert rec["sharded"] is False and rec["collectives"] is None
+    assert "flops_per_device" not in rec and "bytes_per_device" not in rec
+    assert rec["roofline"]["coll_bytes"] == 0.0
+    assert rec["flops"] > 0 and rec["n_chips"] == 256
 
 
 def test_run_cell_skips_full_attention_long_500k(tmp_path, monkeypatch):

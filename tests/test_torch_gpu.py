@@ -1258,3 +1258,117 @@ def test_cuda_counted_work_equals_the_meta_count(shape, k6):
     assert got == want
     assert flash_attention.launches_by_route.get("sm90_tf32x3", 0) == \
         before + k6
+
+
+@pytest.mark.gpu
+def test_cuda_spmd_one_rank_mesh_matches_plain_tensors(tmp_path):
+    """smollm cut to d_model 128 (heads of 64) as DTensors over a one-rank
+    NCCL mesh: a float32 prefill and train step equal the same calls on
+    plain tensors (``rtol=1e-5``, ``atol`` 1e-6 of the largest magnitude, at
+    least 1), K6 launched once a layer in the prefill, twice in the step
+    (``remat``), all on its float32 route."""
+    _card()
+    from repro_torch._device import is_dtensor
+    from repro_torch.distributed.sharding import (ShardCtx, shard_batch,
+                                                  shard_params, use_ctx)
+    from repro_torch.launch.mesh import device_mesh, file_process_group
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving.decode import prefill
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    cfg = dataclasses.replace(_small("smollm-360m"), remat=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-4)
+    torch.cuda.set_device(0)
+    params = init_lm(cfg, 0, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    step = make_train_step(cfg, opt)
+
+    def close(got, want):
+        got = got.full_tensor() if is_dtensor(got) else got
+        atol = 1e-6 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+    with file_process_group("nccl", 0, 1, tmp_path / "store",
+                            device="cuda:0"):
+        ctx = ShardCtx(mesh=device_mesh((1, 1), ("data", "model"), "cuda"))
+        want = prefill(params, tokens[:, :-1], cfg)[0]
+        plain, pm = step(init_train_state(params, opt), {"tokens": tokens})
+        sharded = shard_params(params, ctx)
+        before = flash_attention.launches_by_route.get("sm90_tf32x3", 0)
+        with use_ctx(ctx):
+            got = prefill(sharded, shard_batch(tokens[:, :-1], ctx), cfg)[0]
+            new, m = step(init_train_state(sharded, opt),
+                          {"tokens": shard_batch(tokens, ctx)})
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_route.get("sm90_tf32x3", 0) == \
+            before + 3 * cfg.n_layers
+        close(got, want)
+        close(m["loss"], pm["loss"])
+        close(m["grad_norm"], pm["grad_norm"])
+        for k in ("embed", "unembed"):
+            close(new.params[k], plain.params[k])
+        for k, w in plain.params["layers"]["attn"].items():
+            close(new.params["layers"]["attn"][k], w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_cuda_spmd_count_on_a_fake_group_equals_meta(shape):
+    """The dry run's sharded cell (``build_sharded_cell``, smollm cut to
+    d_model 128, heads of 64, batch 2, train with remat) counted per device
+    on a fake 2 x 2 group: CUDA shards and meta shards give the same
+    FLOPs, bytes, collective records and argument bytes."""
+    _card()
+    from repro_torch.launch.dryrun import build_sharded_cell, count_sharded
+    from repro_torch.launch.mesh import device_mesh, fake_process_group
+
+    cfg = dataclasses.replace(_small("smollm-360m"),
+                              remat=shape == "train_4k")
+    works = []
+    with fake_process_group(4):
+        mesh = device_mesh((2, 2), ("data", "model"), "cuda")
+        for device in ("cuda", "meta"):
+            fn, args, arg_bytes, *_ = build_sharded_cell(
+                "smollm-360m", shape, False, cfg_override=cfg,
+                batch_override=2, device=device, mesh=mesh)
+            work = count_sharded(fn, *args)
+            works.append((work.flops, work.bytes, work.collectives,
+                          arg_bytes))
+        torch.cuda.synchronize()
+    card, meta = works
+    assert card == meta
+    assert card[0] > 0 and card[1] > 0 and card[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k6_on_head_shards_matches_plain(dtype):
+    """K6 through its DTensor rule with q, k, v sharded by heads over a
+    fake 2-rank axis: rank 0's shard is the kernel on the first half of the
+    heads (GQA 4 / 2), equal to the plain version on those heads."""
+    _card()
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.mesh import device_mesh, fake_process_group
+
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 4, 256, 64, generator=g).to("cuda", dtype)
+    k, v = (torch.randn(2, 2, 256, 64, generator=g).to("cuda", dtype)
+            for _ in range(2))
+    with fake_process_group(2):
+        mesh = device_mesh((2,), ("model",), "cuda")
+        dq, dk, dv = (DTensor.from_local(t[:, :t.shape[1] // 2], mesh,
+                                         [Shard(1)], run_check=False,
+                                         shape=t.shape, stride=t.stride())
+                      for t in (q, k, v))
+        out = flash_attention(dq, dk, dv, causal=True)
+        assert tuple(out.placements) == (Shard(1),)
+        got = out.to_local()
+        torch.cuda.synchronize()
+    want = flash_attention_plain(q[:, :2], k[:, :1], v[:, :1], causal=True)
+    if dtype == torch.bfloat16:
+        _assert_k6_bf16_matches_plain(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

@@ -294,9 +294,9 @@ def test_divergence_name_is_the_fitted_divergence(small_fitted_vdt):
 
 
 # the reference's names a port module leaves out, each with its reason
-# (README.md): collective_bytes parses XLA's HLO text, which PyTorch eager
-# has no counterpart of; one process drives the card, with no collectives
-NOT_IN_PORT = {"launch.roofline": {"collective_bytes"}}
+# (README.md): none since collective_bytes sums the sharded dry run's
+# collective records (launch/dryrun.py::count_sharded)
+NOT_IN_PORT: dict = {}
 
 
 @pytest.mark.parametrize("module", ["data.pipeline", "runtime.checkpoint",
@@ -306,7 +306,7 @@ NOT_IN_PORT = {"launch.roofline": {"collective_bytes"}}
                                     "configs.shapes", "launch.roofline"])
 def test_new_modules_export_the_reference_names(module):
     """Each module the last two slices ported exports the reference's
-    ``__all__``; ``launch/roofline.py`` all of it but the HLO parser."""
+    ``__all__``, ``launch/roofline.py``'s ``collective_bytes`` included."""
     ref = importlib.import_module(f"repro.{module}")
     port = importlib.import_module(f"repro_torch.{module}")
     want = set(ref.__all__) - NOT_IN_PORT.get(module, set())
