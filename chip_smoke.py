@@ -256,23 +256,34 @@ Phases (any failure exits non-zero):
    device's busy share (device time of 5 profiled steps over 5 medians),
    peak memory.
 
-21. ``[spmd]``: the dense LM as an SPMD program (``distributed/sharding.py``:
+21. ``[spmd]``: the LM as an SPMD program (``distributed/sharding.py``:
    parameters as DTensors under the reference's ``param_shardings``, inputs
    sharded by batch, ``shard_act`` at the reference's points, K6 through its
-   DTensor sharding rule): (a) smollm-360m at full width over a one-rank
-   NCCL ``DeviceMesh`` ("data", "model"), a bfloat16 prefill of 4 x 2,048
-   tokens (K6 32 launches on ``sm90_bf16``) and one float32 train step of 2
-   x 2,048 (remat; K6 64 on ``sm90_tf32x3``), each against the same call on
+   DTensor sharding rule; the MoE dispatch and combine, the SSM conv, SSD
+   and recurrence on shards through ``local_map``): (a) over a one-rank
+   NCCL ``DeviceMesh`` ("data", "model"), each against the same call on
    plain tensors (f32 ``rtol=1e-5``, ``atol`` 1e-6 of the largest
    magnitude, at least 1, 1e-5 of it for the first moment; bf16 ``1e-2``;
-   whether bit for bit is printed); (b) the dry run's own sharded cells
+   whether bit for bit is printed): smollm-360m at full width, a bfloat16
+   prefill of 4 x 2,048 tokens (K6 32 launches on ``sm90_bf16``) and one
+   float32 train step of 2 x 2,048 (remat; K6 64 on ``sm90_tf32x3``); then
+   ``SPMD_FAMILIES`` at full width: deepseek-moe-16b at 16 of its 28 layers
+   (experts over ``model``; K6 16 a prefill), mamba2-130m and zamba2-1.2b
+   at full depth (K6 0 and 6), a bfloat16 prefill of 4 x 2,048 and
+   ``SPMD_DECODE`` greedy decode steps (an SSM model's after a prefill of
+   255 tokens, zamba2-1.2b's window set to 255), and a float32 train step
+   of 2 x 2,048 for deepseek-moe-16b at 2 layers and mamba2-130m at full
+   size; (b) the dry run's own sharded cells
    (``launch/dryrun.py::build_sharded_cell``: its parameter, batch and
-   decode-cache placements, the cache write through ``local_map``) for
-   smollm-360m's ``train_4k``, ``prefill_32k`` and ``decode_32k`` at
-   reduced batches (``SPMD_FAKE_CELLS``) on a fake process group of 2 x 2
-   ranks, each counted per device (``count_sharded``) with CUDA shards and
-   with meta shards: FLOPs, bytes and every collective record equal.  The
-   phase's wall time on its own line.
+   decode-cache placements, the cache write through ``local_map``) at
+   reduced batches (``SPMD_FAKE_CELLS``: smollm-360m's ``train_4k``,
+   ``prefill_32k`` and ``decode_32k``, deepseek-moe-16b's ``prefill_32k`` at
+   4 layers, zamba2-1.2b's ``decode_32k`` and mamba2-130m's ``train_4k``) on
+   a fake process group of 2 x 2 ranks, each counted per device
+   (``count_sharded``) with CUDA shards and with meta shards: FLOPs, bytes
+   and every collective record equal.  mixtral-8x7b (47 B parameters) is
+   counted on meta only, by the dry run, and held on the CPU by the tests.
+   The phase's wall time on its own line.
 
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
@@ -426,7 +437,29 @@ SPMD_TRAIN = (2, 2_048)
 SPMD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-4)
 SPMD_F32_RTOL, SPMD_BF16_TOL = 1e-5, 1e-2
 SPMD_FAKE_MESH = (2, 2)
-SPMD_FAKE_CELLS = (("train_4k", 2), ("prefill_32k", 2), ("decode_32k", 8))
+# (b)'s cells: (arch, shape, batch, layers; None = all): smollm-360m's three
+# kinds, then one cell of each family sharded since (deepseek-moe-16b's
+# depth cut to 4 layers: its full-size float32 parameters would not fit
+# beside their shards)
+SPMD_FAKE_CELLS = (("smollm-360m", "train_4k", 2, None),
+                   ("smollm-360m", "prefill_32k", 2, None),
+                   ("smollm-360m", "decode_32k", 8, None),
+                   ("deepseek-moe-16b", "prefill_32k", 2, 4),
+                   ("zamba2-1.2b", "decode_32k", 8, None),
+                   ("mamba2-130m", "train_4k", 2, None))
+# (a) for the moe, ssm and hybrid families at full width, over the one-rank
+# mesh: (arch, layers served (None = all), K6 launches a prefill, layers of
+# the float32 train step (None: no train step)); a bfloat16 prefill of
+# LM_BATCH x LM_PROMPT tokens and SPMD_DECODE greedy decode steps, each
+# against plain tensors (an SSM model decodes after a prefill of
+# SSM_CHECK_PROMPT tokens, zamba2-1.2b's window set to it, as [lm serve
+# hybrid] does); deepseek-moe-16b serves 16 of its 28 layers (MOE_LAYERS,
+# 39.3 GB of float32 parameters) and trains 2 (parameters, gradients and
+# both moments ~25 GB)
+SPMD_FAMILIES = (("deepseek-moe-16b", MOE_LAYERS, MOE_LAYERS, 2),
+                 ("mamba2-130m", None, 0, 24),
+                 ("zamba2-1.2b", None, 6, None))
+SPMD_DECODE = 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4401,97 +4434,216 @@ def spmd_close(name: str, got, want, rtol: float, atol_frac: float) -> tuple:
     return err, bool(torch.equal(got, want))
 
 
-def spmd_one_rank() -> dict:
-    """(a): the one-rank NCCL mesh, prefill and train step against plain
-    tensors, K6's launches counted in each sharded call."""
+def spmd_prefill(ctx, cfg, params, tokens, k6: int, label: str):
+    """A bfloat16 prefill of ``tokens`` with ``params`` as DTensors (sharded
+    by ``shard_params``, the batch by ``shard_batch``) against the same
+    call on plain tensors, K6's launches counted in the sharded call (all
+    ``k6`` on ``sm90_bf16``).  Returns ``(result, plain state, sharded
+    params, sharded state)``."""
+    import torch
+    from repro_torch.distributed.sharding import (shard_batch, shard_params,
+                                                  use_ctx)
+    from repro_torch.serving.decode import prefill
+
+    out = {}
+    want, state = prefill(params, tokens, cfg)
+    sharded = shard_params(params, ctx, expert_parallel=cfg.expert_parallel)
+    stokens = shard_batch(tokens, ctx)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with use_ctx(ctx):
+        got, sstate = prefill(sharded, stokens, cfg)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    check(k6_route_only(counts, "sm90_bf16", k6),
+          f"[spmd] {label} sharded prefill: launches {counts}, expected K6 "
+          f"{k6} on sm90_bf16")
+    out["prefill_k6"] = counts["K6"]
+    out["prefill_err"], out["prefill_bitwise"] = spmd_close(
+        f"{label} prefill logits", got, want, SPMD_BF16_TOL, SPMD_BF16_TOL)
+    b, n = tokens.shape
+    print(f"  (a) {label}, one-rank NCCL mesh, bf16 prefill {b} x {n}: "
+          f"{out['prefill_s']:.2f} s host (first call), K6 {counts['K6']} "
+          f"on sm90_bf16, logits vs plain tensors max abs err "
+          f"{out['prefill_err']:.3e}, bit for bit {out['prefill_bitwise']}")
+    return out, (want, state), sharded, (got, sstate)
+
+
+def spmd_decode(ctx, cfg, params, sharded, plain, spmd, label: str) -> dict:
+    """``SPMD_DECODE`` greedy decode steps (the plain run's tokens) from the
+    prefill states ``plain`` and ``spmd`` (``(logits, state)`` each), the
+    sharded steps' logits against the plain ones."""
+    import torch
+    from repro_torch.distributed.sharding import shard_batch, use_ctx
+    from repro_torch.serving.decode import decode_step
+
+    (want, state), (_, sstate) = plain, spmd
+    errs, bitwise = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SPMD_DECODE):
+        token = want.argmax(-1)[:, None]
+        want, state = decode_step(params, token, state, cfg)
+        with use_ctx(ctx):
+            got, sstate = decode_step(sharded, shard_batch(token, ctx),
+                                      sstate, cfg)
+        err, same = spmd_close(f"{label} decode logits", got, want,
+                               SPMD_BF16_TOL, SPMD_BF16_TOL)
+        errs.append(err)
+        bitwise.append(same)
+    torch.cuda.synchronize()
+    out = dict(decode_s=time.perf_counter() - t0, decode_err=max(errs),
+               decode_bitwise=all(bitwise))
+    print(f"  (a) {label}, {SPMD_DECODE} decode steps (plain and sharded, "
+          f"{out['decode_s']:.2f} s host): logits max abs err "
+          f"{out['decode_err']:.3e}, bit for bit {out['decode_bitwise']}")
+    return out
+
+
+def spmd_train(ctx, cfg, params, label: str) -> dict:
+    """One float32 train step of ``SPMD_TRAIN`` tokens (AdamW with
+    ``SPMD_OPT``) with ``params`` as DTensors against the same step on plain
+    tensors: loss, grad norm, every updated parameter and first moment at
+    ``SPMD_F32_RTOL``; K6's launches in the sharded step, all on
+    ``sm90_tf32x3`` (two a layer with remat).  The plain step's results wait
+    on the host meanwhile, so that the card holds one step's state."""
     import dataclasses
-    import tempfile
 
     import torch
-    from repro_torch.configs.registry import get_config
-    from repro_torch.distributed.sharding import (ShardCtx, shard_batch,
-                                                  shard_params, use_ctx)
-    from repro_torch.launch.mesh import device_mesh, file_process_group
-    from repro_torch.models.transformer import init_lm
-    from repro_torch.serving.decode import prefill
+    from repro_torch.distributed.sharding import (shard_batch, shard_params,
+                                                  use_ctx)
     from repro_torch.training import (AdamWConfig, init_train_state,
                                       make_train_step)
 
     out = {}
-    cfg = get_config(LM_ARCH)
-    with tempfile.TemporaryDirectory() as tmp, file_process_group(
-            "nccl", 0, 1, Path(tmp) / "store", device="cuda:0"):
-        mesh = device_mesh((1, 1), ("data", "model"), "cuda")
-        ctx = ShardCtx(mesh=mesh)
-        params = init_lm(cfg, LM_SEED, device="cuda")
-        tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
-        want = prefill(params, tokens, cfg)[0]
-        sharded, stokens = shard_params(params, ctx), shard_batch(tokens, ctx)
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        with use_ctx(ctx):
-            got = prefill(sharded, stokens, cfg)[0]
-        torch.cuda.synchronize()
-        out["prefill_s"] = time.perf_counter() - t0
-        counts = read_counts()
-        check(k6_route_only(counts, "sm90_bf16", cfg.n_layers),
-              f"[spmd] sharded prefill: launches {counts}, expected K6 "
-              f"{cfg.n_layers} on sm90_bf16")
-        out["prefill_k6"] = counts["K6"]
-        out["prefill_err"], out["prefill_bitwise"] = spmd_close(
-            "prefill logits", got, want, SPMD_BF16_TOL, SPMD_BF16_TOL)
-        print(f"  (a) one-rank NCCL mesh, bf16 prefill {LM_BATCH} x "
-              f"{LM_PROMPT}: {out['prefill_s']:.2f} s host (first call), K6 "
-              f"{counts['K6']} on sm90_bf16, logits vs plain tensors "
-              f"max abs err {out['prefill_err']:.3e}, bit for bit "
-              f"{out['prefill_bitwise']}")
-        del got, want, sharded
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    opt = AdamWConfig(**SPMD_OPT)
+    step = make_train_step(cfg32, opt)
+    b, seq = SPMD_TRAIN
+    batch = torch.as_tensor(np.random.RandomState(LM_SEED + 5).randint(
+        0, cfg.vocab_size, (b, seq + 1)), device="cuda")
+    new, pm = step(init_train_state(params, opt), {"tokens": batch})
+    want = dict(loss=pm["loss"].cpu(), grad_norm=pm["grad_norm"].cpu(),
+                **{f"param {k}": w.cpu() for k, (w, _) in
+                   _spmd_pairs(new.params, new.params)},
+                **{f"mu {k}": w.cpu() for k, (w, _) in
+                   _spmd_pairs(new.opt.mu, new.opt.mu)})
+    del new, pm
+    torch.cuda.empty_cache()
+    state = init_train_state(shard_params(
+        params, ctx, expert_parallel=cfg.expert_parallel), opt)
+    sbatch = {"tokens": shard_batch(batch, ctx)}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with use_ctx(ctx):
+        new, m = step(state, sbatch)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    k6 = 2 * cfg.n_layers if cfg.family in ("dense", "moe") else (
+        2 * sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+        if cfg.family == "hybrid" else 0)
+    check(k6_route_only(counts, K6_F32_ROUTE, k6),
+          f"[spmd] {label} sharded f32 train step: launches {counts}, "
+          f"expected K6 {k6} on {K6_F32_ROUTE}")
+    out["train_k6"] = counts["K6"]
+    del state
+    got = dict(loss=m["loss"], grad_norm=m["grad_norm"],
+               **{f"param {k}": g for k, (g, _) in
+                  _spmd_pairs(new.params, new.params)},
+               **{f"mu {k}": g for k, (g, _) in
+                  _spmd_pairs(new.opt.mu, new.opt.mu)})
+    errs, bitwise = {}, {}
+    for name, w in want.items():
+        errs[name], bitwise[name] = spmd_close(
+            f"{label} {name}", got[name], w.cuda(), SPMD_F32_RTOL, 1e-6)
+    out["train_max_abs_err"] = max(errs.values())
+    out["train_bitwise"] = sorted(k for k, v in bitwise.items() if v)
+    out["train_not_bitwise"] = sorted(k for k, v in bitwise.items()
+                                      if not v)
+    print(f"  (a) {label}, one-rank NCCL mesh, f32 train step {b} x {seq}: "
+          f"{out['train_s']:.2f} s host (first call), K6 {counts['K6']} "
+          f"on {K6_F32_ROUTE}, loss {float(spmd_full(m['loss'])):.6f} vs "
+          f"{float(want['loss']):.6f}, max abs err over loss, grad norm, "
+          f"params and moments {out['train_max_abs_err']:.3e}; bit for "
+          f"bit: {len(out['train_bitwise'])} of {len(bitwise)} "
+          f"(not: {', '.join(out['train_not_bitwise'][:8])}"
+          f"{' ...' if len(out['train_not_bitwise']) > 8 else ''})")
+    del new, m, got
+    torch.cuda.empty_cache()
+    return out
 
-        cfg32 = dataclasses.replace(cfg, dtype="float32")
-        opt = AdamWConfig(**SPMD_OPT)
-        step = make_train_step(cfg32, opt)
-        b, seq = SPMD_TRAIN
-        batch = torch.as_tensor(np.random.RandomState(LM_SEED + 5).randint(
-            0, cfg.vocab_size, (b, seq + 1)), device="cuda")
-        plain, pm = step(init_train_state(params, opt), {"tokens": batch})
-        state = init_train_state(shard_params(params, ctx), opt)
-        sbatch = {"tokens": shard_batch(batch, ctx)}
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        with use_ctx(ctx):
-            new, m = step(state, sbatch)
-        torch.cuda.synchronize()
-        out["train_s"] = time.perf_counter() - t0
-        counts = read_counts()
-        check(k6_route_only(counts, K6_F32_ROUTE, 2 * cfg.n_layers),
-              f"[spmd] sharded f32 train step: launches {counts}, expected "
-              f"K6 {2 * cfg.n_layers} on {K6_F32_ROUTE}")
-        out["train_k6"] = counts["K6"]
-        errs, bitwise = {}, {}
-        for name, got_t, want_t in (
-                [("loss", m["loss"], pm["loss"]),
-                 ("grad_norm", m["grad_norm"], pm["grad_norm"])]
-                + [(f"param {k}", g, w) for k, (g, w) in
-                   _spmd_pairs(new.params, plain.params)]
-                + [(f"mu {k}", g, w) for k, (g, w) in
-                   _spmd_pairs(new.opt.mu, plain.opt.mu)]):
-            errs[name], bitwise[name] = spmd_close(
-                name, got_t, want_t, SPMD_F32_RTOL, 1e-6)
-        out["train_max_abs_err"] = max(errs.values())
-        out["train_bitwise"] = sorted(k for k, v in bitwise.items() if v)
-        out["train_not_bitwise"] = sorted(k for k, v in bitwise.items()
-                                          if not v)
-        print(f"  (a) one-rank NCCL mesh, f32 train step {b} x {seq}: "
-              f"{out['train_s']:.2f} s host (first call), K6 {counts['K6']} "
-              f"on {K6_F32_ROUTE}, loss {float(spmd_full(m['loss'])):.6f} vs "
-              f"{float(pm['loss']):.6f}, max abs err over loss, grad norm, "
-              f"params and moments {out['train_max_abs_err']:.3e}; bit for "
-              f"bit: {len(out['train_bitwise'])} of {len(bitwise)} "
-              f"(not: {', '.join(out['train_not_bitwise'][:8])}"
-              f"{' ...' if len(out['train_not_bitwise']) > 8 else ''})")
-        del new, plain, state, params
+
+def spmd_one_rank(ctx) -> dict:
+    """(a): smollm-360m over the one-rank NCCL mesh of ``ctx``, prefill and
+    train step against plain tensors, K6's launches counted in each
+    sharded call."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_lm
+
+    cfg = get_config(LM_ARCH)
+    params = init_lm(cfg, LM_SEED, device="cuda")
+    tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
+    out, *_ = spmd_prefill(ctx, cfg, params, tokens, cfg.n_layers, LM_ARCH)
+    out.update(spmd_train(ctx, cfg, params, LM_ARCH))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def spmd_family(ctx, arch: str, layers, k6: int, train_layers) -> dict:
+    """(a) for one of ``SPMD_FAMILIES``: the bfloat16 prefill at full width
+    (``layers`` of its depth), ``SPMD_DECODE`` decode steps, and a float32
+    train step of ``train_layers``, each against plain tensors."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_lm
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, LM_SEED, device="cuda")
+    tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
+    label = f"{arch} ({cfg.n_layers} of {full.n_layers} layers)"
+    out, plain, sharded, spmd = spmd_prefill(ctx, cfg, params, tokens, k6,
+                                             label)
+    if cfg.family in ("ssm", "hybrid"):
+        # decode after a prefill of SSM_CHECK_PROMPT tokens (one SSD chunk;
+        # zamba2-1.2b's ring then holds exactly one window)
+        del plain, spmd
+        dcfg = dataclasses.replace(cfg, sliding_window=SSM_CHECK_PROMPT) \
+            if cfg.family == "hybrid" else cfg
+        n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers)) \
+            if cfg.family == "hybrid" else 0
+        _, plain, sharded, spmd = spmd_prefill(
+            ctx, dcfg, params, tokens[:, :SSM_CHECK_PROMPT], n_attn,
+            f"{label}, decode check")
+        cfg = dcfg
+    out.update(spmd_decode(ctx, cfg, params, sharded, plain, spmd, label))
+    out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del plain, spmd, sharded
+    if train_layers is not None:
+        if train_layers != cfg.n_layers:
+            del params
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(cfg, n_layers=train_layers)
+            params = init_lm(cfg, LM_SEED, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        out.update(spmd_train(ctx, cfg, params,
+                              f"{arch} ({cfg.n_layers} layers)"))
+        out.update(train_layers=cfg.n_layers,
+                   train_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"  (a) {arch}: peak {out['serve_peak_gib']:.2f} GiB serving"
+          + ("" if train_layers is None else
+             f", {out['train_peak_gib']:.2f} GiB in the train step"))
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -4504,18 +4656,25 @@ def _spmd_pairs(a: dict, b: dict, prefix: str = ""):
             yield prefix + k, (a[k], b[k])
 
 
-def spmd_fake_count(shape_name: str, batch: int, device: str):
-    """(b): one smollm-360m cell of the dry run, as ``build_sharded_cell``
-    makes it, counted per device on a fake group of ``SPMD_FAKE_MESH``
-    ranks, its shards on ``device``."""
+def spmd_fake_count(arch: str, shape_name: str, batch: int, layers,
+                    device: str):
+    """(b): one cell of the dry run, as ``build_sharded_cell`` makes it
+    (``layers`` of the architecture's depth, None = all), counted per
+    device on a fake group of ``SPMD_FAKE_MESH`` ranks, its shards on
+    ``device``."""
+    import dataclasses
+
     import torch
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch.dryrun import build_sharded_cell, count_sharded
     from repro_torch.launch.mesh import device_mesh
 
     mesh = device_mesh(SPMD_FAKE_MESH, ("data", "model"), "cuda")
-    fn, args, *_ = build_sharded_cell(LM_ARCH, shape_name, False,
-                                      batch_override=batch, device=device,
-                                      mesh=mesh)
+    cfg = None if layers is None else dataclasses.replace(
+        get_config(arch), n_layers=layers)
+    fn, args, *_ = build_sharded_cell(arch, shape_name, False,
+                                      cfg_override=cfg, batch_override=batch,
+                                      device=device, mesh=mesh)
     t0 = time.perf_counter()
     work = count_sharded(fn, *args)
     if device != "meta":
@@ -4524,46 +4683,62 @@ def spmd_fake_count(shape_name: str, batch: int, device: str):
 
 
 def phase_spmd() -> dict:
-    """[spmd]: (a) the one-rank NCCL mesh against plain tensors; (b) the
-    dry run's sharded cells on a fake 2 x 2 group, card == meta."""
+    """[spmd]: (a) the one-rank NCCL mesh against plain tensors, smollm-360m
+    and ``SPMD_FAMILIES``; (b) the dry run's sharded cells on a fake 2 x 2
+    group, card == meta."""
+    import tempfile
+
     import torch
-    from repro_torch.launch.mesh import fake_process_group
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.launch.mesh import (device_mesh, fake_process_group,
+                                         file_process_group)
     from repro_torch.launch.roofline import collective_bytes
 
-    print(f"[spmd] smollm-360m as DTensors (torch {torch.__version__}): (a) "
-          "over a one-rank NCCL mesh against plain tensors; (b) the dry "
-          "run's sharded cells counted per device on a fake group of "
+    print(f"[spmd] the LM as DTensors (torch {torch.__version__}): (a) "
+          f"{LM_ARCH} and {', '.join(a for a, *_ in SPMD_FAMILIES)} over a "
+          "one-rank NCCL mesh against plain tensors; (b) the dry run's "
+          "sharded cells counted per device on a fake group of "
           f"{SPMD_FAKE_MESH[0]} x {SPMD_FAKE_MESH[1]} ranks, CUDA shards == "
           "meta shards")
     t0 = time.perf_counter()
     torch.cuda.set_device(0)
-    out = spmd_one_rank()
+    with tempfile.TemporaryDirectory() as tmp, file_process_group(
+            "nccl", 0, 1, Path(tmp) / "store", device="cuda:0"):
+        ctx = ShardCtx(mesh=device_mesh((1, 1), ("data", "model"), "cuda"))
+        out = spmd_one_rank(ctx)
+        out["families"] = {arch: spmd_family(ctx, arch, *rest)
+                           for arch, *rest in SPMD_FAMILIES}
     cells = {}
     with fake_process_group(SPMD_FAKE_MESH[0] * SPMD_FAKE_MESH[1]):
-        for shape_name, batch in SPMD_FAKE_CELLS:
-            card, card_s = spmd_fake_count(shape_name, batch, "cuda")
+        for arch, shape_name, batch, layers in SPMD_FAKE_CELLS:
+            card, card_s = spmd_fake_count(arch, shape_name, batch, layers,
+                                           "cuda")
             torch.cuda.empty_cache()
-            meta, meta_s = spmd_fake_count(shape_name, batch, "meta")
+            meta, meta_s = spmd_fake_count(arch, shape_name, batch, layers,
+                                           "meta")
             coll = collective_bytes(card.collectives)
-            print(f"  (b) {shape_name} at batch {batch}, fake group "
-                  f"{SPMD_FAKE_MESH}: per device on the card "
+            cell = f"{arch} {shape_name}"
+            print(f"  (b) {cell} at batch {batch}"
+                  f"{'' if layers is None else f', {layers} layers'}, fake "
+                  f"group {SPMD_FAKE_MESH}: per device on the card "
                   f"{card.flops:.6e} flops, {card.bytes:.6e} bytes, "
                   f"collectives {coll} ({card_s:.2f} s host); on meta "
                   f"{meta.flops:.6e} flops, {meta.bytes:.6e} bytes, "
                   f"{len(meta.collectives)} collectives ({meta_s:.2f} s host)")
             check((card.flops, card.bytes, card.collectives)
                   == (meta.flops, meta.bytes, meta.collectives),
-                  f"[spmd] {shape_name}: the fake group's count on the card "
+                  f"[spmd] {cell}: the fake group's count on the card "
                   f"differs from meta: flops {card.flops} vs {meta.flops}, "
                   f"bytes {card.bytes} vs {meta.bytes}, collectives "
                   f"{coll} vs {collective_bytes(meta.collectives)}")
             check(card.flops > 0 and card.bytes > 0 and coll["count"] > 0,
-                  f"[spmd] {shape_name}: an empty count on the fake group")
-            cells[shape_name] = dict(
-                batch=batch, flops_per_device=card.flops,
+                  f"[spmd] {cell}: an empty count on the fake group")
+            cells[cell] = dict(
+                batch=batch, layers=layers, flops_per_device=card.flops,
                 bytes_per_device=card.bytes, collectives=coll,
                 card_count_s=card_s, meta_count_s=meta_s)
-    torch.cuda.empty_cache()
+            del card, meta
+            torch.cuda.empty_cache()
     out.update(fake_mesh=list(SPMD_FAKE_MESH), fake_cells=cells)
     out["wall_s"] = time.perf_counter() - t0
     print(f"[spmd] phase wall {out['wall_s']:.1f} s")
@@ -4973,7 +5148,14 @@ def main() -> int:
                         pipeline_launches=launcher["pipeline"]["k6_bf16"]),
                     spmd=dict(prefill_launches=spmd["prefill_k6"],
                               prefill_max_abs_err=spmd["prefill_err"],
-                              prefill_bitwise=spmd["prefill_bitwise"]),
+                              prefill_bitwise=spmd["prefill_bitwise"],
+                              families={arch: dict(
+                                  prefill_launches=f["prefill_k6"],
+                                  prefill_max_abs_err=f["prefill_err"],
+                                  prefill_bitwise=f["prefill_bitwise"],
+                                  decode_max_abs_err=f["decode_err"],
+                                  decode_bitwise=f["decode_bitwise"])
+                                  for arch, f in spmd["families"].items()}),
                     dryrun={cell: dict(
                         launches=r["k6"], step_ms=r["ms"], batch=r["batch"],
                         **({} if cell not in dry["k6"] else dict(
@@ -4990,8 +5172,13 @@ def main() -> int:
                         encoder_timing=k6_timing_json(k6_audio[route])),
                     train_f32_launches=train["checks"]["k6_launches"],
                     spmd=dict(train_launches=spmd["train_k6"],
-                              train_max_abs_err=spmd[
-                                  "train_max_abs_err"]))),
+                              train_max_abs_err=spmd["train_max_abs_err"],
+                              families={arch: dict(
+                                  train_layers=f["train_layers"],
+                                  train_launches=f["train_k6"],
+                                  train_max_abs_err=f["train_max_abs_err"])
+                                  for arch, f in spmd["families"].items()
+                                  if "train_k6" in f}))),
             grad={k: v for k, v in k6_grad.items() if k.endswith(tname)}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -32,6 +32,9 @@ product's ``Partial`` sum, an all-gather of FSDP weights) are the SPMD
 program's.  A plain tensor, a ``launch.mesh.LocalMesh`` context (one
 controller: nothing to constrain) or no context leaves ``x`` as it is; an
 unknown ``kind`` raises ``KeyError`` whenever a context is active.
+``decode_state_spec`` / ``shard_state`` lay a decode cache out by the
+reference's rule (KV and SSM caches alike), and ``shard_like`` lines an
+operand up with another before an operator runs on the shards.
 """
 from __future__ import annotations
 
@@ -279,28 +282,91 @@ def shard_batch(x: torch.Tensor, ctx: ShardCtx):
                              src_data_rank=None)
 
 
-def cache_kind(n_kv_heads: int) -> str:
-    """The reference's KV-cache spec: ``"cache"`` (heads over tp) when the
-    kv heads divide tp, else ``"cache_seq"`` (cache slots over tp)."""
+def decode_state_spec(shape: tuple, ctx: ShardCtx) -> tuple:
+    """The reference's decode-cache spec (``launch/dryrun.py``'s
+    ``_decode_state_shardings``) of a stacked cache leaf ``(L, B, ...)``:
+    the batch over dp when it divides; a 5-dimension leaf (a KV cache
+    ``(L, B, W, Hkv, D)``, and so an SSM state ``(L, B, H, P, N)``) its
+    dimension 3 over tp when that divides, else dimension 2; a 4-dimension
+    leaf (an SSM conv cache ``(L, B, K - 1, C)``) dimension 2 over tp when
+    that divides, else dimension 3 when that does."""
+    sizes = axis_sizes(ctx.mesh)
+    dp = ctx.dp_spec
+    dp_size = math.prod(sizes[a] for a in (dp if isinstance(dp, tuple)
+                                           else (dp,)))
+    tp_size = sizes[ctx.tp]
+    parts = [None] * len(shape)
+    if len(shape) >= 2 and shape[1] % dp_size == 0:
+        parts[1] = dp
+    if len(shape) == 5:
+        parts[3 if shape[3] % tp_size == 0 else 2] = ctx.tp
+    elif len(shape) == 4:
+        if shape[2] % tp_size == 0:
+            parts[2] = ctx.tp
+        elif shape[3] % tp_size == 0:
+            parts[3] = ctx.tp
+    return tuple(parts)
+
+
+def shard_state(x: torch.Tensor) -> torch.Tensor:
+    """A stacked decode-cache leaf laid out by :func:`decode_state_spec`
+    under the active context; anything but a DTensor under a ``DeviceMesh``
+    context is returned as it is."""
     ctx = current_ctx()
-    return "cache" if ctx is None or n_kv_heads % ctx.tp_size == 0 \
-        else "cache_seq"
+    if ctx is None or not (ctx.spmd and is_dtensor(x)):
+        return x
+    return _redistribute(x, decode_state_spec(x.shape, ctx), ctx)
+
+
+def shard_like(x, src, dims: dict):
+    """The DTensor ``x`` redistributed so that every mesh dimension that
+    shards ``src``'s dimension ``d`` shards ``x``'s dimension ``dims[d]``,
+    and every other mesh dimension replicates it; its gradient is laid out
+    so too (a constraint, as ``shard_act``'s, even where ``x`` already has
+    that layout: a view after it then sees the layout it was planned for).
+    The model code lines an operand up with another this way before running
+    an operator on the shards (``local_map``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+                 else Replicate() for p in src.placements)
+    return _Constrain.apply(x, x.device_mesh, want)
+
+
+def _own_shard(t: torch.Tensor, pl: tuple, mesh) -> torch.Tensor:
+    """This rank's shard of the full tensor ``t`` under the placements
+    ``pl`` (even shards; the mesh dimensions split in order): a view of
+    ``t``, copied only where the view is not contiguous.  A tensor the mesh
+    does not split (every tensor on a one-rank mesh) is not copied, where
+    ``distribute_tensor`` copies it in some PyTorch versions."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            size = t.shape[p.dim] // mesh.size(i)
+            t = t.narrow(p.dim, coord[i] * size, size)
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def shard_params(params, ctx: ShardCtx, expert_parallel: bool = False):
     """``params`` as DTensors on ``ctx.mesh`` under ``param_shardings``.
     Every rank passes the same full tensors (made from one seed, or carried
-    across from the reference) and keeps its own shard: no collective.
-    A stacked layers' leading dimension stays replicated."""
-    from torch.distributed.tensor import distribute_tensor
+    across from the reference) and keeps its own shard: no collective, and
+    no copy of a tensor the mesh does not split.  A stacked layers' leading
+    dimension stays replicated."""
+    from torch.distributed.tensor import DTensor
 
     specs = param_shardings(params, ctx, expert_parallel=expert_parallel)
 
     def walk(node, spec):
         if isinstance(node, dict):
             return {k: walk(node[k], spec[k]) for k in node}
-        return distribute_tensor(node, ctx.mesh, placements(spec, ctx.mesh),
-                                 src_data_rank=None)
+        pl = placements(spec, ctx.mesh)
+        return DTensor.from_local(
+            _own_shard(node.detach(), pl, ctx.mesh), ctx.mesh, pl,
+            run_check=False, shape=node.shape,
+            stride=node.stride()).requires_grad_(node.requires_grad)
 
     return walk(params, specs)
 

@@ -20,12 +20,14 @@ Bytes are eager and unfused: every operator's tensor inputs read once and
 its outputs written once (views count 0).  That is an upper bound on the
 traffic a fused program moves, not XLA's "bytes accessed".
 
-The dense family's cells (``SHARDED_FAMILIES``) are counted as the sharded
-program, per device, as the reference compiles them: the step runs with
+The dense, MoE, SSM and hybrid families' cells (``SHARDED_FAMILIES``) are
+counted as the sharded program, per device, as the reference compiles
+them: the step runs with
 its parameters as DTensors over the production mesh
 (``launch/mesh.py::production_device_mesh``, a fake process group of 256 or
 512 ranks that this one process drives as rank 0, device type ``cuda``)
-and its inputs sharded by batch (:func:`build_sharded_cell`), and
+and its inputs sharded by batch, a decode cell's every cache leaf by the
+reference's decode-state rule (:func:`build_sharded_cell`), and
 :func:`count_sharded` counts rank 0's local work *below* DTensor: each
 shard is a :class:`Counting` tensor, whose ``__torch_dispatch__`` adds up
 every local operator's FLOPs (``torch.utils.flop_counter``'s formulas,
@@ -35,7 +37,8 @@ tensors' operators (positions, masks).  A mode above DTensor would count
 global work, not one device's.  The roofline then globalises as the
 reference does: FLOPs and bytes times the chips, collective bytes once
 (``launch/roofline.py::collective_bytes``).  Such a record reads
-``sharded: true``; every other family's cell keeps the global count over
+``sharded: true``; every other family's cell (vlm, audio) keeps the
+global count over
 the chips, with ``sharded: false`` and ``collectives: null`` (not
 counted, not 0).  Not carried over (``README.md``): the compile proof,
 XLA's fused byte count, the L = 2 / 4 marginal extrapolation and
@@ -62,9 +65,9 @@ from repro_torch._device import is_dtensor
 from repro_torch._tree import flatten, map_leaves
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.configs.shapes import SHAPES, cell_is_applicable, input_specs
-from repro_torch.distributed.sharding import (ShardCtx, param_shardings,
-                                              placements, shard_params,
-                                              use_ctx)
+from repro_torch.distributed.sharding import (ShardCtx, decode_state_spec,
+                                              param_shardings, placements,
+                                              shard_params, use_ctx)
 from repro_torch.launch.mesh import (axis_sizes, fake_process_group,
                                      mesh_axis_names,
                                      make_production_mesh,
@@ -146,7 +149,7 @@ def count_work(fn, *args) -> tuple[int, int]:
 
 
 # the families whose cells are counted as the sharded program
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 # collectives (``_c10d_functional``'s, and DTensor's all-to-all between two
 # shardings of one mesh dimension) by the reference's HLO kind; the ops that
@@ -326,28 +329,6 @@ def _batch_spec(x, ctx) -> tuple:
     return tuple(parts)
 
 
-def _decode_state_spec(x, ctx) -> tuple:
-    """Caches: batch over dp when divisible; kv-heads over tp when divisible,
-    else cache-seq over tp (few-kv-head archs; uneven shards are padded)."""
-    tp_size = _axis_size(ctx, ctx.tp)
-    dp_size = _axis_size(ctx, ctx.dp_spec)
-    nd = x.dim()
-    parts = [None] * nd
-    if nd >= 2 and x.shape[1] % dp_size == 0:
-        parts[1] = ctx.dp_spec          # (L, B, ...) batch
-    if nd == 5:                          # (L, B, W, H, D) kv cache
-        if x.shape[3] % tp_size == 0:
-            parts[3] = ctx.tp
-        else:
-            parts[2] = ctx.tp
-    elif nd == 4:                        # (L, B, H*, ...) ssm state/conv
-        if x.shape[2] % tp_size == 0:
-            parts[2] = ctx.tp
-        elif x.shape[3] % tp_size == 0:
-            parts[3] = ctx.tp
-    return tuple(parts)
-
-
 def _shard_bytes(x: torch.Tensor, spec: tuple, ctx) -> int:
     """Bytes of one device's shard of ``x`` under ``spec`` (padded)."""
     n = 1
@@ -450,7 +431,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     # decode
     state, token = kwargs["state"], kwargs["token"]
     arg_bytes = (pbytes + _shard_bytes(token, _batch_spec(token, ctx), ctx)
-                 + sum(_shard_bytes(x, _decode_state_spec(x, ctx), ctx)
+                 + sum(_shard_bytes(x, decode_state_spec(x.shape, ctx), ctx)
                        for x in _tensors(state)))
     return fn, (params, token, state), arg_bytes, cfg, shape, meta, mesh, ctx
 
@@ -461,7 +442,7 @@ def build_sharded_cell(arch: str, shape_name: str, multi_pod: bool,
     """:func:`build_cell`'s step as the SPMD program: the parameters (and a
     train cell's moments) DTensors under ``param_shardings``, the inputs
     sharded by batch over the data axes, a decode cell's cache by
-    ``_decode_state_spec``, on ``mesh`` (default: the production mesh as
+    ``decode_state_spec``, on ``mesh`` (default: the production mesh as
     a ``DeviceMesh`` of device type ``cuda``; a default process group of
     its size must be set up).  Returns ``(fn, args, arg_bytes_per_device,
     cfg, shape, meta, mesh, ctx)``."""
@@ -504,12 +485,13 @@ def build_sharded_cell(arch: str, shape_name: str, multi_pod: bool,
                      extras), arg_bytes, cfg, shape, meta, mesh, ctx)
     state, token = kwargs["state"], kwargs["token"]
     arg_bytes = (pbytes + _shard_bytes(token, _batch_spec(token, ctx), ctx)
-                 + sum(_shard_bytes(x, _decode_state_spec(x, ctx), ctx)
+                 + sum(_shard_bytes(x, decode_state_spec(x.shape, ctx), ctx)
                        for x in _tensors(state)))
-    kv = state.kv
-    state = dataclasses.replace(state, kv=dataclasses.replace(
-        kv, k=dist(kv.k, _decode_state_spec(kv.k, ctx)),
-        v=dist(kv.v, _decode_state_spec(kv.v, ctx))))
+    # every cache leaf by the reference's rule; the positions (L,) stay
+    # plain, as prefill makes them
+    state = map_leaves(
+        lambda x: dist(x, decode_state_spec(x.shape, ctx))
+        if isinstance(x, torch.Tensor) and x.dim() > 1 else x, state)
     return (fn, (sharded, dist(token, _batch_spec(token, ctx)), state),
             arg_bytes, cfg, shape, meta, mesh, ctx)
 
@@ -701,7 +683,7 @@ def main():
             print(f"[{rec['status']:7s}] {rec['cell']}", flush=True)
             results.append(rec)
     for mp in meshes:
-        # the fake process group the dense cells are counted over, set up
+        # the fake process group the sharded cells are counted over, set up
         # once around this mesh's part of the grid
         with production_group(mp):
             for arch in archs:

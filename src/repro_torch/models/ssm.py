@@ -20,6 +20,15 @@ pairwise products over ``(b, c, h)`` (a ``matmul`` each), so that no
 ``(b, c, l, s, h, p)`` intermediate is formed; its ``lax.scan`` over chunk
 boundary states is a Python loop over the chunks.  No Pallas kernel runs
 here in the reference, and no hand-written kernel runs here in the port.
+
+Sharded (DTensor activations, parameters under ``param_shardings``: the
+``in_proj`` columns, conv channels and per-head vectors over ``model``
+where they divide it), ``in_proj``'s product is gathered before the
+z | x B C | dt split (its column shards do not line up with it), the conv
+runs on the channel shards, the SSD on the batch and the heads (gathered
+first when they do not divide the axis), and the decode recurrence on the
+decode state's shards (P over ``model``, the reference's cache layout):
+each through ``local_map``, DTensor having no rule for them.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch._device import is_dtensor
+from repro_torch.distributed.sharding import shard_like
 from repro_torch.models.layers import dense_init
 
 __all__ = ["SSMCache", "init_ssm_cache", "ssd_chunked", "ssm_apply",
@@ -85,20 +96,59 @@ def ssm_init(generator: torch.Generator, cfg, *, device) -> dict:
 
 
 def _split_proj(cfg, proj: torch.Tensor):
+    """``in_proj``'s product split into z | x B C | dt.  Of a DTensor, its
+    columns gathered first: their shards do not line up with the split."""
+    if is_dtensor(proj):
+        proj = shard_like(proj, proj, {0: 0})
     di, gn, h = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
     return proj[..., :di], proj[..., di:2 * di + 2 * gn], proj[..., -h:]
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over the sequence, then SiLU: ``xbc`` (B, S, C),
-    ``w`` (K, C); the reference's K-tap loop in the input's dtype."""
+def _conv_taps(xbc: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
     k, s = w.shape[0], xbc.shape[1]
     pad = F.pad(xbc, (0, 0, k - 1, 0))
     out = torch.zeros_like(xbc)
     for i in range(k):
         out = out + pad[:, i:i + s, :] * w[i]
     return F.silu(out + b)
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over the sequence, then SiLU: ``xbc`` (B, S, C),
+    ``w`` (K, C); the reference's K-tap loop in the input's dtype.  Of a
+    DTensor, on each rank's batch rows and its shard of the channels
+    (``conv_w``'s, over ``model``): ``xbc`` is laid out so, and returned
+    so."""
+    if not is_dtensor(xbc):
+        return _conv_taps(xbc, w, b)
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    xbc = _channels_like(xbc, w, 1)
+    pl = list(xbc.placements)
+    w_pl, b_pl = list(w.placements), list(b.placements)
+    # a weight replicated over the batch's ranks gets a partial gradient
+    w_grad = [Partial() if p == Shard(0) else q for p, q in zip(pl, w_pl)]
+    b_grad = [Partial() if p == Shard(0) else q for p, q in zip(pl, b_pl)]
+    return local_map(_conv_taps, out_placements=pl,
+                     in_placements=(pl, w_pl, b_pl),
+                     in_grad_placements=(pl, w_grad, b_grad),
+                     device_mesh=xbc.device_mesh)(xbc, w, b)
+
+
+def _channels_like(x, w, w_dim: int):
+    """DTensor ``x`` (B, ..., C): its batch rows as they are, its channels
+    sharded as ``w``'s dimension ``w_dim``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = [Shard(x.ndim - 1) if q == Shard(w_dim) else
+            p if p == Shard(0) else Replicate()
+            for p, q in zip(x.placements, w.placements)]
+    if list(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -123,13 +173,57 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ``a`` (H,) negative decay rates, ``bmat`` / ``cmat`` (B, S, G, N), ``h0``
     (B, H, P, N) the initial state; returns ``(y (B, S, H, P), final)``.
 
+    Of DTensors, the scan runs on each rank's batch rows and heads
+    (``local_map``): the heads are split over the mesh dimensions that
+    shard ``a`` (``a_log``'s, over ``model`` when the heads divide it, as
+    K6's rule shards attention heads) when the groups allow it (one group,
+    or groups that divide too), and gathered otherwise.
+
     Raises ``ValueError`` unless ``chunk`` divides S (the reference
     asserts it)."""
+    if x.shape[1] % chunk:
+        raise ValueError(f"ssd_chunked: the sequence length {x.shape[1]} is "
+                         f"not a multiple of the chunk {chunk}")
+    if is_dtensor(x):
+        return _ssd_sharded(x, dt, a, bmat, cmat, chunk, h0)
+    return _ssd(x, dt, a, bmat, cmat, chunk, h0)
+
+
+def _ssd_sharded(x, dt, a, bmat, cmat, chunk: int, h0):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, g = x.device_mesh, bmat.shape[2]
+    batch = [p == Shard(0) for p in x.placements]
+    heads = [not bt and q == Shard(0) and (g == 1 or g % mesh.size(i) == 0)
+             for i, (bt, q) in enumerate(zip(batch, a.placements))]
+
+    def pl(head_dim, group=None, on_batch=Shard(0), off=Replicate()):
+        return [on_batch if bt else (Shard(head_dim) if group is None else
+                                     group) if hd else off
+                for bt, hd in zip(batch, heads)]
+
+    grouped = Shard(2) if g > 1 else None
+    x_pl, dt_pl, h_pl = pl(2), pl(2), pl(1)
+    a_pl, a_grad = pl(0, on_batch=Replicate()), pl(0, on_batch=Partial())
+    bc_pl = pl(2, group=grouped or Replicate())
+    bc_grad = pl(2, group=grouped or Partial())
+    h0_pl = None if h0 is None else h_pl
+    x, dt, a, bmat, cmat, h0 = (
+        t if q is None else t.redistribute(mesh, q) for t, q in zip(
+            (x, dt, a, bmat, cmat, h0),
+            (x_pl, dt_pl, a_pl, bc_pl, bc_pl, h0_pl)))
+    return local_map(lambda *t: _ssd(*t[:5], chunk, t[5]),
+                     out_placements=(x_pl, h_pl),
+                     in_placements=(x_pl, dt_pl, a_pl, bc_pl, bc_pl, h0_pl),
+                     in_grad_placements=(x_pl, dt_pl, a_grad, bc_grad,
+                                         bc_grad, h0_pl),
+                     device_mesh=mesh)(x, dt, a, bmat, cmat, h0)
+
+
+def _ssd(x, dt, a, bmat, cmat, chunk: int, h0):
     b, s, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
-    if s % chunk:
-        raise ValueError(f"ssd_chunked: the sequence length {s} is not a "
-                         f"multiple of the chunk {chunk}")
     nc, rep = s // chunk, h // g
 
     # (b, c, h, l, .) layouts: every product below is a batched matmul
@@ -179,7 +273,15 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg, compute_dtype,
     ``return_state``: returns ``(out, SSMCache)``, the cache that decoding
     continues from: the last K-1 pre-conv channel inputs (taken from this
     call's ``in_proj`` product; the reference computes that product again)
-    and the final SSM state (the reference's ``(out, final_state)``)."""
+    and the final SSM state (the reference's ``(out, final_state)``).
+
+    Of a DTensor ``x`` (sharded by batch) under sharded parameters:
+    ``in_proj``'s product is gathered for the split, the conv runs on the
+    channel shards (``conv_w``'s), its output is gathered for the x | B | C
+    split, the SSD runs over the batch and,
+    where they divide, the heads (:func:`ssd_chunked`), and ``out_proj``'s
+    product is the row-parallel ``Partial`` sum that the caller's
+    ``shard_act(..., "btd")`` reduces."""
     b, s, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
@@ -187,6 +289,8 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg, compute_dtype,
     z, xbc_in, dt = _split_proj(cfg, proj)
     xbc = _causal_conv(xbc_in, params["conv_w"].to(compute_dtype),
                        params["conv_b"].to(compute_dtype))
+    if is_dtensor(xbc):
+        xbc = shard_like(xbc, xbc, {0: 0})
     xs = xbc[..., :di].reshape(b, s, h, p)
     bmat = xbc[..., di:di + g * n].reshape(b, s, g, n)
     cmat = xbc[..., di + g * n:].reshape(b, s, g, n)
@@ -198,9 +302,15 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg, compute_dtype,
                         bmat.to(torch.float32), cmat.to(torch.float32),
                         chunk=min(cfg.ssm_chunk, s), h0=h0)
     y = y.to(compute_dtype)
-    y = y + xs * params["d_skip"].to(compute_dtype)[None, None, :, None]
-    y = y.reshape(b, s, di) * F.silu(z)
-    out = y @ params["out_proj"].to(compute_dtype)
+    skip = params["d_skip"].to(compute_dtype)
+    if is_dtensor(y):
+        xs, skip = shard_like(xs, y, {0: 0, 2: 2}), shard_like(skip, y, {2: 0})
+    y = (y + xs * skip[None, None, :, None]).reshape(b, s, di)
+    if is_dtensor(y):
+        # the gradient of the heads' merge laid out as its forward, so that
+        # its view back to (B, S, H, P) cuts no head
+        y, z = shard_like(y, y, {0: 0, 2: 2}), shard_like(z, y, {0: 0, 2: 2})
+    out = (y * F.silu(z)) @ params["out_proj"].to(compute_dtype)
     if return_state:
         # a copy: a view would hold the whole projection alive
         return out, SSMCache(conv=xbc_in[:, -(cfg.ssm_conv - 1):].clone(),
@@ -217,36 +327,85 @@ def init_ssm_cache(cfg, batch: int, dtype, *, device) -> SSMCache:
                           device=device))
 
 
+def _recurrence(state, xs, bmat, cmat, dt, a):
+    """One step of the SSM recurrence: ``state`` (B, H, P, N) float32,
+    ``xs`` (B, H, P), ``bmat`` / ``cmat`` (B, G, N), ``dt`` (B, H), ``a``
+    (H,); returns ``(y (B, H, P) float32, new state)``."""
+    rep = xs.shape[1] // bmat.shape[1]
+    bmat, cmat = _repeat_groups(bmat, rep, 1), _repeat_groups(cmat, rep, 1)
+    decay = torch.exp(dt * a[None, :])                   # (B, H)
+    upd = (dt[:, :, None, None] * xs.to(torch.float32)[..., None]
+           * bmat.to(torch.float32)[:, :, None, :])      # (B, H, P, N)
+    state = state * decay[:, :, None, None] + upd
+    return torch.matmul(state, cmat.to(torch.float32)[..., None])[..., 0], \
+        state
+
+
+def _recurrence_sharded(state, xs, bmat, cmat, dt, a):
+    """:func:`_recurrence` of a DTensor ``state`` on each rank's shard of it
+    (batch, and P or H over ``model`` as the decode cache is laid out), the
+    other operands cut to match; ``y`` comes back with its heads' columns
+    gathered (B, H, P), sharded as the state's batch and heads."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    groups = {0: 0}
+    if bmat.shape[1] > 1:
+        n = [state.device_mesh.size(i) for i, p in
+             enumerate(state.placements) if p == Shard(1)]
+        if any(bmat.shape[1] % m for m in n):
+            raise ValueError(f"{bmat.shape[1]} SSM groups do not divide the "
+                             f"head shards {n} of the decode state")
+        groups[1] = 1
+    xs = shard_like(xs, state, {0: 0, 1: 1, 2: 2})
+    bmat, cmat = (shard_like(t, state, groups) for t in (bmat, cmat))
+    dt, a = shard_like(dt, state, {0: 0, 1: 1}), shard_like(a, state, {1: 0})
+    st_pl = list(state.placements)
+    pl = [list(t.placements) for t in (state, xs, bmat, cmat, dt, a)]
+    y, state = local_map(_recurrence, out_placements=(pl[1], st_pl),
+                         in_placements=tuple(pl),
+                         device_mesh=state.device_mesh)(
+        state, xs, bmat, cmat, dt, a)
+    return shard_like(y, state, {0: 0, 1: 1}), state
+
+
 def ssm_decode(params: dict, x: torch.Tensor, cache: SSMCache, cfg,
                compute_dtype):
     """One-token recurrent update: ``x`` (B, 1, D) -> ``(out, new_cache)``;
-    the cache given is not modified."""
+    the cache given is not modified.  Of DTensors, the conv runs on the
+    channel shards and the recurrence on the state's shards
+    (``_recurrence_sharded``)."""
     b = x.shape[0]
-    di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-    p = cfg.ssm_head_dim
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    h, p = cfg.ssm_heads, cfg.ssm_head_dim
     proj = x @ params["in_proj"].to(compute_dtype)
     z, xbc, dt = _split_proj(cfg, proj)
 
     # causal conv against the cached window
-    win = torch.cat([cache.conv, xbc], dim=1)            # (B, K, C)
-    w = params["conv_w"].to(compute_dtype)
+    conv, w = cache.conv, params["conv_w"].to(compute_dtype)
+    bias = params["conv_b"].to(compute_dtype)
+    if is_dtensor(conv):
+        conv, xbc = _channels_like(conv, w, 1), _channels_like(xbc, w, 1)
+    win = torch.cat([conv, xbc], dim=1)                  # (B, K, C)
     conv_out = (win * w[None]).sum(dim=1, keepdim=True)
-    xbc1 = F.silu(conv_out + params["conv_b"].to(compute_dtype))
+    xbc1 = F.silu(conv_out + bias)
+    if is_dtensor(xbc1):
+        xbc1 = shard_like(xbc1, xbc1, {0: 0})
 
     xs = xbc1[..., :di].reshape(b, h, p)
-    bmat = _repeat_groups(xbc1[..., di:di + g * n].reshape(b, g, n), h // g, 1)
-    cmat = _repeat_groups(xbc1[..., di + g * n:].reshape(b, g, n), h // g, 1)
+    bmat = xbc1[..., di:di + g * n].reshape(b, g, n)
+    cmat = xbc1[..., di + g * n:].reshape(b, g, n)
     dt = F.softplus(dt[:, 0].to(torch.float32)
                     + params["dt_bias"].to(torch.float32))     # (B, H)
     a = -torch.exp(params["a_log"].to(torch.float32))
-
-    decay = torch.exp(dt * a[None, :])                   # (B, H)
-    upd = (dt[:, :, None, None] * xs.to(torch.float32)[..., None]
-           * bmat.to(torch.float32)[:, :, None, :])      # (B, H, P, N)
-    state = cache.state * decay[:, :, None, None] + upd
-    y = torch.matmul(state, cmat.to(torch.float32)[..., None])[..., 0]
-    y = y.to(compute_dtype) + xs * params["d_skip"].to(compute_dtype)[
-        None, :, None]
-    y = y.reshape(b, 1, di) * F.silu(z)
-    out = y @ params["out_proj"].to(compute_dtype)
+    step = _recurrence_sharded if is_dtensor(cache.state) else _recurrence
+    y, state = step(cache.state, xs, bmat, cmat, dt, a)
+    y = y.to(compute_dtype)
+    skip = params["d_skip"].to(compute_dtype)
+    if is_dtensor(y):
+        xs, skip = shard_like(xs, y, {0: 0, 1: 1}), shard_like(skip, y, {1: 0})
+    y = (y + xs * skip[None, :, None]).reshape(b, 1, di)
+    if is_dtensor(y):
+        z = shard_like(z, y, {0: 0, 2: 2})
+    out = (y * F.silu(z)) @ params["out_proj"].to(compute_dtype)
     return out, SSMCache(conv=win[:, 1:], state=state)

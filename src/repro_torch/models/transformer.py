@@ -12,9 +12,10 @@ unstacked); the layer loop is a Python loop over that axis.  Per-layer
 windows and the hybrid's attention points (``attn_flags``) are Python ints.
 A vlm's ``patches`` (B, P, D) are prepended to the token embeddings.
 ``shard_act`` is called where the reference calls it (the embeddings, each
-residual add, the logits): the identity on plain tensors, a redistribution
-of DTensors when the parameters are sharded over a ``DeviceMesh``
-(``distributed/sharding.py``).  The embedding lookup is
+residual add, the hybrid's shared block, the logits): the identity on
+plain tensors, a redistribution of DTensors when the parameters are
+sharded over a ``DeviceMesh`` (``distributed/sharding.py``); the MoE
+layers' aux losses, each the global one, are summed over the layers.  The embedding lookup is
 ``torch.nn.functional.embedding``, the same gather as indexing, which
 DTensor shards over a vocabulary-sharded table.
 ``cfg.remat`` (the reference's ``jax.checkpoint`` around each layer body)

@@ -32,13 +32,16 @@ values).  Self-attention in ``prefill`` (the encoder's too) goes through K6;
 against the cached K/V and the SSM recurrence in plain torch.
 
 Sharded (parameters as DTensors over a ``DeviceMesh``, inputs sharded by
-batch, ``distributed/sharding.py``), the dense path constrains the
-embeddings and each residual add to ``"btd"`` as the reference's prefill
-does (its decode step leaves that to GSPMD; here ``decode_step`` pins the
-same points), and the cache (once laid out for decoding) and each layer's
-cache to the reference's cache spec:
-``"cache"`` (kv heads over tp) when the kv heads divide tp, else
-``"cache_seq"`` (slots over tp).
+batch, ``distributed/sharding.py``), the dense, MoE, SSM and hybrid paths
+constrain the embeddings and each residual add to ``"btd"`` as the
+reference's prefill does (its decode step leaves that to GSPMD; here
+``decode_step`` pins the same points), and a KV cache (once laid out for
+decoding, and at each decode step's start) by the reference's decode-state
+rule (``sharding.decode_state_spec``): the batch over dp when it divides
+it; a KV cache (L, B, W, Hkv, D) its kv heads over tp when they divide it,
+else its slots (the reference's ``"cache"`` and ``"cache_seq"``); an SSM
+state (L, B, H, P, N) P over tp, a conv cache (L, B, K - 1, C) its
+channels.
 
 A ring keeps ``min(S, window)`` slots, as the reference's does: when the
 prompt is shorter than the window, the first decoded token takes slot
@@ -60,7 +63,7 @@ from typing import Optional
 import torch
 
 from repro_torch._device import is_dtensor, resolve_device
-from repro_torch.distributed.sharding import cache_kind, shard_act
+from repro_torch.distributed.sharding import shard_act, shard_state
 from repro_torch.models.attention import (KVCache, attn_decode,
                                           cross_attend, cross_kv, init_cache,
                                           self_attention)
@@ -165,6 +168,16 @@ def _stack(caches: list):
         for k in _tensors(caches[0])})
 
 
+def _laid_out(cache):
+    """A stacked cache (``KVCache`` or ``SSMCache``) whose DTensor leaves
+    are laid out by the reference's decode-state rule
+    (``sharding.shard_state``: the batch over the data axes when it divides
+    them; kv heads, else slots, over ``model``; an SSM state's P and a conv
+    cache's channels); plain tensors and positions as they are."""
+    return dataclasses.replace(cache, **{
+        k: shard_state(t) for k, t in _tensors(cache).items() if t.dim() > 1})
+
+
 def _index(cache, i: int):
     return dataclasses.replace(cache, **{k: t[i] for k, t in
                                          _tensors(cache).items()})
@@ -215,7 +228,6 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, patches=None,
     if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, x, pos, cfg, dt)
     ks, vs = [], []
-    kind = cache_kind(cfg.n_kv_heads)
     for i, w in enumerate(layer_windows(cfg)):
         lp = layer_params(params["layers"], i)
         a, k, v = self_attention(lp["attn"],
@@ -230,9 +242,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, patches=None,
     ring = _is_ring(cfg)
     ks, vs = _finalize_kv(torch.stack(ks), torch.stack(vs), s, ring,
                           cfg.sliding_window)
-    state = DecodeState(kv=KVCache(
-        k=shard_act(ks, kind, lead=1), v=shard_act(vs, kind, lead=1), pos=torch.full((cfg.n_layers,), s, dtype=torch.int32,
-                                   device=x.device), ring=ring))
+    state = DecodeState(kv=_laid_out(KVCache(
+        k=ks, v=vs, pos=torch.full((cfg.n_layers,), s, dtype=torch.int32,
+                                   device=x.device), ring=ring)))
     return _logits(params, x, cfg, dt), state
 
 
@@ -248,21 +260,21 @@ def _prefill_ssm(params: dict, x: torch.Tensor, pos: torch.Tensor, cfg, dt):
         lp = layer_params(params["layers"], i)
         out, cache = ssm_apply(lp["ssm"], rms_norm(x, lp["ln"], cfg.norm_eps),
                                cfg, dt, return_state=True)
-        x = x + out
+        x = x + shard_act(out, "btd")
         caches.append(cache)
         if cfg.family == "hybrid" and cfg.layer_is_attn(i):
             x, k, v = shared_block(params["shared_attn"], x, cfg, pos)
             ks.append(k)
             vs.append(v)
-    state = DecodeState(ssm=_stack(caches))
+    state = DecodeState(ssm=_laid_out(_stack(caches)))
     if ks:
         s, n_attn = x.shape[1], len(ks)
         ring = cfg.sliding_window is not None
         ks, vs = _finalize_kv(torch.stack(ks), torch.stack(vs), s, ring,
                               cfg.sliding_window)
-        state = dataclasses.replace(state, shared_kv=KVCache(
+        state = dataclasses.replace(state, shared_kv=_laid_out(KVCache(
             k=ks, v=vs, pos=torch.full((n_attn,), s, dtype=torch.int32,
-                                       device=x.device), ring=ring))
+                                       device=x.device), ring=ring)))
     return _logits(params, x, cfg, dt), state
 
 
@@ -312,15 +324,12 @@ def decode_step(params: dict, token: torch.Tensor, state: DecodeState, cfg):
 
 def _decode_attn(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):
     caches = []
-    kind = cache_kind(cfg.n_kv_heads)
+    kv = _laid_out(state.kv)
     for i, w in enumerate(layer_windows(cfg)):
         lp = layer_params(params["layers"], i)
-        cache = _index(state.kv, i)
-        cache = dataclasses.replace(cache, k=shard_act(cache.k, kind),
-                                    v=shard_act(cache.v, kind))
         a, cache = attn_decode(
-            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cache, cfg,
-            window=w)
+            lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), _index(kv, i),
+            cfg, window=w)
         x = x + shard_act(a, "btd")
         x = x + shard_act(ffn_apply(lp, rms_norm(x, lp["ln2"], cfg.norm_eps),
                                     cfg, dt)[0], "btd")
@@ -348,21 +357,23 @@ def _decode_audio(params: dict, x: torch.Tensor, state: DecodeState, cfg,
 
 def _decode_ssm(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):
     shared = params.get("shared_attn")
+    ssm = _laid_out(state.ssm)
+    shared_kv = _laid_out(state.shared_kv) if shared is not None else None
     caches, shared_caches = [], []
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         out, cache = ssm_decode(lp["ssm"], rms_norm(x, lp["ln"], cfg.norm_eps),
-                                _index(state.ssm, i), cfg, dt)
-        x = x + out
+                                _index(ssm, i), cfg, dt)
+        x = x + shard_act(out, "btd")
         caches.append(cache)
         if cfg.family == "hybrid" and cfg.layer_is_attn(i):
             a, kv = attn_decode(
                 shared["attn"], rms_norm(x, shared["ln1"], cfg.norm_eps),
-                _index(state.shared_kv, len(shared_caches)), cfg,
+                _index(shared_kv, len(shared_caches)), cfg,
                 window=shared_window(cfg))
-            x = x + a
-            x = x + mlp_apply(shared["mlp"],
-                              rms_norm(x, shared["ln2"], cfg.norm_eps), dt)
+            x = x + shard_act(a, "btd")
+            x = x + shard_act(mlp_apply(shared["mlp"], rms_norm(
+                x, shared["ln2"], cfg.norm_eps), dt), "btd")
             shared_caches.append(kv)
     return x, DecodeState(
         ssm=_stack(caches),

@@ -18,7 +18,11 @@ its vocabulary shard, the max and the sums reduced across shards, the
 label's logit picked against a sharded vocabulary index, so the (B, S, V)
 logits are never gathered.  (``torch.distributed.tensor.parallel.
 loss_parallel()`` takes a 1-D mesh only in the PyTorch the card runs.)
-The loss is reduced to a replicated scalar.  Each gradient is
+Its sums over the vocabulary shards are reduced by an explicit
+redistribution before the ``log``: PyTorch 2.11 differentiates the
+reduction DTensor would insert there itself wrongly (every gradient of a
+step on more than one rank was off).  The loss is reduced to a replicated
+scalar; an MoE model's aux loss is the global one.  Each gradient is
 redistributed to its parameter's placements (an FSDP gradient's
 ``Partial`` sum reduce-scattered), so the optimizer's update, and the
 global norm's sum over shards (a ``Partial`` DTensor reduced by DTensor),
@@ -87,12 +91,21 @@ def _ce_sharded(logits, labels, chunked: int):
          for p in logits.placements], src_data_rank=None)
     parts = ([slice(i * chunked, (i + 1) * chunked)
               for i in range(s // chunked)] if chunked else [slice(None)])
+
+    def reduced(t):
+        # the sums over the vocabulary shards reduced by an explicit
+        # redistribution: PyTorch 2.11 differentiates the reduction DTensor
+        # inserts on its own before ``log`` wrongly (on more than one rank)
+        return t.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                     for p in t.placements])
+
     tot = 0.0
     for sl in parts:
         x = logits[:, sl].to(torch.float32)
         z = x - x.detach().amax(dim=-1, keepdim=True)
-        lse = z.exp().sum(dim=-1).log()
-        picked = torch.where(labels[:, sl, None] == vocab, z, 0.0).sum(dim=-1)
+        lse = reduced(z.exp().sum(dim=-1)).log()
+        picked = reduced(torch.where(labels[:, sl, None] == vocab, z,
+                                     0.0).sum(dim=-1))
         tot = tot + (lse - picked).sum()
     return (tot / (b * s)).redistribute(mesh, [Replicate()] * mesh.ndim)
 

@@ -1,19 +1,24 @@
-"""The port's dense LM sharded over a 2 x 2 ("data", "model") gloo mesh, run
-by ``tests/test_torch_spmd.py`` in a subprocess:
+"""The port's LM sharded over a 2 x 2 ("data", "model") gloo mesh, run by
+``tests/test_torch_spmd.py`` in a subprocess:
 
-    python tests/_spmd_worker.py OUT_DIR ARCH [ARCH ...]
+    python tests/_spmd_worker.py OUT_DIR CASE [CASE ...]
 
-For each architecture it reads ``OUT_DIR/{arch}_inputs.npz`` (the
-reference's float32 parameters as ``p/<path>`` arrays, ``tokens`` (B, S + 1)
-and ``decode`` (B, N) tokens), starts four ranks (``torch.multiprocessing``,
-spawn), and on each rank runs the train step, the prefill and ``N`` decode
-steps with the parameters as DTensors (``shard_params``) and the inputs
-sharded by batch, under ``use_ctx(ShardCtx(mesh))``; rank 0 also runs them
-on plain tensors.  Rank 0 writes ``OUT_DIR/{arch}_out.npz``: the sharded
-(``spmd/...``) and plain (``plain/...``) loss, grad norm, updated
-parameters, prefill logits and each decode step's logits, and the K/V
-cache's placements as text.
+For each case (an architecture's ``SMOKE`` configuration, or a variant of
+one, ``arch@name``) it reads ``OUT_DIR/{case}_inputs.npz`` (the reference's
+float32 parameters as ``p/<path>`` arrays, ``tokens`` (B, S + 1) and
+``decode`` (B, N) tokens, and ``overrides``, the configuration's changed
+fields as JSON), starts four ranks (``torch.multiprocessing``, spawn), and
+on each rank runs the train step, the prefill and ``N`` decode steps with
+the parameters as DTensors (``shard_params``, experts over ``model`` where
+the configuration is expert-parallel) and the inputs sharded by batch,
+under ``use_ctx(ShardCtx(mesh))``; rank 0 also runs them on plain tensors.
+Rank 0 writes ``OUT_DIR/{case}_out.npz``: the sharded (``spmd/...``) and
+plain (``plain/...``) loss, grad norm, updated parameters, prefill logits
+and each decode step's logits; each decode-cache leaf's placements as text
+(``spmd/placements/...``); and for an MoE model the first layer's dispatch
+table of the prefill's normed embeddings (``.../table``).
 """
+import json
 import os
 import sys
 import tempfile
@@ -69,10 +74,15 @@ def _run(params, inputs, cfg, ctx):
         warnings.simplefilter("ignore", DeprecationWarning)
         from repro_torch.serving.decode import decode_step, prefill
 
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import moe_dispatch_table
+    from repro_torch.models.transformer import embed_inputs, layer_params
+
     tokens = torch.as_tensor(inputs["tokens"]).long()
     decode = torch.as_tensor(inputs["decode"]).long()
     if ctx is not None:
-        params = shard_params(params, ctx)
+        params = shard_params(params, ctx,
+                              expert_parallel=cfg.expert_parallel)
         tokens = shard_batch(tokens, ctx)
         decode = shard_batch(decode, ctx)
     out = {}
@@ -86,10 +96,15 @@ def _run(params, inputs, cfg, ctx):
             out[f"param/{path}"] = _full(leaf)
         for path, leaf in _flat(state.opt.mu):
             out[f"mu/{path}"] = _full(leaf)
+        if cfg.n_experts:
+            lp = layer_params(params["layers"], 0)
+            h = rms_norm(embed_inputs(params, tokens[:, :-1], cfg),
+                         lp["ln2"], cfg.norm_eps)
+            out["table"] = _full(moe_dispatch_table(lp["moe"], h, cfg))
         logits, dstate = prefill(params, tokens[:, :-1], cfg)
         out["prefill"] = _full(logits)
         if ctx is not None:
-            out["cache_placements"] = np.array(str(dstate.kv.k.placements))
+            out.update(_cache_placements(dstate))
         for i in range(decode.shape[1]):
             logits, dstate = decode_step(params, decode[:, i:i + 1], dstate,
                                          cfg)
@@ -97,7 +112,24 @@ def _run(params, inputs, cfg, ctx):
     return out
 
 
-def _rank(rank: int, out_dir: str, archs: list, store: str):
+def _cache_placements(dstate) -> dict:
+    """Each decode-cache leaf's placements, as text, by ``field/leaf``."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(dstate):
+        cache = getattr(dstate, f.name)
+        if cache is None or isinstance(cache, torch.Tensor):
+            continue
+        for g in dataclasses.fields(cache):
+            t = getattr(cache, g.name)
+            if isinstance(t, torch.Tensor) and t.dim() > 1:
+                out[f"placements/{f.name}/{g.name}"] = np.array(
+                    str(t.placements))
+    return out
+
+
+def _rank(rank: int, out_dir: str, cases: list, store: str):
     import dataclasses
 
     from repro_torch.configs import registry
@@ -108,10 +140,11 @@ def _rank(rank: int, out_dir: str, archs: list, store: str):
     torch.manual_seed(0)
     with file_process_group("gloo", rank, WORLD, store):
         mesh = device_mesh(MESH, ("data", "model"), "cpu")
-        for arch in archs:
-            cfg = dataclasses.replace(registry.get_smoke_config(arch),
-                                      dtype="float32")
-            with np.load(Path(out_dir) / f"{arch}_inputs.npz") as npz:
+        for case in cases:
+            with np.load(Path(out_dir) / f"{case}_inputs.npz") as npz:
+                cfg = dataclasses.replace(
+                    registry.get_smoke_config(case.split("@")[0]),
+                    dtype="float32", **json.loads(str(npz["overrides"])))
                 inputs = {k: npz[k] for k in ("tokens", "decode")}
                 params = lm_params_from_numpy(_unflatten(npz), cfg,
                                               device="cpu")
@@ -120,15 +153,15 @@ def _rank(rank: int, out_dir: str, archs: list, store: str):
             if rank == 0:
                 got.update({f"plain/{k}": v for k, v in
                             _run(params, inputs, cfg, None).items()})
-                np.savez(Path(out_dir) / f"{arch}_out.npz", **got)
+                np.savez(Path(out_dir) / f"{case}_out.npz", **got)
 
 
 def main(argv):
     import torch.multiprocessing as mp
 
-    out_dir, archs = argv[0], argv[1:]
+    out_dir, cases = argv[0], argv[1:]
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_rank, args=(out_dir, archs,
+        mp.start_processes(_rank, args=(out_dir, cases,
                                         os.path.join(tmp, "store")),
                            nprocs=WORLD, start_method="spawn")
 

@@ -293,10 +293,9 @@ def test_run_cell_of_a_family_not_sharded_counts_globally(tmp_path,
     """A family outside ``SHARDED_FAMILIES`` keeps the unsharded count over
     the chips, its collectives not counted (null, not 0)."""
     monkeypatch.setattr(dryrun, "ART", tmp_path)
-    cfg = dataclasses.replace(registry.get_smoke_config("mamba2-130m"),
-                              ssm_chunk=8)
+    cfg = registry.get_smoke_config("internvl2-1b")
     assert cfg.family not in dryrun.SHARDED_FAMILIES
-    rec = dryrun.run_cell("mamba2-130m", "train_4k", False,
+    rec = dryrun.run_cell("internvl2-1b", "train_4k", False,
                           cfg_override=cfg)
     assert rec["status"] == "ok", rec.get("trace")
     assert rec["sharded"] is False and rec["collectives"] is None

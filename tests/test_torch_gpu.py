@@ -1372,3 +1372,176 @@ def test_cuda_k6_on_head_shards_matches_plain(dtype):
         _assert_k6_bf16_matches_plain(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+SPMD_FAMILIES = ("deepseek-moe-16b", "mamba2-130m", "zamba2-1.2b")
+
+
+def _small_family(arch):
+    """``_small`` with an SSD chunk of 16 (prompts of 64 tokens)."""
+    return dataclasses.replace(_small(arch), ssm_chunk=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SPMD_FAMILIES)
+def test_cuda_spmd_family_one_rank_mesh_matches_plain_tensors(arch,
+                                                              tmp_path):
+    """The MoE, SSM and hybrid SMOKE models at d_model 128 (heads of 64) as
+    DTensors over a one-rank NCCL mesh: a float32 prefill of 2 x 64 tokens
+    and 3 decode steps equal the same calls on plain tensors (``rtol=1e-5``,
+    ``atol`` 1e-6 of the largest magnitude, at least 1); K6 launched once a
+    prefill's attention layer (the hybrid's shared block), on its float32
+    route."""
+    _card()
+    from repro_torch._device import is_dtensor
+    from repro_torch.distributed.sharding import (ShardCtx, shard_batch,
+                                                  shard_params, use_ctx)
+    from repro_torch.launch.mesh import device_mesh, file_process_group
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving.decode import decode_step, prefill
+
+    cfg = _small_family(arch)
+    torch.cuda.set_device(0)
+    params = init_lm(cfg, 0, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64 + 3),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    k6 = {"moe": cfg.n_layers, "ssm": 0,
+          "hybrid": sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))}
+
+    def close(got, want):
+        got = got.full_tensor() if is_dtensor(got) else got
+        atol = 1e-6 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+    with file_process_group("nccl", 0, 1, tmp_path / "store",
+                            device="cuda:0"):
+        ctx = ShardCtx(mesh=device_mesh((1, 1), ("data", "model"), "cuda"))
+        want, state = prefill(params, tokens[:, :64], cfg)
+        sharded = shard_params(params, ctx,
+                               expert_parallel=cfg.expert_parallel)
+        before = flash_attention.launches_by_route.get("sm90_tf32x3", 0)
+        with use_ctx(ctx):
+            got, sstate = prefill(sharded, shard_batch(tokens[:, :64], ctx),
+                                  cfg)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_route.get("sm90_tf32x3", 0) == \
+            before + k6[cfg.family]
+        close(got, want)
+        for i in range(64, 67):
+            want, state = decode_step(params, tokens[:, i:i + 1], state, cfg)
+            with use_ctx(ctx):
+                got, sstate = decode_step(
+                    sharded, shard_batch(tokens[:, i:i + 1], ctx), sstate,
+                    cfg)
+            close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SPMD_FAMILIES)
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_cuda_spmd_family_count_on_a_fake_group_equals_meta(arch, shape):
+    """The dry run's sharded cell of an MoE, SSM or hybrid model (its SMOKE
+    configuration at d_model 128, heads of 64, 2 layers (the hybrid 4), 64
+    tokens, batch 2, train with remat) counted per device on a fake 2 x 2
+    group: CUDA shards and meta shards give the same FLOPs, bytes,
+    collective records and argument bytes."""
+    _card()
+    from repro_torch.configs import shapes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import device_mesh, fake_process_group
+
+    cfg = dataclasses.replace(_small_family(arch),
+                              remat=shape == "train_4k")
+    spec = dryrun.SHAPES[shape]
+    works = []
+    try:
+        dryrun.SHAPES[shape] = shapes.ShapeSpec(shape, 64, 2, spec.kind)
+        with fake_process_group(4):
+            mesh = device_mesh((2, 2), ("data", "model"), "cuda")
+            for device in ("cuda", "meta"):
+                fn, args, arg_bytes, *_ = dryrun.build_sharded_cell(
+                    arch, shape, False, cfg_override=cfg, batch_override=2,
+                    device=device, mesh=mesh)
+                work = dryrun.count_sharded(fn, *args)
+                works.append((work.flops, work.bytes, work.collectives,
+                              arg_bytes))
+            torch.cuda.synchronize()
+    finally:
+        dryrun.SHAPES[shape] = spec
+    card, meta = works
+    assert card == meta
+    assert card[0] > 0 and card[1] > 0 and card[2]
+
+
+GLOO_CASES = {"smollm-360m": {}, "deepseek-moe-16b": {},
+              "deepseek-moe-16b@drop": {"capacity_factor": 1.0},
+              "mixtral-8x7b": {}, "mamba2-130m": {},
+              "mamba2-130m@3heads": {"d_model": 24}, "zamba2-1.2b": {}}
+
+
+@pytest.fixture(scope="module")
+def gloo_mesh_run(tmp_path_factory):
+    """``tests/_spmd_worker.py`` over a 2 x 2 gloo mesh of four spawned CPU
+    ranks, in this host's PyTorch, on each case's SMOKE configuration
+    (float32, seeded port parameters)."""
+    _card()
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.transformer import init_lm
+
+    def flat(tree, pre=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{pre}{k}/")
+            else:
+                yield pre + k, v
+
+    out = tmp_path_factory.mktemp("gloo")
+    for case, over in GLOO_CASES.items():
+        cfg = dataclasses.replace(get_smoke_config(case.split("@")[0]),
+                                  dtype="float32", **over)
+        r = np.random.RandomState(0)
+        np.savez(out / f"{case}_inputs.npz",
+                 **{f"p/{k}": v.numpy() for k, v in
+                    flat(init_lm(cfg, 0, device="cpu"))},
+                 tokens=r.randint(0, cfg.vocab_size, (4, 17)).astype(np.int32),
+                 decode=r.randint(0, cfg.vocab_size, (4, 4)).astype(np.int32),
+                 overrides=np.array(json.dumps(over)))
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, str(root / "tests" / "_spmd_worker.py"), str(out),
+         *GLOO_CASES], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="2",
+                 PYTHONPATH=str(root / "src")))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return {case: dict(np.load(out / f"{case}_out.npz"))
+            for case in GLOO_CASES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GLOO_CASES)
+def test_cuda_host_gloo_mesh_matches_plain_tensors(case, gloo_mesh_run):
+    """The card machine's PyTorch (DTensor's rules differ by version) runs
+    the sharded train step, prefill and 4 decode steps of each case over a
+    2 x 2 gloo mesh equal to plain tensors, as ``test_torch_spmd.py`` holds
+    them on the CPU host: ``rtol=1e-5``, ``atol`` 1e-6 of the largest
+    magnitude (at least 1; a first moment 1e-5 of its own).  PyTorch 2.11
+    differentiated a reduction that DTensor inserts before a ``log``
+    wrongly: every gradient was off until the cross-entropy reduced its
+    vocabulary sums explicitly."""
+    _card()
+    res = gloo_mesh_run[case]
+    names = sorted(k[6:] for k in res if k.startswith("plain/"))
+    assert len(names) > 10
+    for name in names:
+        want = res[f"plain/{name}"]
+        scale = float(np.abs(want).max())
+        atol = 1e-5 * scale if name.startswith("mu/") else \
+            1e-6 * max(1.0, scale)
+        np.testing.assert_allclose(res[f"spmd/{name}"], want, rtol=1e-5,
+                                   atol=atol, err_msg=name)

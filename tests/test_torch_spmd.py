@@ -1,13 +1,19 @@
-"""The port's dense LM as an SPMD program (DTensors over a ``DeviceMesh``)
-against the unsharded port and the reference's GSPMD program, on the CPU.
+"""The port's LM as an SPMD program (DTensors over a ``DeviceMesh``) against
+the unsharded port and the reference's GSPMD program, on the CPU.
 
 - A 2 x 2 ("data", "model") gloo mesh (``tests/_spmd_worker.py``, four
-  spawned ranks, one subprocess) runs each dense ``SMOKE`` configuration's
-  float32 train step (AdamW), prefill and 4 decode steps with its parameters
-  as DTensors and its inputs sharded by batch: equal to the same calls on
-  plain tensors within ``rtol=1e-5`` and ``1e-6`` of the tensor's largest
-  magnitude (at least 1; the first moment, ~1e-3, within ``1e-5`` of its
-  own): a sum split over shards adds in another order.
+  spawned ranks, one subprocess a group of cases) runs each case's float32
+  train step (AdamW), prefill and 4 decode steps with its parameters as
+  DTensors and its inputs sharded by batch: the four dense ``SMOKE``
+  configurations; the MoE ones (deepseek-moe-16b, experts over ``model``;
+  mixtral-8x7b, experts replicated and their FFN width over ``model``; and
+  deepseek at capacity factor 1, where assignments are dropped); the SSM
+  and hybrid ones (mamba2-130m, zamba2-1.2b, and mamba2 at 3 SSM heads,
+  which a model axis of 2 does not divide).  Each is equal to the same
+  calls on plain tensors within ``rtol=1e-5`` and ``1e-6`` of the tensor's
+  largest magnitude (at least 1; the first moment, ~1e-3, within ``1e-5``
+  of its own): a sum split over shards adds in another order.  An MoE
+  model's dispatch table is the unsharded one, entry for entry.
   The optimizer's ``eps`` is ``1e-4`` there, so that its ``g / (|g| +
   eps)`` does not turn a gradient's reassociation noise (near ``|g|`` =
   1e-8) into an update difference of up to ``lr``.
@@ -33,7 +39,8 @@ against the unsharded port and the reference's GSPMD program, on the CPU.
   cells (``build_sharded_cell``) counted alike on CPU and meta shards;
   K6's module imported without the sharding or launch modules.
 
-Each subprocess has its own time limit (120 s).
+Each subprocess has its own time limit (120 s); the groups run side by
+side.
 """
 import dataclasses
 import json
@@ -65,6 +72,20 @@ from repro_torch.training.train_step import init_train_state, make_train_step
 ROOT = Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")
 DENSE = ("smollm-360m", "gemma3-1b", "internlm2-1.8b", "glm4-9b")
+# the moe, ssm and hybrid families, each case an architecture's SMOKE
+# configuration or a variant of one ("arch@name", its changed fields below)
+MOE = ("deepseek-moe-16b", "deepseek-moe-16b@drop", "mixtral-8x7b")
+SSM = ("mamba2-130m", "mamba2-130m@3heads", "zamba2-1.2b")
+OVERRIDES = {
+    # capacity 17 of the 64 x 2 assignments of a prefill (8 experts):
+    # assignments are dropped, in the same places in every layout
+    "deepseek-moe-16b@drop": {"capacity_factor": 1.0},
+    # 3 SSM heads over a model axis of 2: the SSD gathers the heads first,
+    # as mamba2-130m's 24 heads over 16 do
+    "mamba2-130m@3heads": {"d_model": 24},
+}
+GROUPS = (DENSE, MOE, SSM)
+CASES = DENSE + MOE + SSM
 B, S, N_DECODE = 4, 16, 4
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-4)
 TOL, REF_TOL = 1e-5, 2e-3
@@ -77,19 +98,32 @@ def _env():
 
 
 def _run(cmd, what):
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=_env(),
-                          timeout=TIMEOUT)
-    assert proc.returncode == 0, f"{what}:\n" + proc.stderr[-4000:]
-    return proc.stdout
+    return _run_all([(cmd, what)])[0]
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """The reference's weights and tokens (``{arch}_inputs.npz``), its
-    sharded results (``{arch}_ref.npz``) and its train step's HLO
-    collective bytes, from one 4-device subprocess."""
-    out = tmp_path_factory.mktemp("spmd")
-    code = textwrap.dedent(f"""
+def _run_all(jobs):
+    """The commands of ``jobs`` (``(cmd, what)`` pairs) run side by side,
+    each within ``TIMEOUT``; their standard outputs, in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=_env())
+             for cmd, _ in jobs]
+    outs = []
+    try:
+        for proc, (_, what) in zip(procs, jobs):
+            stdout, stderr = proc.communicate(timeout=TIMEOUT)
+            assert proc.returncode == 0, f"{what}:\n" + stderr[-4000:]
+            outs.append(stdout)
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    return outs
+
+
+def _reference_code(out, cases) -> str:
+    """The reference's run of ``cases`` on 4 forced host devices."""
+    overrides = {c: OVERRIDES.get(c, {}) for c in cases}
+    return textwrap.dedent(f"""
         import os
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
         import dataclasses, json, sys, warnings
@@ -116,17 +150,19 @@ def reference(tmp_path_factory):
             pre + "/".join(k.key for k in path): np.asarray(v, np.float32)
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}}
         coll = {{}}
-        for arch in {DENSE!r}:
-            cfg = dataclasses.replace(get_smoke_config(arch),
-                                      dtype="float32")
+        for case, over in {overrides!r}.items():
+            cfg = dataclasses.replace(get_smoke_config(case.split("@")[0]),
+                                      dtype="float32", **over)
             params = init_lm(cfg, jax.random.PRNGKey(0))
             r = np.random.RandomState(0)
             tokens = r.randint(0, cfg.vocab_size, ({B}, {S} + 1))
             decode = r.randint(0, cfg.vocab_size, ({B}, {N_DECODE}))
-            np.savez(f"{out}/{{arch}}_inputs.npz", **flat(params, "p/"),
+            np.savez(f"{out}/{{case}}_inputs.npz", **flat(params, "p/"),
                      tokens=tokens.astype(np.int32),
-                     decode=decode.astype(np.int32))
-            params = jax.device_put(params, param_shardings(params, ctx))
+                     decode=decode.astype(np.int32),
+                     overrides=np.array(json.dumps(over)))
+            params = jax.device_put(params, param_shardings(
+                params, ctx, expert_parallel=cfg.expert_parallel))
             rows = NamedSharding(mesh, P("data", None))
             tokens = jax.device_put(jnp.asarray(tokens, jnp.int32), rows)
             decode = jax.device_put(jnp.asarray(decode, jnp.int32), rows)
@@ -149,7 +185,7 @@ def reference(tmp_path_factory):
                 state = init_train_state(params, opt)
                 compiled = jax.jit(train).lower(
                     state, {{"tokens": tokens}}).compile()
-                coll[arch] = collective_bytes(compiled.as_text())
+                coll[case] = collective_bytes(compiled.as_text())
                 new, metrics = compiled(state, {{"tokens": tokens}})
                 res["loss"] = np.asarray(metrics["loss"])
                 res["grad_norm"] = np.asarray(metrics["grad_norm"])
@@ -157,24 +193,39 @@ def reference(tmp_path_factory):
                 res.update(flat(new.opt.mu, "mu/"))
                 logits, dstate = jax.jit(pre)(params, tokens[:, :-1])
                 res["prefill"] = np.asarray(logits)
+                dec = jax.jit(dec)      # traced once for the N steps
                 for i in range({N_DECODE}):
-                    logits, dstate = jax.jit(dec)(params, decode[:, i:i + 1],
-                                                  dstate)
+                    logits, dstate = dec(params, decode[:, i:i + 1], dstate)
                     res[f"decode/{{i}}"] = np.asarray(logits)
-            np.savez(f"{out}/{{arch}}_ref.npz", **res)
+            np.savez(f"{out}/{{case}}_ref.npz", **res)
         print(json.dumps(coll))
     """)
-    stdout = _run([sys.executable, "-c", code], "the reference's run")
-    return out, json.loads(stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The reference's weights and tokens (``{case}_inputs.npz``), its
+    sharded results (``{case}_ref.npz``) and its train steps' HLO
+    collective bytes: one 4-device subprocess a group of cases, the groups
+    side by side."""
+    out = tmp_path_factory.mktemp("spmd")
+    coll = {}
+    for stdout in _run_all([
+            ([sys.executable, "-c", _reference_code(out, cases)],
+             f"the reference's run of {cases}") for cases in GROUPS]):
+        coll.update(json.loads(stdout.strip().splitlines()[-1]))
+    return out, coll
 
 
 @pytest.fixture(scope="module")
 def port(reference):
-    """The port's sharded and plain results, from one 4-rank gloo run."""
+    """The port's sharded and plain results: one 4-rank gloo run a group,
+    the groups side by side."""
     out, _ = reference
-    _run([sys.executable, str(ROOT / "tests" / "_spmd_worker.py"), str(out),
-          *DENSE], "the port's 2 x 2 gloo run")
-    return {arch: dict(np.load(out / f"{arch}_out.npz")) for arch in DENSE}
+    _run_all([([sys.executable, str(ROOT / "tests" / "_spmd_worker.py"),
+                str(out), *cases], f"the port's 2 x 2 gloo run of {cases}")
+              for cases in GROUPS])
+    return {case: dict(np.load(out / f"{case}_out.npz")) for case in CASES}
 
 
 def _close(name, got, want, rtol, atol_frac):
@@ -188,33 +239,47 @@ def _close(name, got, want, rtol, atol_frac):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)
 
 
-def _names(res, prefix):
+def _names(res, prefix, skip=()):
     return sorted(k[len(prefix):] for k in res if k.startswith(prefix)
-                  and k != "spmd/cache_placements")
+                  and not k.startswith("spmd/placements/")
+                  and k[len(prefix):] not in skip)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _placements(res) -> dict:
+    return {k[len("spmd/placements/"):]: str(v) for k, v in res.items()
+            if k.startswith("spmd/placements/")}
+
+
+@pytest.mark.parametrize("arch", CASES)
 def test_sharded_step_prefill_decode_equal_the_unsharded_port(arch, port):
     res = port[arch]
     names = _names(res, "plain/")
     assert names == _names(res, "spmd/") and len(names) > 10
     for name in names:
         _close(name, res[f"spmd/{name}"], res[f"plain/{name}"], TOL, 1e-6)
-    # the reference's cache specs over (L, B, W, Hkv, D): kv heads over tp
-    # when they divide it ("cache"), else the slots ("cache_seq")
-    hkv = registry.get_smoke_config(arch).n_kv_heads
-    want = "Shard(dim=3)" if hkv % 2 == 0 else "Shard(dim=2)"
-    assert str(res["spmd/cache_placements"]) == f"(Shard(dim=1), {want})"
+    # the reference's cache specs over (L, B, ...): the batch over data;
+    # a KV cache (L, B, W, Hkv, D) its kv heads over model when they divide
+    # it ("cache"), else the slots ("cache_seq"); an SSM state (L, B, H, P,
+    # N) P over model (it divides), a conv cache (L, B, K - 1, C) the
+    # channels (K - 1 = 3 does not divide)
+    cfg = registry.get_smoke_config(arch.split("@")[0])
+    batch_and = "(Shard(dim=1), Shard(dim={}))".format
+    kv = batch_and(3 if cfg.n_kv_heads % 2 == 0 else 2)
+    want = {"kv/k": kv, "kv/v": kv} if cfg.family in ("dense", "moe") \
+        else {"ssm/conv": batch_and(3), "ssm/state": batch_and(3)}
+    if cfg.family == "hybrid":
+        want.update({"shared_kv/k": kv, "shared_kv/v": kv})
+    assert _placements(res) == want
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", CASES)
 def test_sharded_step_prefill_decode_equal_the_reference(arch, reference,
                                                          port):
     out, _ = reference
     ref = dict(np.load(out / f"{arch}_ref.npz"))
     init = dict(np.load(out / f"{arch}_inputs.npz"))
     res = port[arch]
-    assert sorted(ref) == _names(res, "spmd/")
+    assert sorted(ref) == _names(res, "spmd/", skip=("table",))
     for name, want in ref.items():
         _close(name, res[f"spmd/{name}"], want, REF_TOL, REF_TOL)
     # one AdamW step moves a parameter by about lr = 1e-3, below the
@@ -229,18 +294,35 @@ def test_sharded_step_prefill_decode_equal_the_reference(arch, reference,
             atol=REF_TOL * float(np.abs(want).max()), err_msg=name)
 
 
+@pytest.mark.parametrize("case", MOE)
+def test_moe_dispatch_table_is_the_global_one(case, port):
+    """The sharded layer routes all B S tokens together: its dispatch table
+    (capacity counted over all of them, assignments ordered by one stable
+    sort) equals the unsharded one entry for entry; with capacity factor 1
+    assignments are dropped, the same ones."""
+    res = port[case]
+    got, want = res["spmd/table"], res["plain/table"]
+    np.testing.assert_array_equal(got, want)
+    t_k = B * S * registry.get_smoke_config(case.split("@")[0]) \
+        .experts_per_token
+    kept = int((want < t_k).sum())
+    assert (kept < t_k) == (case == "deepseek-moe-16b@drop"), kept
+
+
 def test_collective_bytes_printed_beside_the_reference(reference):
-    """The port's collectives of each dense SMOKE train step on the same 2 x
-    2 mesh (counted on meta under a fake group), printed beside the
+    """The port's collectives of each SMOKE train step on the same 2 x 2
+    mesh (counted on meta under a fake group), printed beside the
     reference's HLO count; both must have reduced activations."""
     _, ref = reference
     with fake_process_group(4):
         mesh = device_mesh((2, 2), ("data", "model"), "cuda")
-        for arch in DENSE:
-            cfg = dataclasses.replace(registry.get_smoke_config(arch),
-                                      dtype="float32")
+        for arch in CASES:
+            cfg = dataclasses.replace(
+                registry.get_smoke_config(arch.split("@")[0]),
+                dtype="float32", **OVERRIDES.get(arch, {}))
             ctx = ShardCtx(mesh=mesh)
-            params = shard_params(init_lm(cfg, 0, device="meta"), ctx)
+            params = shard_params(init_lm(cfg, 0, device="meta"), ctx,
+                                  expert_parallel=cfg.expert_parallel)
             opt = AdamWConfig(**OPT)
             state = init_train_state(params, opt)
             tokens = distribute_tensor(
@@ -379,6 +461,72 @@ def test_sharded_cell_counts_the_same_on_cpu_and_meta(kind, name,
                            arg_bytes))
     assert counts[0] == counts[1]
     assert counts[0][0] > 0 and counts[0][1] > 0 and counts[0][2]
+
+
+@pytest.mark.parametrize("arch", ("deepseek-moe-16b", "mamba2-130m",
+                                  "zamba2-1.2b"))
+@pytest.mark.parametrize("kind,name", [("train", "train_4k"),
+                                       ("prefill", "prefill_32k"),
+                                       ("decode", "decode_32k")])
+def test_family_sharded_cell_counts_the_same_on_cpu_and_meta(arch, kind, name,
+                                                             monkeypatch):
+    """As above for one SMOKE architecture of each family added to
+    ``SHARDED_FAMILIES`` after the dense one (moe, ssm, hybrid), at 32
+    tokens (an SSD chunk of 16): its experts' dispatch, its SSD and conv
+    and its SSM caches (every decode-state leaf laid out by
+    ``decode_state_spec``) counted alike on CPU and meta shards, with
+    collectives."""
+    monkeypatch.setitem(dryrun.SHAPES, name,
+                        shapes.ShapeSpec(name, 32, 2, kind))
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              remat=kind == "train", ssm_chunk=16)
+    assert cfg.family in dryrun.SHARDED_FAMILIES
+    counts = []
+    with fake_process_group(4):
+        mesh = device_mesh((2, 2), ("data", "model"), "cpu")
+        for device in ("cpu", "meta"):
+            fn, args, arg_bytes, *_ = dryrun.build_sharded_cell(
+                arch, name, False, cfg_override=cfg, batch_override=4,
+                device=device, mesh=mesh)
+            if kind == "decode":
+                state = args[2]
+                leaves = [t for c in (state.kv, state.ssm, state.shared_kv)
+                          if c is not None for t in vars(c).values()
+                          if isinstance(t, torch.Tensor) and t.dim() > 1]
+                assert leaves and all(isinstance(t, DTensor)
+                                      for t in leaves)
+            work = dryrun.count_sharded(fn, *args)
+            counts.append((work.flops, work.bytes, work.collectives,
+                           arg_bytes))
+    assert counts[0] == counts[1]
+    assert counts[0][0] > 0 and counts[0][1] > 0 and counts[0][2]
+
+
+@pytest.mark.parametrize("heads,want", [(4, Shard(2)), (3, Replicate())])
+def test_ssd_shards_heads_only_when_they_divide(heads, want):
+    """The SSD on DTensors over a 1 x 2 mesh: with ``a`` (H,) sharded over
+    ``model`` (``a_log``'s layout when the heads divide the axis) the scan
+    runs on each rank's heads; with 3 heads ``a`` is replicated, and so is
+    the scan's output over ``model`` (the heads gathered first)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    with fake_process_group(2):
+        mesh = device_mesh((1, 2), ("data", "model"), "cuda")
+        rows = [Shard(0), Replicate()]
+
+        def dist(shape, pl):
+            return distribute_tensor(torch.empty(shape, device="meta"), mesh,
+                                     pl, src_data_rank=None)
+
+        a_pl = [Replicate(), Shard(0) if heads % 2 == 0 else Replicate()]
+        y, final = ssd_chunked(dist((2, 16, heads, 8), rows),
+                               dist((2, 16, heads), rows),
+                               dist((heads,), a_pl), dist((2, 16, 1, 4), rows),
+                               dist((2, 16, 1, 4), rows), chunk=8)
+    assert tuple(y.placements) == (Shard(0), want)
+    assert tuple(final.placements) == (
+        Shard(0), Shard(1) if want == Shard(2) else Replicate())
+    assert y.shape == (2, 16, heads, 8) and final.shape == (2, heads, 8, 4)
 
 
 def test_the_kernel_imports_no_sharding_or_launch_module():
