@@ -440,13 +440,20 @@ SPMD_FAKE_MESH = (2, 2)
 # (b)'s cells: (arch, shape, batch, layers; None = all): smollm-360m's three
 # kinds, then one cell of each family sharded since (deepseek-moe-16b's
 # depth cut to 4 layers: its full-size float32 parameters would not fit
-# beside their shards)
+# beside their shards), the paper cell at full size (the row-sharded LP
+# step), internvl2-1b's prefill and whisper-medium's train step and decode
+# (its 24 encoder layers over a data axis of 2: their attention weights
+# layer-sharded, gathered by the encoder)
 SPMD_FAKE_CELLS = (("smollm-360m", "train_4k", 2, None),
                    ("smollm-360m", "prefill_32k", 2, None),
                    ("smollm-360m", "decode_32k", 8, None),
                    ("deepseek-moe-16b", "prefill_32k", 2, 4),
                    ("zamba2-1.2b", "decode_32k", 8, None),
-                   ("mamba2-130m", "train_4k", 2, None))
+                   ("mamba2-130m", "train_4k", 2, None),
+                   ("paper-vdt", "lp_1m", None, None),
+                   ("internvl2-1b", "prefill_32k", 2, None),
+                   ("whisper-medium", "train_4k", 2, None),
+                   ("whisper-medium", "decode_32k", 8, None))
 # (a) for the moe, ssm and hybrid families at full width, over the one-rank
 # mesh: (arch, layers served (None = all), K6 launches a prefill, layers of
 # the float32 train step (None: no train step)); a bfloat16 prefill of
@@ -460,6 +467,20 @@ SPMD_FAMILIES = (("deepseek-moe-16b", MOE_LAYERS, MOE_LAYERS, 2),
                  ("mamba2-130m", None, 0, 24),
                  ("zamba2-1.2b", None, 6, None))
 SPMD_DECODE = 4
+# (a) the vlm and audio families at full width and depth over the one-rank
+# mesh: (arch, K6 launches a prefill, prompt tokens, train text tokens): the
+# [lm serve vlm] / [lm serve audio] traffic (4 x (256 patch embeddings +
+# 2,048 tokens); 4 x 432 tokens after 1,500 frames), SPMD_DECODE decode
+# steps, one float32 train step of 2 x 2,048 text tokens after the patches
+# and of 2 x (1,500 frames + 448 tokens), each against plain tensors
+SPMD_ENCDEC = (("internvl2-1b", 24, LM_PROMPT, SPMD_TRAIN[1]),
+               ("whisper-medium", 48, AUDIO_PROMPT, AUDIO_TRAIN_SEQ))
+# (a) the paper's LP step at full size (the [dryrun] cell's seeded inputs,
+# every input's rows over the one-rank mesh) against the plain step: float32
+# carriers at the VDT tolerance (index_add_ adds with atomics on the card),
+# bfloat16 carriers at test_torch_distributed.py's bfloat16 tolerance;
+# SPMD_PAPER_REPS steps of each timed
+SPMD_PAPER_BF16_TOL, SPMD_PAPER_REPS = 5e-2, 10
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4209,6 +4230,11 @@ def dryrun_grid_finish(proc, t0: float) -> dict:
           f"{got}, expected {DRYRUN_GRID}:\n" + "\n".join(
               [ln for ln in lines if ln.startswith("[error")]
               + lines[-20:]))
+    # every ok cell counted per device as the sharded program
+    unsharded = [ln for ln in lines if ln.startswith("[ok")
+                 and " sharded=True " not in ln]
+    check(not unsharded, "dryrun grid: ok cells not counted as the sharded "
+          "program:\n" + "\n".join(unsharded))
     return dict(ok=got[0], skipped=got[1], errors=got[2], wall_s=wall)
 
 
@@ -4314,18 +4340,12 @@ def dryrun_vdt_cell(meta_work: tuple) -> dict:
     seeded ``a``, ``b`` over the tree's node ids and ``q`` in [0, 1) (not
     a fitted tree), against ``meta_work`` and a CPU copy (``index_add_``
     reduces with atomics on the card)."""
-    import torch
     from repro_torch.configs import paper_vdt
     from repro_torch.launch import dryrun
 
-    specs, meta = paper_vdt.input_specs()
+    meta = paper_vdt.input_specs()[1]
     fn = dryrun.vdt_step_fn()
-    n_nodes = (1 << (meta["L"] + 1)) - 1
-    g = torch.Generator().manual_seed(DRYRUN_VDT_SEED)
-    cpu = {k: (torch.randint(0, n_nodes, x.shape, generator=g,
-                             dtype=x.dtype) if k in ("a", "b")
-               else torch.rand(x.shape, generator=g))
-           for k, x in specs.items()}
+    cpu = dryrun.vdt_seeded_inputs(DRYRUN_VDT_SEED)
     card = {k: v.cuda() for k, v in cpu.items()}
     out, r = dryrun_measure(
         "paper-vdt lp_1m (N = 2^18, seeded blocks, not a fitted tree)",
@@ -4434,26 +4454,53 @@ def spmd_close(name: str, got, want, rtol: float, atol_frac: float) -> tuple:
     return err, bool(torch.equal(got, want))
 
 
-def spmd_prefill(ctx, cfg, params, tokens, k6: int, label: str):
-    """A bfloat16 prefill of ``tokens`` with ``params`` as DTensors (sharded
-    by ``shard_params``, the batch by ``shard_batch``) against the same
-    call on plain tensors, K6's launches counted in the sharded call (all
-    ``k6`` on ``sm90_bf16``).  Returns ``(result, plain state, sharded
-    params, sharded state)``."""
+def spmd_extras(cfg, batch: int, seed: int) -> dict:
+    """A vlm's patch or an audio model's frame embeddings (B, P or T_enc,
+    D), seeded, on the card; nothing for another family."""
+    import torch
+
+    if cfg.family not in ("vlm", "audio"):
+        return {}
+    name, n = (("frames", cfg.encoder_frames) if cfg.family == "audio"
+               else ("patches", cfg.n_patches))
+    return {name: torch.as_tensor(np.random.RandomState(seed).randn(
+        batch, n, cfg.d_model).astype(np.float32), device="cuda")}
+
+
+def k6_per_forward(cfg) -> int:
+    """K6's launches in one forward over a prompt: each self-attention
+    layer (whisper's encoder layers too; a hybrid's shared-block points)."""
+    if cfg.family == "audio":
+        return cfg.n_layers + cfg.n_encoder_layers
+    if cfg.family == "hybrid":
+        return sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def spmd_prefill(ctx, cfg, params, tokens, k6: int, label: str,
+                 extras=None):
+    """A bfloat16 prefill of ``tokens`` (after a vlm's patches, or an audio
+    model's frames through its encoder: ``extras``) with ``params`` as
+    DTensors (sharded by ``shard_params``, the batch by ``shard_batch``)
+    against the same call on plain tensors, K6's launches counted in the
+    sharded call (all ``k6`` on ``sm90_bf16``).  Returns ``(result, plain
+    state, sharded params, sharded state)``."""
     import torch
     from repro_torch.distributed.sharding import (shard_batch, shard_params,
                                                   use_ctx)
     from repro_torch.serving.decode import prefill
 
     out = {}
-    want, state = prefill(params, tokens, cfg)
+    extras = extras or {}
+    want, state = prefill(params, tokens, cfg, **extras)
     sharded = shard_params(params, ctx, expert_parallel=cfg.expert_parallel)
     stokens = shard_batch(tokens, ctx)
+    sextras = {k: shard_batch(v, ctx) for k, v in extras.items()}
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     with use_ctx(ctx):
-        got, sstate = prefill(sharded, stokens, cfg)
+        got, sstate = prefill(sharded, stokens, cfg, **sextras)
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
     counts = read_counts()
@@ -4502,13 +4549,16 @@ def spmd_decode(ctx, cfg, params, sharded, plain, spmd, label: str) -> dict:
     return out
 
 
-def spmd_train(ctx, cfg, params, label: str) -> dict:
-    """One float32 train step of ``SPMD_TRAIN`` tokens (AdamW with
-    ``SPMD_OPT``) with ``params`` as DTensors against the same step on plain
-    tensors: loss, grad norm, every updated parameter and first moment at
+def spmd_train(ctx, cfg, params, label: str, seq: int = 0) -> dict:
+    """One float32 train step of ``SPMD_TRAIN[0]`` x ``seq`` tokens (0:
+    ``SPMD_TRAIN[1]``; after
+    a vlm's patches or an audio model's frames) (AdamW with ``SPMD_OPT``)
+    with ``params`` as DTensors against the same step on plain tensors:
+    loss, grad norm, every updated parameter and first moment at
     ``SPMD_F32_RTOL``; K6's launches in the sharded step, all on
-    ``sm90_tf32x3`` (two a layer with remat).  The plain step's results wait
-    on the host meanwhile, so that the card holds one step's state."""
+    ``sm90_tf32x3`` (two a self-attention layer with remat).  The plain
+    step's results wait on the host meanwhile, so that the card holds one
+    step's state."""
     import dataclasses
 
     import torch
@@ -4521,10 +4571,11 @@ def spmd_train(ctx, cfg, params, label: str) -> dict:
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     opt = AdamWConfig(**SPMD_OPT)
     step = make_train_step(cfg32, opt)
-    b, seq = SPMD_TRAIN
-    batch = torch.as_tensor(np.random.RandomState(LM_SEED + 5).randint(
-        0, cfg.vocab_size, (b, seq + 1)), device="cuda")
-    new, pm = step(init_train_state(params, opt), {"tokens": batch})
+    b, seq = SPMD_TRAIN[0], seq or SPMD_TRAIN[1]
+    batch = {"tokens": torch.as_tensor(np.random.RandomState(
+        LM_SEED + 5).randint(0, cfg.vocab_size, (b, seq + 1)),
+        device="cuda"), **spmd_extras(cfg, b, LM_SEED + 6)}
+    new, pm = step(init_train_state(params, opt), batch)
     want = dict(loss=pm["loss"].cpu(), grad_norm=pm["grad_norm"].cpu(),
                 **{f"param {k}": w.cpu() for k, (w, _) in
                    _spmd_pairs(new.params, new.params)},
@@ -4534,7 +4585,7 @@ def spmd_train(ctx, cfg, params, label: str) -> dict:
     torch.cuda.empty_cache()
     state = init_train_state(shard_params(
         params, ctx, expert_parallel=cfg.expert_parallel), opt)
-    sbatch = {"tokens": shard_batch(batch, ctx)}
+    sbatch = {k: shard_batch(v, ctx) for k, v in batch.items()}
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -4543,9 +4594,7 @@ def spmd_train(ctx, cfg, params, label: str) -> dict:
     torch.cuda.synchronize()
     out["train_s"] = time.perf_counter() - t0
     counts = read_counts()
-    k6 = 2 * cfg.n_layers if cfg.family in ("dense", "moe") else (
-        2 * sum(cfg.layer_is_attn(i) for i in range(cfg.n_layers))
-        if cfg.family == "hybrid" else 0)
+    k6 = 2 * k6_per_forward(cfg)
     check(k6_route_only(counts, K6_F32_ROUTE, k6),
           f"[spmd] {label} sharded f32 train step: launches {counts}, "
           f"expected K6 {k6} on {K6_F32_ROUTE}")
@@ -4648,6 +4697,92 @@ def spmd_family(ctx, arch: str, layers, k6: int, train_layers) -> dict:
     return out
 
 
+def spmd_encdec(ctx, arch: str, k6: int, prompt: int, train_seq: int
+                ) -> dict:
+    """(a) for one of ``SPMD_ENCDEC`` at full width and depth: the bfloat16
+    prefill of ``LM_BATCH`` x ``prompt`` tokens after its patch or frame
+    embeddings (K6 ``k6`` times), ``SPMD_DECODE`` decode steps and a
+    float32 train step of ``train_seq`` text tokens, each against plain
+    tensors."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.whisper import init_encdec
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init = init_encdec if cfg.family == "audio" else init_lm
+    params = init(cfg, LM_SEED, device="cuda")
+    tokens = torch.as_tensor(lm_tokens(cfg, prompt), device="cuda")
+    out, plain, sharded, spmd = spmd_prefill(
+        ctx, cfg, params, tokens, k6, arch,
+        spmd_extras(cfg, LM_BATCH, LM_SEED + 2))
+    out.update(spmd_decode(ctx, cfg, params, sharded, plain, spmd, arch))
+    out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del plain, spmd, sharded
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out.update(spmd_train(ctx, cfg, params, arch, seq=train_seq))
+    out.update(train_layers=cfg.n_layers,
+               train_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"  (a) {arch}: peak {out['serve_peak_gib']:.2f} GiB serving, "
+          f"{out['train_peak_gib']:.2f} GiB in the train step")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def spmd_paper(mesh) -> dict:
+    """(a) the paper's LP step at full size with every input's rows over
+    ``mesh`` (the one-rank NCCL mesh) against the plain step on the same
+    seeded inputs (the [dryrun] cell's), with float32 and bfloat16
+    carriers; each timed over ``SPMD_PAPER_REPS`` steps, sharded and
+    plain in turns."""
+    import torch
+    from torch.distributed.tensor import Shard
+    from repro_torch.configs import paper_vdt
+    from repro_torch.core.distributed import lp_step_leaforder, shard_rows
+    from repro_torch.launch import dryrun
+
+    args = list(dryrun.vdt_seeded_inputs(DRYRUN_VDT_SEED,
+                                         device="cuda").values())
+    sargs = [shard_rows(t, mesh) for t in args]
+    L = paper_vdt.input_specs()[1]["L"]
+    out = {}
+    for name, dt, rtol, atol in (
+            ("f32", None, RTOL, ATOL),
+            ("bf16", torch.bfloat16, SPMD_PAPER_BF16_TOL,
+             SPMD_PAPER_BF16_TOL)):
+        def step(a):
+            return lp_step_leaforder(*a, paper_vdt.ALPHA, L,
+                                     carrier_dtype=dt)
+
+        want = step(args)
+        t0 = time.perf_counter()
+        got = step(sargs)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        check(tuple(got.placements) == (Shard(0),) * mesh.ndim,
+              f"[spmd] paper step ({name}): placements {got.placements}")
+        full = got.full_tensor()
+        err = close(full, want, f"  (a) paper-vdt LP step, {name} carriers,"
+                    " sharded vs plain", rtol, atol)[0]
+        ms, plain_ms = [], []
+        for _ in range(2):
+            ms.append(cuda_ms(lambda: step(sargs), SPMD_PAPER_REPS))
+            plain_ms.append(cuda_ms(lambda: step(args), SPMD_PAPER_REPS))
+        out[name] = dict(max_abs_err=err, bitwise=bool(torch.equal(
+            full, want)), first_call_s=first_s, ms=ms, plain_ms=plain_ms)
+        print(f"  (a) paper-vdt LP step (N = 2^18, C = 8, |B| = 4N), "
+              f"{name} carriers, one-rank NCCL mesh: bit for bit "
+              f"{out[name]['bitwise']}, first sharded call {first_s:.3f} s "
+              f"host; {SPMD_PAPER_REPS} steps in turns: sharded "
+              f"{', '.join(f'{t:.3f}' for t in ms)} ms, plain "
+              f"{', '.join(f'{t:.3f}' for t in plain_ms)} ms a step")
+    return out
+
+
 def _spmd_pairs(a: dict, b: dict, prefix: str = ""):
     for k in a:
         if isinstance(a[k], dict):
@@ -4659,22 +4794,26 @@ def _spmd_pairs(a: dict, b: dict, prefix: str = ""):
 def spmd_fake_count(arch: str, shape_name: str, batch: int, layers,
                     device: str):
     """(b): one cell of the dry run, as ``build_sharded_cell`` makes it
-    (``layers`` of the architecture's depth, None = all), counted per
-    device on a fake group of ``SPMD_FAKE_MESH`` ranks, its shards on
-    ``device``."""
+    (``layers`` of the architecture's depth, None = all; the paper cell
+    its row-sharded LP step, seeded on the card), counted per device on a
+    fake group of ``SPMD_FAKE_MESH`` ranks, its shards on ``device``."""
     import dataclasses
 
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.dryrun import build_sharded_cell, count_sharded
+    from repro_torch.launch.dryrun import (build_sharded_cell, count_sharded,
+                                          vdt_sharded_inputs, vdt_step_fn)
     from repro_torch.launch.mesh import device_mesh
 
     mesh = device_mesh(SPMD_FAKE_MESH, ("data", "model"), "cuda")
-    cfg = None if layers is None else dataclasses.replace(
-        get_config(arch), n_layers=layers)
-    fn, args, *_ = build_sharded_cell(arch, shape_name, False,
-                                      cfg_override=cfg, batch_override=batch,
-                                      device=device, mesh=mesh)
+    if arch == "paper-vdt":
+        fn, args = vdt_step_fn(), vdt_sharded_inputs(mesh, device=device)
+    else:
+        cfg = None if layers is None else dataclasses.replace(
+            get_config(arch), n_layers=layers)
+        fn, args, *_ = build_sharded_cell(
+            arch, shape_name, False, cfg_override=cfg, batch_override=batch,
+            device=device, mesh=mesh)
     t0 = time.perf_counter()
     work = count_sharded(fn, *args)
     if device != "meta":
@@ -4683,9 +4822,9 @@ def spmd_fake_count(arch: str, shape_name: str, batch: int, layers,
 
 
 def phase_spmd() -> dict:
-    """[spmd]: (a) the one-rank NCCL mesh against plain tensors, smollm-360m
-    and ``SPMD_FAMILIES``; (b) the dry run's sharded cells on a fake 2 x 2
-    group, card == meta."""
+    """[spmd]: (a) the one-rank NCCL mesh against plain tensors: the
+    paper's LP step, smollm-360m, ``SPMD_FAMILIES`` and ``SPMD_ENCDEC``;
+    (b) the dry run's sharded cells on a fake 2 x 2 group, card == meta."""
     import tempfile
 
     import torch
@@ -4694,8 +4833,9 @@ def phase_spmd() -> dict:
                                          file_process_group)
     from repro_torch.launch.roofline import collective_bytes
 
-    print(f"[spmd] the LM as DTensors (torch {torch.__version__}): (a) "
-          f"{LM_ARCH} and {', '.join(a for a, *_ in SPMD_FAMILIES)} over a "
+    print(f"[spmd] the paper's LP step and the LMs as DTensors (torch "
+          f"{torch.__version__}): (a) the LP step at full size, {LM_ARCH}, "
+          f"{', '.join(a for a, *_ in SPMD_FAMILIES + SPMD_ENCDEC)} over a "
           "one-rank NCCL mesh against plain tensors; (b) the dry run's "
           "sharded cells counted per device on a fake group of "
           f"{SPMD_FAKE_MESH[0]} x {SPMD_FAKE_MESH[1]} ranks, CUDA shards == "
@@ -4705,9 +4845,14 @@ def phase_spmd() -> dict:
     with tempfile.TemporaryDirectory() as tmp, file_process_group(
             "nccl", 0, 1, Path(tmp) / "store", device="cuda:0"):
         ctx = ShardCtx(mesh=device_mesh((1, 1), ("data", "model"), "cuda"))
+        paper = spmd_paper(ctx.mesh)
+        torch.cuda.empty_cache()
         out = spmd_one_rank(ctx)
+        out["paper"] = paper
         out["families"] = {arch: spmd_family(ctx, arch, *rest)
                            for arch, *rest in SPMD_FAMILIES}
+        out["families"].update({arch: spmd_encdec(ctx, arch, *rest)
+                                for arch, *rest in SPMD_ENCDEC})
     cells = {}
     with fake_process_group(SPMD_FAKE_MESH[0] * SPMD_FAKE_MESH[1]):
         for arch, shape_name, batch, layers in SPMD_FAKE_CELLS:
@@ -4718,8 +4863,9 @@ def phase_spmd() -> dict:
                                            "meta")
             coll = collective_bytes(card.collectives)
             cell = f"{arch} {shape_name}"
-            print(f"  (b) {cell} at batch {batch}"
-                  f"{'' if layers is None else f', {layers} layers'}, fake "
+            print(f"  (b) {cell} at "
+                  + ("full size" if batch is None else f"batch {batch}")
+                  + f"{'' if layers is None else f', {layers} layers'}, fake "
                   f"group {SPMD_FAKE_MESH}: per device on the card "
                   f"{card.flops:.6e} flops, {card.bytes:.6e} bytes, "
                   f"collectives {coll} ({card_s:.2f} s host); on meta "
@@ -4731,7 +4877,9 @@ def phase_spmd() -> dict:
                   f"differs from meta: flops {card.flops} vs {meta.flops}, "
                   f"bytes {card.bytes} vs {meta.bytes}, collectives "
                   f"{coll} vs {collective_bytes(meta.collectives)}")
-            check(card.flops > 0 and card.bytes > 0 and coll["count"] > 0,
+            # the paper step counts no products (FLOPs are products only)
+            check((card.flops > 0 or arch == "paper-vdt") and card.bytes > 0
+                  and coll["count"] > 0,
                   f"[spmd] {cell}: an empty count on the fake group")
             cells[cell] = dict(
                 batch=batch, layers=layers, flops_per_device=card.flops,

@@ -9,10 +9,9 @@ The reference lowers and compiles each cell for a 16 x 16 (or 2 x 16 x 16)
 TPU mesh on 512 forced XLA host devices and reads FLOPs and bytes from
 ``compiled.cost_analysis()``.  PyTorch eager has no compiled program, so the
 port *counts* the step's work by running it once on ``meta`` tensors at the
-cell's full shape and depth (:func:`count_work`): no storage, no values, and
-K6 one operator with its FLOP formula.  The counts are global; the roofline
-divides them over the mesh's chips at the H100's constants
-(``launch/roofline.py``).  Each device's share of the step's arguments is
+cell's full shape and depth: no storage, no values, and K6 one operator
+with its FLOP formula; the roofline prices the counts at the H100's
+constants (``launch/roofline.py``).  Each device's share of the step's arguments is
 planned on ``launch/mesh.py::make_production_mesh`` through the reference's
 sharding rules (``distributed/sharding.py::param_shardings``).
 
@@ -20,13 +19,13 @@ Bytes are eager and unfused: every operator's tensor inputs read once and
 its outputs written once (views count 0).  That is an upper bound on the
 traffic a fused program moves, not XLA's "bytes accessed".
 
-The dense, MoE, SSM and hybrid families' cells (``SHARDED_FAMILIES``) are
-counted as the sharded program, per device, as the reference compiles
-them: the step runs with
-its parameters as DTensors over the production mesh
-(``launch/mesh.py::production_device_mesh``, a fake process group of 256 or
-512 ranks that this one process drives as rank 0, device type ``cuda``)
-and its inputs sharded by batch, a decode cell's every cache leaf by the
+Every family's cells (``SHARDED_FAMILIES``: dense, MoE, SSM, hybrid,
+vlm, audio) are counted as the sharded program, per device, as the
+reference compiles them: the step runs with its parameters as DTensors
+over the production mesh (``launch/mesh.py::production_device_mesh``, a
+fake process group of 256 or 512 ranks that this one process drives as
+rank 0, device type ``cuda``) and its inputs (tokens, patch and frame
+embeddings) sharded by batch, a decode cell's every cache leaf by the
 reference's decode-state rule (:func:`build_sharded_cell`), and
 :func:`count_sharded` counts rank 0's local work *below* DTensor: each
 shard is a :class:`Counting` tensor, whose ``__torch_dispatch__`` adds up
@@ -34,13 +33,14 @@ every local operator's FLOPs (``torch.utils.flop_counter``'s formulas,
 K6's included) and bytes, and records every ``_c10d_functional``
 collective with its result's bytes; a dispatch mode adds the plain
 tensors' operators (positions, masks).  A mode above DTensor would count
-global work, not one device's.  The roofline then globalises as the
-reference does: FLOPs and bytes times the chips, collective bytes once
-(``launch/roofline.py::collective_bytes``).  Such a record reads
-``sharded: true``; every other family's cell (vlm, audio) keeps the
-global count over
-the chips, with ``sharded: false`` and ``collectives: null`` (not
-counted, not 0).  Not carried over (``README.md``): the compile proof,
+global work, not one device's.  The paper cell (:func:`run_vdt_cell`) is
+the row-sharded LP step of ``core/distributed.py`` counted so, its inputs'
+rows over the whole mesh.  The roofline then globalises as the reference
+does: FLOPs and bytes times the chips, collective bytes once
+(``launch/roofline.py::collective_bytes``); every record reads
+``sharded: true``.  :func:`build_cell` and :func:`count_work` (the step
+unsharded, on one device) are what ``chip_smoke.py`` runs on the card at a
+reduced batch.  Not carried over (``README.md``): the compile proof,
 XLA's fused byte count, the L = 2 / 4 marginal extrapolation and
 ``memory_analysis``'s temporary bytes.
 
@@ -149,7 +149,7 @@ def count_work(fn, *args) -> tuple[int, int]:
 
 
 # the families whose cells are counted as the sharded program
-SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 # collectives (``_c10d_functional``'s, and DTensor's all-to-all between two
 # shardings of one mesh dimension) by the reference's HLO kind; the ops that
@@ -533,36 +533,30 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
     t0 = time.time()
     try:
-        sharded = cfg.family in SHARDED_FAMILIES
+        if cfg.family not in SHARDED_FAMILIES:
+            raise NotImplementedError(f"no sharded program for the "
+                                      f"{cfg.family!r} family")
         n_chips = len(make_production_mesh(multi_pod=multi_pod).devices)
-        if sharded:
-            with production_group(multi_pod):
-                fn, args, arg_bytes, cfg, shape, meta, _, _ = \
-                    build_sharded_cell(arch, shape_name, multi_pod,
-                                       cfg_override=cfg_override)
-                work = count_sharded(fn, *args)
-            # per device: globalised as the reference does, collectives once
-            flops, nbytes = work.flops * n_chips, work.bytes * n_chips
-            coll = collective_bytes(work.collectives)
-        else:
-            fn, args, arg_bytes, cfg, shape, meta, _, _ = build_cell(
-                arch, shape_name, multi_pod, cfg_override=cfg_override)
-            flops, nbytes = count_work(fn, *args)
-            coll = None
+        with production_group(multi_pod):
+            fn, args, arg_bytes, cfg, shape, meta, _, _ = \
+                build_sharded_cell(arch, shape_name, multi_pod,
+                                   cfg_override=cfg_override)
+            work = count_sharded(fn, *args)
+        # per device: globalised as the reference does, collectives once
+        flops, nbytes = work.flops * n_chips, work.bytes * n_chips
+        coll = collective_bytes(work.collectives)
         mult = 6 if shape.kind == "train" else 2
         model_flops = mult * cfg.active_param_count() * meta["tokens_per_step"]
         rl = roofline_terms({"flops": flops, "bytes accessed": nbytes},
-                            coll or {}, n_chips, model_flops=model_flops,
+                            coll, n_chips, model_flops=model_flops,
                             tokens_per_step=meta["tokens_per_step"])
-        rec.update(status="ok", counted="meta", sharded=sharded,
+        rec.update(status="ok", counted="meta", sharded=True,
                    n_chips=n_chips, flops=flops, bytes=nbytes,
                    model_flops=model_flops, collectives=coll,
                    argument_bytes_per_device=arg_bytes,
                    roofline=rl.as_dict(), params=cfg.param_count(),
-                   active_params=cfg.active_param_count())
-        if sharded:
-            rec.update(flops_per_device=work.flops,
-                       bytes_per_device=work.bytes)
+                   active_params=cfg.active_param_count(),
+                   flops_per_device=work.flops, bytes_per_device=work.bytes)
     except Exception as e:   # one cell's failure is recorded, the grid goes on
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-4000:])
@@ -604,10 +598,40 @@ def vdt_model_flops() -> int:
             * paper_vdt.N_CLASSES)
 
 
+def vdt_sharded_inputs(mesh, device="meta") -> tuple:
+    """The paper cell's inputs as the reference lays them out: every one
+    split by rows over all of ``mesh``'s dimensions (``shard_rows``), on
+    ``device`` (``meta``: shapes only; else seeded, as on the card)."""
+    from repro_torch.configs import paper_vdt
+    from repro_torch.core.distributed import shard_rows
+
+    specs = (paper_vdt.input_specs()[0] if torch.device(device).type ==
+             "meta" else vdt_seeded_inputs(device=device))
+    return tuple(shard_rows(x, mesh) for x in specs.values())
+
+
+def vdt_seeded_inputs(seed: int = 23, device="cpu") -> dict:
+    """The paper cell's inputs at full size with seeded values: ``a`` and
+    ``b`` over the tree's node ids and ``q`` and the labels in [0, 1) (not
+    a fitted tree), drawn on the CPU and moved to ``device``."""
+    from repro_torch.configs import paper_vdt
+
+    specs, meta = paper_vdt.input_specs()
+    n_nodes = (1 << (meta["L"] + 1)) - 1
+    g = torch.Generator().manual_seed(seed)
+    return {k: (torch.randint(0, n_nodes, x.shape, generator=g,
+                              dtype=x.dtype) if k in ("a", "b")
+                else torch.rand(x.shape, generator=g)).to(device)
+            for k, x in specs.items()}
+
+
 def run_vdt_cell(multi_pod: bool, force: bool = False,
                  variant: str = "") -> dict:
     """The paper-representative cell: one distributed VDT LP step
-    (N = 2^18 points, though the reference's id says 1M)."""
+    (N = 2^18 points, though the reference's id says 1M), counted per
+    device as the row-sharded SPMD program over the production mesh
+    (``core/distributed.py``), as the reference compiles it with every
+    input's rows over all mesh axes."""
     from repro_torch.configs import paper_vdt
 
     mesh_name = "multi_pod" if multi_pod else "single_pod"
@@ -623,23 +647,28 @@ def run_vdt_cell(multi_pod: bool, force: bool = False,
     t0 = time.time()
     try:
         specs, meta = paper_vdt.input_specs()
-        mesh = make_production_mesh(multi_pod=multi_pod)
-        n_chips = len(mesh.devices)
+        n_chips = len(make_production_mesh(multi_pod=multi_pod).devices)
         # every device is a data shard: rows over all axes when they divide
         arg_bytes = sum(
             x.numel() * x.element_size()
             // (n_chips if x.shape[0] % n_chips == 0 else 1)
             for x in specs.values())
-        flops, nbytes = count_work(vdt_step_fn(variant), *specs.values())
+        with production_group(multi_pod):
+            mesh = production_device_mesh(multi_pod=multi_pod)
+            work = count_sharded(vdt_step_fn(variant),
+                                 *vdt_sharded_inputs(mesh))
+        flops, nbytes = work.flops * n_chips, work.bytes * n_chips
+        coll = collective_bytes(work.collectives)
         model_flops = vdt_model_flops()
-        rl = roofline_terms({"flops": flops, "bytes accessed": nbytes}, {},
+        rl = roofline_terms({"flops": flops, "bytes accessed": nbytes}, coll,
                             n_chips, model_flops=model_flops,
                             tokens_per_step=meta["tokens_per_step"])
-        rec.update(status="ok", counted="meta", sharded=False,
+        rec.update(status="ok", counted="meta", sharded=True,
                    n_chips=n_chips, flops=flops, bytes=nbytes,
-                   model_flops=model_flops, collectives=None,
+                   model_flops=model_flops, collectives=coll,
                    argument_bytes_per_device=arg_bytes,
-                   roofline=rl.as_dict())
+                   roofline=rl.as_dict(), flops_per_device=work.flops,
+                   bytes_per_device=work.bytes)
     except Exception as e:   # recorded, as in run_cell
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-4000:])
@@ -680,7 +709,8 @@ def main():
     if args.all or args.arch is None:
         for mp in meshes:
             rec = run_vdt_cell(mp, force=args.force)
-            print(f"[{rec['status']:7s}] {rec['cell']}", flush=True)
+            print(f"[{rec['status']:7s}] {rec['cell']}{_describe(rec)}",
+                  flush=True)
             results.append(rec)
     for mp in meshes:
         # the fake process group the sharded cells are counted over, set up

@@ -13,9 +13,8 @@ Variants (each is one hypothesis from the §Perf log):
   noremat        — disable activation checkpointing (FLOPs down, memory up)
   all            — attn_seq_shard + chunked_ce
 
-Counts are taken on ``meta`` tensors: a dense cell's per device as the
-sharded program (``dryrun.count_sharded``), any other family's globally
-(``dryrun.count_work``).  ``attn_seq_shard`` still changes no count: the
+Counts are taken on ``meta`` tensors, per device as the sharded program
+(``dryrun.count_sharded``).  ``attn_seq_shard`` still changes no count: the
 port's self-attention is K6, which forms no score tensor for
 ``shard_attn_logits`` to pin, and K6's sharding rule offers the batch and
 the heads but not the query sequence (it takes one ``S`` for q and k and no

@@ -23,7 +23,8 @@ on each rank's shard through ``local_map``, the slot shifted by the
 shard's offset along the cache's slots when they are sharded (the
 reference's ``"cache_seq"``), so that only the shard that holds the slot
 writes; the decode's attention over a head-sharded cache (``"cache"``)
-runs on each rank's heads (``_attend_cache``).
+runs on each rank's heads (``_attend_cache``), and so does a sharded
+cross-attention over its K/V (whisper's decoder).
 """
 from __future__ import annotations
 
@@ -159,6 +160,12 @@ def cross_attend(params: dict, x: torch.Tensor, k: torch.Tensor,
     dt = x.dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = _split_heads(x @ params["w_q"].to(dt), hq, hd)
+    if is_dtensor(k):
+        # as the decode's attention over a sharded cache, every slot valid
+        o = _attend_cache(q, k, v, torch.ones((), dtype=torch.bool,
+                                              device=x.device))
+        return o.reshape(x.shape[0], x.shape[1], hq * hd) @ \
+            params["w_o"].to(dt)
     k, v = _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
     p = torch.softmax(logits.to(torch.float32), dim=-1).to(dt)

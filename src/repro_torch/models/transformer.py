@@ -244,13 +244,16 @@ def shared_block(sp: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
 
 def embed_inputs(params: dict, tokens, cfg, patches=None) -> torch.Tensor:
     """Token embeddings in the compute dtype, a vlm's ``patches`` (B, P, D)
-    prepended, constrained to ``"btd"``."""
+    prepended, constrained to ``"btd"``.  Sharded, the lookup of a
+    vocabulary-sharded table is a masked partial sum, which DTensor cannot
+    concatenate with the batch-sharded patches: the tokens' rows are
+    reduced to ``"btd"`` first."""
     emb = params["embed"]
     x = F.embedding(torch.as_tensor(tokens, device=emb.device), emb).to(
         Dtypes.compute(cfg))
     if patches is not None:
         x = torch.cat([torch.as_tensor(patches, device=emb.device).to(x.dtype),
-                       x], dim=1)
+                       shard_act(x, "btd")], dim=1)
     return shard_act(x, "btd")
 
 

@@ -12,12 +12,24 @@ encoder's layers stacked on axis 0 of ``params["enc_layers"]``, the
 decoder's on ``params["layers"]``; the layer loops are Python loops.  With
 ``cfg.remat`` a forward that takes a gradient checkpoints each layer
 (``transformer.remat_call``).
+
+Sharded (parameters as DTensors over a ``DeviceMesh``,
+``distributed/sharding.py``): ``shard_act`` pins the reference's eight
+points (the encoder's input and both residual adds, the decoder's input
+and its three residual adds, the logits ``"btv"``).  The reference's
+``param_shardings`` treats a leaf as layer-stacked only under
+``/layers/``, so ``enc_layers``' attention weights may be sharded on their
+layer axis (``P("data", "model", None)`` on a 2 x 2 mesh); the port keeps
+those placements, and :func:`encoder_forward` gathers that axis before
+its layer loop (``_whole_layers``: dimension 0 replicated, every other
+placement kept), as GSPMD serves a scan over a sharded stacked axis.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch._device import resolve_device, seeded_generator
+from repro_torch._device import is_dtensor, resolve_device, seeded_generator
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.models.attention import attn_apply, attn_init
 from repro_torch.models.layers import (Dtypes, dense_init, mlp_apply,
                                        mlp_init, rms_norm)
@@ -113,22 +125,45 @@ def encoder_layer(lp: dict, x: torch.Tensor, cfg,
                   positions: torch.Tensor) -> torch.Tensor:
     """One encoder layer: bidirectional self-attention through K6 (no RoPE),
     then the MLP, each residual."""
-    x = x + attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                       positions, causal=False, use_rope=False)
-    return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                         x.dtype)
+    x = x + shard_act(attn_apply(lp["attn"],
+                                 rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                                 positions, causal=False, use_rope=False),
+                      "btd")
+    return x + shard_act(mlp_apply(lp["mlp"],
+                                   rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                   x.dtype), "btd")
 
 
 def decoder_layer(lp: dict, x: torch.Tensor, enc: torch.Tensor, cfg,
                   positions: torch.Tensor) -> torch.Tensor:
     """One decoder layer: causal self-attention through K6 (RoPE),
     cross-attention over ``enc`` (no RoPE), the MLP, each residual."""
-    x = x + attn_apply(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                       positions)
-    x = x + attn_apply(lp["xattn"], rms_norm(x, lp["ln_x"], cfg.norm_eps),
-                       cfg, positions, kv_x=enc, use_rope=False)
-    return x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                         x.dtype)
+    x = x + shard_act(attn_apply(lp["attn"],
+                                 rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                                 positions), "btd")
+    x = x + shard_act(attn_apply(lp["xattn"],
+                                 rms_norm(x, lp["ln_x"], cfg.norm_eps), cfg,
+                                 positions, kv_x=enc, use_rope=False), "btd")
+    return x + shard_act(mlp_apply(lp["mlp"],
+                                   rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                   x.dtype), "btd")
+
+
+def _whole_layers(layers: dict) -> dict:
+    """A stacked layer tree whose DTensor leaves sharded on their layer
+    axis (dimension 0) are gathered on it, every other placement kept; the
+    rest as they are."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def whole(t):
+        if isinstance(t, dict):
+            return {k: whole(v) for k, v in t.items()}
+        if not (is_dtensor(t) and Shard(0) in t.placements):
+            return t
+        return t.redistribute(t.device_mesh, [
+            Replicate() if p == Shard(0) else p for p in t.placements])
+
+    return whole(layers)
 
 
 def encoder_forward(params: dict, frames, cfg) -> torch.Tensor:
@@ -137,10 +172,12 @@ def encoder_forward(params: dict, frames, cfg) -> torch.Tensor:
     _require_audio(cfg)
     pos_emb = params["enc_pos"]
     frames = torch.as_tensor(frames, device=pos_emb.device)
-    x = (frames + pos_emb[None, :frames.shape[1]]).to(Dtypes.compute(cfg))
+    x = shard_act((frames + pos_emb[None, :frames.shape[1]]).to(
+        Dtypes.compute(cfg)), "btd")
     positions = _positions(x)
     run = remat_call(cfg, params)
-    for lp in unstack_layers(params["enc_layers"], cfg.n_encoder_layers):
+    for lp in unstack_layers(_whole_layers(params["enc_layers"]),
+                             cfg.n_encoder_layers):
         x = run(encoder_layer, lp, x, cfg, positions)
     return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
 
@@ -157,7 +194,7 @@ def decoder_forward(params: dict, tokens, enc_out: torch.Tensor,
     for lp in unstack_layers(params["layers"], cfg.n_layers):
         x = run(decoder_layer, lp, x, enc, cfg, positions)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return x @ params["unembed"].to(dt)
+    return shard_act(x @ params["unembed"].to(dt), "btv")
 
 
 def encdec_forward(params: dict, tokens, frames, cfg):

@@ -32,16 +32,19 @@ values).  Self-attention in ``prefill`` (the encoder's too) goes through K6;
 against the cached K/V and the SSM recurrence in plain torch.
 
 Sharded (parameters as DTensors over a ``DeviceMesh``, inputs sharded by
-batch, ``distributed/sharding.py``), the dense, MoE, SSM and hybrid paths
-constrain the embeddings and each residual add to ``"btd"`` as the
-reference's prefill does (its decode step leaves that to GSPMD; here
+batch, ``distributed/sharding.py``), every family's path constrains the
+embeddings and each residual add to ``"btd"`` as the reference's prefill
+does (its decode step leaves that to GSPMD; here
 ``decode_step`` pins the same points), and a KV cache (once laid out for
 decoding, and at each decode step's start) by the reference's decode-state
 rule (``sharding.decode_state_spec``): the batch over dp when it divides
-it; a KV cache (L, B, W, Hkv, D) its kv heads over tp when they divide it,
-else its slots (the reference's ``"cache"`` and ``"cache_seq"``); an SSM
-state (L, B, H, P, N) P over tp, a conv cache (L, B, K - 1, C) its
-channels.
+it; a KV cache (L, B, W, Hkv, D), and whisper's cross-attention K/V (L, B,
+T_enc, Hkv, D), its kv heads over tp when they divide it, else its slots
+(the reference's ``"cache"`` and ``"cache_seq"``); an SSM state (L, B, H,
+P, N) P over tp, a conv cache (L, B, K - 1, C) its channels.  A vlm's
+patches are sharded by batch like its tokens.  An audio prefill projects
+every layer's cross-attention K/V first and lays them out so, then
+attends over them as its decode steps do.
 
 A ring keeps ``min(S, window)`` slots, as the reference's does: when the
 prompt is shorter than the window, the first decoded token takes slot
@@ -283,28 +286,32 @@ def _prefill_audio(params: dict, tokens, frames, cfg, dt):
     x = embed_inputs(params, tokens, cfg)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    ks, vs, cks, cvs = [], [], [], []
+    # every layer's cross-attention K/V, laid out as the decode cache
+    cross = [cross_kv(layer_params(params["layers"], i)["xattn"], enc, cfg)
+             for i in range(cfg.n_layers)]
+    cross_k = shard_state(torch.stack([k for k, _ in cross]))
+    cross_v = shard_state(torch.stack([v for _, v in cross]))
+    del cross
+    ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         a, k, v = self_attention(lp["attn"],
                                  rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                                  pos)
-        x = x + a
-        ck, cv = cross_kv(lp["xattn"], enc, cfg)
-        x = x + cross_attend(lp["xattn"],
-                             rms_norm(x, lp["ln_x"], cfg.norm_eps), ck, cv,
-                             cfg)
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), dt)
+        x = x + shard_act(a, "btd")
+        x = x + shard_act(cross_attend(
+            lp["xattn"], rms_norm(x, lp["ln_x"], cfg.norm_eps), cross_k[i],
+            cross_v[i], cfg), "btd")
+        x = x + shard_act(mlp_apply(lp["mlp"],
+                                    rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                    dt), "btd")
         ks.append(k)
         vs.append(v)
-        cks.append(ck)
-        cvs.append(cv)
     ks, vs = _finalize_kv(torch.stack(ks), torch.stack(vs), s, False, None)
     state = DecodeState(
-        kv=KVCache(k=ks, v=vs, pos=torch.full((cfg.n_layers,), s,
-                                              dtype=torch.int32,
-                                              device=x.device)),
-        cross_k=torch.stack(cks), cross_v=torch.stack(cvs))
+        kv=_laid_out(KVCache(k=ks, v=vs, pos=torch.full(
+            (cfg.n_layers,), s, dtype=torch.int32, device=x.device))),
+        cross_k=cross_k, cross_v=cross_v)
     return _logits(params, x, cfg, dt), state
 
 
@@ -340,19 +347,23 @@ def _decode_attn(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):
 def _decode_audio(params: dict, x: torch.Tensor, state: DecodeState, cfg,
                   dt):
     caches = []
+    kv = _laid_out(state.kv)
+    cross_k, cross_v = shard_state(state.cross_k), shard_state(state.cross_v)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         a, cache = attn_decode(lp["attn"],
                                rms_norm(x, lp["ln1"], cfg.norm_eps),
-                               _index(state.kv, i), cfg)
-        x = x + a
-        x = x + cross_attend(lp["xattn"],
-                             rms_norm(x, lp["ln_x"], cfg.norm_eps),
-                             state.cross_k[i], state.cross_v[i], cfg)
-        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), dt)
+                               _index(kv, i), cfg)
+        x = x + shard_act(a, "btd")
+        x = x + shard_act(cross_attend(
+            lp["xattn"], rms_norm(x, lp["ln_x"], cfg.norm_eps), cross_k[i],
+            cross_v[i], cfg), "btd")
+        x = x + shard_act(mlp_apply(lp["mlp"],
+                                    rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                    dt), "btd")
         caches.append(cache)
-    return x, DecodeState(kv=_stack(caches), cross_k=state.cross_k,
-                          cross_v=state.cross_v)
+    return x, DecodeState(kv=_stack(caches), cross_k=cross_k,
+                          cross_v=cross_v)
 
 
 def _decode_ssm(params: dict, x: torch.Tensor, state: DecodeState, cfg, dt):

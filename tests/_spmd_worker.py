@@ -7,7 +7,8 @@ For each case (an architecture's ``SMOKE`` configuration, or a variant of
 one, ``arch@name``) it reads ``OUT_DIR/{case}_inputs.npz`` (the reference's
 float32 parameters as ``p/<path>`` arrays, ``tokens`` (B, S + 1) and
 ``decode`` (B, N) tokens, and ``overrides``, the configuration's changed
-fields as JSON), starts four ranks (``torch.multiprocessing``, spawn), and
+fields as JSON; a vlm's ``patches`` (B, P, D) and an audio model's
+``frames`` (B, T_enc, D), where the case has them), starts four ranks (``torch.multiprocessing``, spawn), and
 on each rank runs the train step, the prefill and ``N`` decode steps with
 the parameters as DTensors (``shard_params``, experts over ``model`` where
 the configuration is expert-parallel) and the inputs sharded by batch,
@@ -15,7 +16,7 @@ under ``use_ctx(ShardCtx(mesh))``; rank 0 also runs them on plain tensors.
 Rank 0 writes ``OUT_DIR/{case}_out.npz``: the sharded (``spmd/...``) and
 plain (``plain/...``) loss, grad norm, updated parameters, prefill logits
 and each decode step's logits; each decode-cache leaf's placements as text
-(``spmd/placements/...``); and for an MoE model the first layer's dispatch
+(``spmd/placements/...``, whisper's cross-attention K/V among them); and for an MoE model the first layer's dispatch
 table of the prefill's normed embeddings (``.../table``).
 """
 import json
@@ -80,16 +81,19 @@ def _run(params, inputs, cfg, ctx):
 
     tokens = torch.as_tensor(inputs["tokens"]).long()
     decode = torch.as_tensor(inputs["decode"]).long()
+    extras = {k: torch.as_tensor(inputs[k]) for k in ("patches", "frames")
+              if k in inputs}
     if ctx is not None:
         params = shard_params(params, ctx,
                               expert_parallel=cfg.expert_parallel)
         tokens = shard_batch(tokens, ctx)
         decode = shard_batch(decode, ctx)
+        extras = {k: shard_batch(v, ctx) for k, v in extras.items()}
     out = {}
     opt = AdamWConfig(**OPT)
     with use_ctx(ctx):
         state, metrics = make_train_step(cfg, opt)(
-            init_train_state(params, opt), {"tokens": tokens})
+            init_train_state(params, opt), {"tokens": tokens, **extras})
         for k in ("loss", "grad_norm"):
             out[k] = _full(metrics[k])
         for path, leaf in _flat(state.params):
@@ -101,7 +105,7 @@ def _run(params, inputs, cfg, ctx):
             h = rms_norm(embed_inputs(params, tokens[:, :-1], cfg),
                          lp["ln2"], cfg.norm_eps)
             out["table"] = _full(moe_dispatch_table(lp["moe"], h, cfg))
-        logits, dstate = prefill(params, tokens[:, :-1], cfg)
+        logits, dstate = prefill(params, tokens[:, :-1], cfg, **extras)
         out["prefill"] = _full(logits)
         if ctx is not None:
             out.update(_cache_placements(dstate))
@@ -119,6 +123,8 @@ def _cache_placements(dstate) -> dict:
     out = {}
     for f in dataclasses.fields(dstate):
         cache = getattr(dstate, f.name)
+        if isinstance(cache, torch.Tensor):
+            out[f"placements/{f.name}"] = np.array(str(cache.placements))
         if cache is None or isinstance(cache, torch.Tensor):
             continue
         for g in dataclasses.fields(cache):
@@ -145,7 +151,9 @@ def _rank(rank: int, out_dir: str, cases: list, store: str):
                 cfg = dataclasses.replace(
                     registry.get_smoke_config(case.split("@")[0]),
                     dtype="float32", **json.loads(str(npz["overrides"])))
-                inputs = {k: npz[k] for k in ("tokens", "decode")}
+                inputs = {k: npz[k] for k in ("tokens", "decode",
+                                              "patches", "frames")
+                          if k in npz.files}
                 params = lm_params_from_numpy(_unflatten(npz), cfg,
                                               device="cpu")
             got = {f"spmd/{k}": v for k, v in

@@ -290,18 +290,22 @@ def test_run_cell_on_a_smoke_override_is_ok(tmp_path, monkeypatch):
 
 def test_run_cell_of_a_family_not_sharded_counts_globally(tmp_path,
                                                           monkeypatch):
-    """A family outside ``SHARDED_FAMILIES`` keeps the unsharded count over
-    the chips, its collectives not counted (null, not 0)."""
+    """No family is left outside ``SHARDED_FAMILIES`` (the vlm and audio
+    families joined it last): the cell this test once counted globally,
+    internvl2-1b's ``train_4k``, is now counted per device as the sharded
+    program, its collectives counted, globalised over the chips."""
     monkeypatch.setattr(dryrun, "ART", tmp_path)
     cfg = registry.get_smoke_config("internvl2-1b")
-    assert cfg.family not in dryrun.SHARDED_FAMILIES
+    assert set(dryrun.SHARDED_FAMILIES) == {
+        registry.get_config(a).family for a in registry.ARCH_IDS}
     rec = dryrun.run_cell("internvl2-1b", "train_4k", False,
                           cfg_override=cfg)
     assert rec["status"] == "ok", rec.get("trace")
-    assert rec["sharded"] is False and rec["collectives"] is None
-    assert "flops_per_device" not in rec and "bytes_per_device" not in rec
-    assert rec["roofline"]["coll_bytes"] == 0.0
-    assert rec["flops"] > 0 and rec["n_chips"] == 256
+    assert rec["sharded"] is True and rec["collectives"]["total"] > 0
+    assert rec["flops"] == rec["flops_per_device"] * 256 > 0
+    assert rec["bytes"] == rec["bytes_per_device"] * 256
+    assert rec["roofline"]["coll_bytes"] == rec["collectives"]["total"]
+    assert rec["n_chips"] == 256
 
 
 def test_run_cell_skips_full_attention_long_500k(tmp_path, monkeypatch):

@@ -1473,17 +1473,190 @@ def test_cuda_spmd_family_count_on_a_fake_group_equals_meta(arch, shape):
     assert card[0] > 0 and card[1] > 0 and card[2]
 
 
+ENCDEC = ("internvl2-1b", "whisper-medium")
+
+
+def _encdec_extras(cfg, batch: int, seed: int) -> dict:
+    """A vlm's patch or an audio model's frame embeddings, seeded."""
+    name, n = (("frames", cfg.encoder_frames) if cfg.family == "audio"
+               else ("patches", cfg.n_patches))
+    return {name: torch.as_tensor(np.random.RandomState(seed).randn(
+        batch, n, cfg.d_model).astype(np.float32))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ENCDEC)
+def test_cuda_spmd_encdec_one_rank_mesh_matches_plain_tensors(arch,
+                                                              tmp_path):
+    """internvl2-1b and whisper-medium at d_model 128 (heads of 64) as
+    DTensors over a one-rank NCCL mesh, their patch or frame embeddings
+    sharded by batch: a float32 prefill of 2 x 64 tokens, 3 decode steps
+    and a train step (remat) equal the same calls on plain tensors
+    (``rtol=1e-5``, ``atol`` 1e-6 of the largest magnitude, at least 1);
+    K6 launched once a prefill's self-attention layer (whisper's encoder
+    layers too) and twice in the step, on its float32 route."""
+    _card()
+    from repro_torch._device import is_dtensor
+    from repro_torch.distributed.sharding import (ShardCtx, shard_batch,
+                                                  shard_params, use_ctx)
+    from repro_torch.launch.mesh import device_mesh, file_process_group
+    from repro_torch.models.transformer import init_lm, leaves
+    from repro_torch.models.whisper import init_encdec
+    from repro_torch.serving.decode import decode_step, prefill
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    cfg = dataclasses.replace(_small(arch), remat=True)
+    audio = cfg.family == "audio"
+    torch.cuda.set_device(0)
+    params = (init_encdec if audio else init_lm)(cfg, 0, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64 + 3),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    extras = {k: v.cuda() for k, v in _encdec_extras(cfg, 2, 0).items()}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-4)
+    step = make_train_step(cfg, opt)
+    k6 = cfg.n_layers + (cfg.n_encoder_layers if audio else 0)
+
+    def close(got, want):
+        got = got.full_tensor() if is_dtensor(got) else got
+        atol = 1e-6 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+    with file_process_group("nccl", 0, 1, tmp_path / "store",
+                            device="cuda:0"):
+        ctx = ShardCtx(mesh=device_mesh((1, 1), ("data", "model"), "cuda"))
+        want, state = prefill(params, tokens[:, :64], cfg, **extras)
+        plain, pm = step(init_train_state(params, opt),
+                         {"tokens": tokens, **extras})
+        sharded = shard_params(params, ctx)
+        sextras = {k: shard_batch(v, ctx) for k, v in extras.items()}
+        before = flash_attention.launches_by_route.get("sm90_tf32x3", 0)
+        with use_ctx(ctx):
+            got, sstate = prefill(sharded, shard_batch(tokens[:, :64], ctx),
+                                  cfg, **sextras)
+            new, m = step(init_train_state(sharded, opt),
+                          {"tokens": shard_batch(tokens, ctx), **sextras})
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_route.get("sm90_tf32x3", 0) == \
+            before + 3 * k6
+        close(got, want)
+        close(m["loss"], pm["loss"])
+        close(m["grad_norm"], pm["grad_norm"])
+        for a, b in zip(leaves(new.params), leaves(plain.params)):
+            close(a, b)
+        for i in range(64, 67):
+            want, state = decode_step(params, tokens[:, i:i + 1], state, cfg)
+            with use_ctx(ctx):
+                got, sstate = decode_step(
+                    sharded, shard_batch(tokens[:, i:i + 1], ctx), sstate,
+                    cfg)
+            close(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_spmd_paper_step_one_rank_mesh_matches_plain(tmp_path):
+    """The paper's LP step (N = 2^14, C = 8, |B| = 4N, seeded blocks) with
+    every input's rows over a one-rank NCCL mesh equals the plain step
+    within ``rtol=1e-4, atol=1e-5`` (``index_add_`` adds with atomics on
+    the card), bfloat16 carriers within ``5e-2``, and a 3-step scan too;
+    the result keeps the rows' placements."""
+    _card()
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.core.distributed import (label_propagate_distributed,
+                                              lp_step_leaforder, shard_rows)
+    from repro_torch.launch.mesh import device_mesh, file_process_group
+
+    L, c = 14, 8
+    n, nb, n_nodes = 1 << L, 4 << L, (2 << L) - 1
+    g = torch.Generator().manual_seed(4)
+    args = [torch.rand(n, c, generator=g), torch.rand(n, c, generator=g),
+            torch.randint(0, n_nodes, (nb,), generator=g),
+            torch.randint(0, n_nodes, (nb,), generator=g),
+            torch.rand(nb, generator=g)]
+    args = [t.cuda() for t in args]
+    torch.cuda.set_device(0)
+    with file_process_group("nccl", 0, 1, tmp_path / "store",
+                            device="cuda:0"):
+        mesh = device_mesh((1, 1), ("data", "model"), "cuda")
+        sargs = [shard_rows(t, mesh) for t in args]
+        for dt, tol in ((None, dict(rtol=1e-4, atol=1e-5)),
+                        (torch.bfloat16, dict(rtol=5e-2, atol=5e-2))):
+            got = lp_step_leaforder(*sargs, 0.3, L, carrier_dtype=dt)
+            assert tuple(got.placements) == (Shard(0), Shard(0))
+            torch.testing.assert_close(
+                got.full_tensor(),
+                lp_step_leaforder(*args, 0.3, L, carrier_dtype=dt), **tol)
+        got = label_propagate_distributed(*sargs[1:], 0.3, L, 3)
+        torch.testing.assert_close(
+            got.full_tensor(),
+            label_propagate_distributed(*args[1:], 0.3, L, 3),
+            rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shape", [("paper-vdt", None),
+                                        ("internvl2-1b", "prefill_32k"),
+                                        ("whisper-medium", "train_4k"),
+                                        ("whisper-medium", "decode_32k")])
+def test_cuda_spmd_encdec_count_on_a_fake_group_equals_meta(arch, shape):
+    """The dry run's paper cell at full size, and the sharded cells of the
+    vlm and audio families (d_model 128, heads of 64, 64 tokens, batch 2,
+    train with remat), counted per device on a fake 2 x 2 group: CUDA
+    shards and meta shards give the same FLOPs, bytes and collective
+    records (and argument bytes)."""
+    _card()
+    from repro_torch.configs import shapes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import device_mesh, fake_process_group
+
+    works = []
+    with fake_process_group(4):
+        mesh = device_mesh((2, 2), ("data", "model"), "cuda")
+        if shape is None:
+            for device in ("cuda", "meta"):
+                work = dryrun.count_sharded(
+                    dryrun.vdt_step_fn(),
+                    *dryrun.vdt_sharded_inputs(mesh, device=device))
+                works.append((work.flops, work.bytes, work.collectives))
+        else:
+            cfg = dataclasses.replace(_small(arch),
+                                      remat=shape == "train_4k")
+            spec = dryrun.SHAPES[shape]
+            try:
+                dryrun.SHAPES[shape] = shapes.ShapeSpec(shape, 64, 2,
+                                                        spec.kind)
+                for device in ("cuda", "meta"):
+                    fn, args, arg_bytes, *_ = dryrun.build_sharded_cell(
+                        arch, shape, False, cfg_override=cfg,
+                        batch_override=2, device=device, mesh=mesh)
+                    work = dryrun.count_sharded(fn, *args)
+                    works.append((work.flops, work.bytes, work.collectives,
+                                  arg_bytes))
+            finally:
+                dryrun.SHAPES[shape] = spec
+        torch.cuda.synchronize()
+    card, meta = works
+    assert card == meta
+    assert card[1] > 0 and card[2]
+
+
 GLOO_CASES = {"smollm-360m": {}, "deepseek-moe-16b": {},
               "deepseek-moe-16b@drop": {"capacity_factor": 1.0},
               "mixtral-8x7b": {}, "mamba2-130m": {},
-              "mamba2-130m@3heads": {"d_model": 24}, "zamba2-1.2b": {}}
+              "mamba2-130m@3heads": {"d_model": 24}, "zamba2-1.2b": {},
+              "internvl2-1b": {}, "whisper-medium": {}}
+# the paper's LP step (tests/_spmd_paper_worker.py): depth L, classes C
+GLOO_PAPER = dict(L=10, C=4, alpha=0.3, n_iters=4)
 
 
 @pytest.fixture(scope="module")
 def gloo_mesh_run(tmp_path_factory):
     """``tests/_spmd_worker.py`` over a 2 x 2 gloo mesh of four spawned CPU
     ranks, in this host's PyTorch, on each case's SMOKE configuration
-    (float32, seeded port parameters)."""
+    (float32, seeded port parameters; internvl2-1b's patches and
+    whisper-medium's frames seeded), and ``tests/_spmd_paper_worker.py`` on
+    the paper's LP step at ``GLOO_PAPER`` (seeded blocks, |B| = 4N)."""
     _card()
     import json
     import os
@@ -1493,6 +1666,7 @@ def gloo_mesh_run(tmp_path_factory):
 
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models.transformer import init_lm
+    from repro_torch.models.whisper import init_encdec
 
     def flat(tree, pre=""):
         for k, v in tree.items():
@@ -1506,25 +1680,37 @@ def gloo_mesh_run(tmp_path_factory):
         cfg = dataclasses.replace(get_smoke_config(case.split("@")[0]),
                                   dtype="float32", **over)
         r = np.random.RandomState(0)
+        init = init_encdec if cfg.family == "audio" else init_lm
+        extras = {} if cfg.family not in ("vlm", "audio") else {
+            k: v.numpy() for k, v in _encdec_extras(cfg, 4, 1).items()}
         np.savez(out / f"{case}_inputs.npz",
                  **{f"p/{k}": v.numpy() for k, v in
-                    flat(init_lm(cfg, 0, device="cpu"))},
+                    flat(init(cfg, 0, device="cpu"))},
                  tokens=r.randint(0, cfg.vocab_size, (4, 17)).astype(np.int32),
                  decode=r.randint(0, cfg.vocab_size, (4, 4)).astype(np.int32),
-                 overrides=np.array(json.dumps(over)))
+                 overrides=np.array(json.dumps(over)), **extras)
+    L, c = GLOO_PAPER["L"], GLOO_PAPER["C"]
+    r = np.random.RandomState(2)
+    nb, n_nodes = 4 << L, (2 << L) - 1
+    np.savez(out / "paper-vdt_inputs.npz",
+             y=r.rand(1 << L, c).astype(np.float32),
+             y0=r.rand(1 << L, c).astype(np.float32),
+             a=r.randint(0, n_nodes, nb), b=r.randint(0, n_nodes, nb),
+             q=r.rand(nb).astype(np.float32), **GLOO_PAPER)
     root = Path(__file__).resolve().parents[1]
-    proc = subprocess.run(
-        [sys.executable, str(root / "tests" / "_spmd_worker.py"), str(out),
-         *GLOO_CASES], capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, OMP_NUM_THREADS="2",
-                 PYTHONPATH=str(root / "src")))
-    assert proc.returncode == 0, proc.stderr[-4000:]
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=str(root / "src"))
+    for worker, cases in (("_spmd_worker.py", GLOO_CASES),
+                          ("_spmd_paper_worker.py", ["paper-vdt"])):
+        proc = subprocess.run(
+            [sys.executable, str(root / "tests" / worker), str(out),
+             *cases], capture_output=True, text=True, timeout=300, env=env)
+        assert proc.returncode == 0, proc.stderr[-4000:]
     return {case: dict(np.load(out / f"{case}_out.npz"))
-            for case in GLOO_CASES}
+            for case in [*GLOO_CASES, "paper-vdt"]}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", GLOO_CASES)
+@pytest.mark.parametrize("case", [*GLOO_CASES, "paper-vdt"])
 def test_cuda_host_gloo_mesh_matches_plain_tensors(case, gloo_mesh_run):
     """The card machine's PyTorch (DTensor's rules differ by version) runs
     the sharded train step, prefill and 4 decode steps of each case over a
@@ -1533,11 +1719,17 @@ def test_cuda_host_gloo_mesh_matches_plain_tensors(case, gloo_mesh_run):
     magnitude (at least 1; a first moment 1e-5 of its own).  PyTorch 2.11
     differentiated a reduction that DTensor inserts before a ``log``
     wrongly: every gradient was off until the cross-entropy reduced its
-    vocabulary sums explicitly."""
+    vocabulary sums explicitly.  The paper's LP step and its scan, rows
+    over the whole mesh, likewise; its bfloat16 carriers within ``5e-2``."""
     _card()
     res = gloo_mesh_run[case]
     names = sorted(k[6:] for k in res if k.startswith("plain/"))
-    assert len(names) > 10
+    if case == "paper-vdt":
+        np.testing.assert_allclose(res["spmd/step_bf16"],
+                                   res["plain/step_bf16"], rtol=5e-2,
+                                   atol=5e-2)
+        names = ["scan", "step"]
+    assert len(names) > (1 if case == "paper-vdt" else 10)
     for name in names:
         want = res[f"plain/{name}"]
         scale = float(np.abs(want).max())
