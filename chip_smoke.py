@@ -386,6 +386,15 @@ K6_FAMILY_SHAPES = (("zamba2-1.2b", 4, 32, 32, 2_048, 64, 0, True),
 # bidirectional over 1,500 keys (not a multiple of the 64-key tile)
 AUDIO_ARCH, AUDIO_PROMPT = "whisper-medium", 432
 K6_AUDIO_SHAPE = ("whisper-medium encoder", 4, 16, 16, 1_500, 64, 0, False)
+# [K6 stripes]: the [dryrun] prefill_32k cell's attention (smollm-360m, B = 1,
+# 15 / 5 heads, S = 32,768, D = 64, causal) cut into K6_STRIPES query stripes
+# of S / 16 rows, as a model axis of 16 runs it under attn_seq_shard, on
+# both routes: the first, a middle and the last stripe against the plain
+# version, the stripes concatenated against the whole launch bit for bit,
+# each timed, and one stripe at K6_ODD_ROW_BASE (no multiple of the 64-row
+# tile); the float32 route's gate on the last half of smollm's gate shape
+K6_STRIPE_SHAPE = ("smollm-360m prefill_32k", 1, 15, 5, 32_768, 64, 0, True)
+K6_STRIPES, K6_STRIPE_REPS, K6_ODD_ROW_BASE = 16, 5, 7 * 2_048 + 37
 # [K6 grad]: K6's autograd route against autograd through ref.py's dense
 # float32 softmax, at smollm's shape (S = 512), gemma3-1b local's (D = 256,
 # window 1,024 at S = 1,536) and the whisper encoder's (bidirectional,
@@ -437,23 +446,28 @@ SPMD_TRAIN = (2, 2_048)
 SPMD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-4)
 SPMD_F32_RTOL, SPMD_BF16_TOL = 1e-5, 1e-2
 SPMD_FAKE_MESH = (2, 2)
-# (b)'s cells: (arch, shape, batch, layers; None = all): smollm-360m's three
-# kinds, then one cell of each family sharded since (deepseek-moe-16b's
-# depth cut to 4 layers: its full-size float32 parameters would not fit
-# beside their shards), the paper cell at full size (the row-sharded LP
-# step), internvl2-1b's prefill and whisper-medium's train step and decode
-# (its 24 encoder layers over a data axis of 2: their attention weights
-# layer-sharded, gathered by the encoder)
-SPMD_FAKE_CELLS = (("smollm-360m", "train_4k", 2, None),
-                   ("smollm-360m", "prefill_32k", 2, None),
-                   ("smollm-360m", "decode_32k", 8, None),
-                   ("deepseek-moe-16b", "prefill_32k", 2, 4),
-                   ("zamba2-1.2b", "decode_32k", 8, None),
-                   ("mamba2-130m", "train_4k", 2, None),
-                   ("paper-vdt", "lp_1m", None, None),
-                   ("internvl2-1b", "prefill_32k", 2, None),
-                   ("whisper-medium", "train_4k", 2, None),
-                   ("whisper-medium", "decode_32k", 8, None))
+# (b)'s cells: (arch, shape, batch, layers; None = all, the dry run's
+# context switches beside its own): smollm-360m's three kinds, then one
+# cell of each family sharded since (deepseek-moe-16b's depth cut to 4
+# layers: its full-size float32 parameters would not fit beside their
+# shards), the paper cell at full size (the row-sharded LP step),
+# internvl2-1b's prefill and whisper-medium's train step and decode (its 24
+# encoder layers over a data axis of 2: their attention weights
+# layer-sharded, gathered by the encoder); every prefill_32k cell with
+# seq_shard on, as the dry run sets it; last, smollm-360m's train step with
+# attn_seq_shard (K6 as query stripes: 15 heads over a model axis of 2)
+SPMD_FAKE_CELLS = (("smollm-360m", "train_4k", 2, None, {}),
+                   ("smollm-360m", "prefill_32k", 2, None, {}),
+                   ("smollm-360m", "decode_32k", 8, None, {}),
+                   ("deepseek-moe-16b", "prefill_32k", 2, 4, {}),
+                   ("zamba2-1.2b", "decode_32k", 8, None, {}),
+                   ("mamba2-130m", "train_4k", 2, None, {}),
+                   ("paper-vdt", "lp_1m", None, None, {}),
+                   ("internvl2-1b", "prefill_32k", 2, None, {}),
+                   ("whisper-medium", "train_4k", 2, None, {}),
+                   ("whisper-medium", "decode_32k", 8, None, {}),
+                   ("smollm-360m", "train_4k", 2, None,
+                    {"attn_seq_shard": True}))
 # (a) for the moe, ssm and hybrid families at full width, over the one-rank
 # mesh: (arch, layers served (None = all), K6 launches a prefill, layers of
 # the float32 train step (None: no train step)); a bfloat16 prefill of
@@ -3429,6 +3443,113 @@ def phase_k6_gate() -> dict:
     return out
 
 
+def phase_k6_stripes() -> dict:
+    """[K6 stripes]: K6's query stripes (``row_base``) at
+    ``K6_STRIPE_SHAPE`` on both routes, each launch counted on its route;
+    the float32 route's gate at a nonzero ``row_base``."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        attention_work
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.launch.roofline import HW, bound
+
+    name, b, hq, hkv, s, d, window, causal = K6_STRIPE_SHAPE
+    n = K6_STRIPES
+    rows = s // n
+    print(f"[K6 stripes] {name}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+          f"causal={causal}, {n} query stripes of {rows} rows (row_base = "
+          f"i x {rows}), the whole launch beside them")
+    g = torch.Generator().manual_seed(11)
+    by_route = flash_attention.launches_by_route
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[1]
+        route = K6_ROUTES[tname]
+        q, k, v = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
+                   for h in (hq, hkv, hkv))
+        before, total = by_route.get(route, 0), flash_attention.launches
+        whole = flash_attention(q, k, v, causal=causal, window=window)
+        stripes = [q[:, :, i * rows:(i + 1) * rows].contiguous()
+                   for i in range(n)]
+        parts = [flash_attention_fwd(stripes[i], k, v, causal, window,
+                                     i * rows) for i in range(n)]
+        bitwise = bool(torch.equal(torch.cat(parts, dim=2), whole))
+        print(f"  {tname} ({route}): the {n} stripes concatenated equal the "
+              f"whole launch bit for bit: {bitwise}")
+        check(bitwise, f"[K6 stripes] {tname}: the stripes differ from the "
+                       "whole launch")
+        errs = {}
+        for i in (0, n // 2, n - 1):
+            plain = flash_attention_plain(stripes[i], k, v, causal, window,
+                                          row_base=i * rows)
+            errs[f"stripe {i}"] = close_k6(
+                parts[i], plain, f"{tname} stripe {i} (row_base {i * rows})"
+                " vs plain")[0]
+        odd = q[:, :, K6_ODD_ROW_BASE:K6_ODD_ROW_BASE + rows].contiguous()
+        errs[f"row_base {K6_ODD_ROW_BASE}"] = close_k6(
+            flash_attention_fwd(odd, k, v, causal, window, K6_ODD_ROW_BASE),
+            flash_attention_plain(odd, k, v, causal, window,
+                                  row_base=K6_ODD_ROW_BASE),
+            f"{tname} stripe at row_base {K6_ODD_ROW_BASE} vs plain")[0]
+        whole_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                   window=window),
+                           K6_STRIPE_REPS)
+        stripe_ms = [cuda_ms(lambda i=i: flash_attention_fwd(
+            stripes[i], k, v, causal, window, i * rows), K6_STRIPE_REPS)
+            for i in range(n)]
+        whole_ms2 = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                    window=window),
+                            K6_STRIPE_REPS)
+        last = n - 1
+        plain_ms = cuda_ms(lambda: flash_attention_plain(
+            stripes[last], k, v, causal, window, row_base=last * rows), 1)
+        flops, nbytes = attention_work(b, hq, hkv, s, d, window,
+                                       q.element_size(), causal,
+                                       row_base=last * rows, sq=rows)
+        bound_ms, by = (bound(flops, nbytes, HW.PEAK_FLOPS)
+                        if dtype == torch.bfloat16 else
+                        bound(3.0 * flops, nbytes, HW.PEAK_TF32_FLOPS))
+        ratio = max(stripe_ms) / (whole_ms / n)
+        launches = by_route.get(route, 0) - before
+        check(launches == flash_attention.launches - total,
+              f"[K6 stripes] {tname}: a launch off {route}")
+        print(f"  {tname}: whole {whole_ms:.4f} / {whole_ms2:.4f} ms; "
+              f"stripes {', '.join(f'{t:.4f}' for t in stripe_ms)} ms; "
+              f"max stripe ms / (whole ms / {n}) = {ratio:.3f}; last stripe "
+              f"{stripe_ms[-1]:.4f} ms against its bound {bound_ms:.4f} ms "
+              f"({by}), plain {plain_ms:.2f} ms; {launches} launches, all "
+              f"on {route}")
+        out[tname] = dict(
+            route=route, shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+            f"causal={causal} {tname}, {n} stripes of {rows} rows",
+            whole_ms=whole_ms, whole_ms2=whole_ms2, stripe_ms=stripe_ms,
+            max_stripe_over_mean=ratio, last_stripe_bound_ms=bound_ms,
+            bound_by=by, last_stripe_plain_ms=plain_ms, bitwise=bitwise,
+            max_abs_err=errs, launches=launches)
+        del q, k, v, whole, stripes, parts, odd
+        torch.cuda.empty_cache()
+    # the float32 route's gate on a stripe: the last half of smollm's gate
+    # shape, against the plain recurrence in float64 at its row_base
+    gname, gb, ghq, ghkv, gs, gd, gwin, _ = K6_SHAPES[0]
+    rng = np.random.RandomState(K6_GATE_SEED)
+    q, k, v = (torch.as_tensor(rng.randn(gb, h, gs, gd).astype(np.float32),
+                               device="cuda") for h in (ghq, ghkv, ghkv))
+    r0 = gs // 2
+    qs = q[:, :, r0:].contiguous()
+    gate = gate_check(
+        f"K6 f32 {gname} rows {r0}..{gs - 1} (row_base {r0})",
+        flash_attention_fwd(qs, k, v, True, gwin, r0),
+        flash_attention_plain(qs, k, v, True, gwin, row_base=r0),
+        flash_attention_plain(qs.double(), k.double(), v.double(), True,
+                              gwin, row_base=r0))
+    check(gate["ok"], f"[K6 stripes] the float32 gate failed at row_base "
+                      f"{r0}")
+    out["gate_row_base"] = dict(row_base=r0, **gate)
+    return out
+
+
 def phase_k6_grad() -> dict:
     """[K6 grad]: K6 as an autograd Function on the card (the kernel's
     forward, one counted launch; the float32 torch backward, no launch)
@@ -4629,7 +4750,11 @@ def spmd_train(ctx, cfg, params, label: str, seq: int = 0) -> dict:
 def spmd_one_rank(ctx) -> dict:
     """(a): smollm-360m over the one-rank NCCL mesh of ``ctx``, prefill and
     train step against plain tensors, K6's launches counted in each
-    sharded call."""
+    sharded call; and a prefill with ``seq_shard`` and ``attn_seq_shard``
+    on (the sequence gathered before each block, the residual scattered
+    back)."""
+    import dataclasses
+
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import init_lm
@@ -4638,6 +4763,10 @@ def spmd_one_rank(ctx) -> dict:
     params = init_lm(cfg, LM_SEED, device="cuda")
     tokens = torch.as_tensor(lm_tokens(cfg, LM_PROMPT), device="cuda")
     out, *_ = spmd_prefill(ctx, cfg, params, tokens, cfg.n_layers, LM_ARCH)
+    seq, *_ = spmd_prefill(
+        dataclasses.replace(ctx, seq_shard=True, attn_seq_shard=True), cfg,
+        params, tokens, cfg.n_layers, f"{LM_ARCH} seq_shard attn_seq_shard")
+    out["seq_shard"] = seq
     out.update(spmd_train(ctx, cfg, params, LM_ARCH))
     del params
     torch.cuda.empty_cache()
@@ -4792,33 +4921,40 @@ def _spmd_pairs(a: dict, b: dict, prefix: str = ""):
 
 
 def spmd_fake_count(arch: str, shape_name: str, batch: int, layers,
-                    device: str):
+                    switches: dict, device: str):
     """(b): one cell of the dry run, as ``build_sharded_cell`` makes it
-    (``layers`` of the architecture's depth, None = all; the paper cell
-    its row-sharded LP step, seeded on the card), counted per device on a
-    fake group of ``SPMD_FAKE_MESH`` ranks, its shards on ``device``."""
+    (``layers`` of the architecture's depth, None = all; ``switches`` the
+    ``ShardCtx`` switches ``perf_iter``'s variants set, ``dryrun.CTX_KW``;
+    the paper cell its row-sharded LP step, seeded on the card), counted
+    per device on a fake group of ``SPMD_FAKE_MESH`` ranks, its shards on
+    ``device``; returns ``(work, host s, the cell's ShardCtx)``."""
     import dataclasses
 
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.dryrun import (build_sharded_cell, count_sharded,
-                                          vdt_sharded_inputs, vdt_step_fn)
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import device_mesh
 
     mesh = device_mesh(SPMD_FAKE_MESH, ("data", "model"), "cuda")
+    ctx = None
     if arch == "paper-vdt":
-        fn, args = vdt_step_fn(), vdt_sharded_inputs(mesh, device=device)
+        fn = dryrun.vdt_step_fn()
+        args = dryrun.vdt_sharded_inputs(mesh, device=device)
     else:
         cfg = None if layers is None else dataclasses.replace(
             get_config(arch), n_layers=layers)
-        fn, args, *_ = build_sharded_cell(
-            arch, shape_name, False, cfg_override=cfg, batch_override=batch,
-            device=device, mesh=mesh)
+        dryrun.CTX_KW.update(switches)
+        try:
+            fn, args, *_, ctx = dryrun.build_sharded_cell(
+                arch, shape_name, False, cfg_override=cfg,
+                batch_override=batch, device=device, mesh=mesh)
+        finally:
+            dryrun.CTX_KW.clear()
     t0 = time.perf_counter()
-    work = count_sharded(fn, *args)
+    work = dryrun.count_sharded(fn, *args)
     if device != "meta":
         torch.cuda.synchronize()
-    return work, time.perf_counter() - t0
+    return work, time.perf_counter() - t0, ctx
 
 
 def phase_spmd() -> dict:
@@ -4855,14 +4991,29 @@ def phase_spmd() -> dict:
                                 for arch, *rest in SPMD_ENCDEC})
     cells = {}
     with fake_process_group(SPMD_FAKE_MESH[0] * SPMD_FAKE_MESH[1]):
-        for arch, shape_name, batch, layers in SPMD_FAKE_CELLS:
-            card, card_s = spmd_fake_count(arch, shape_name, batch, layers,
-                                           "cuda")
+        for arch, shape_name, batch, layers, switches in SPMD_FAKE_CELLS:
+            reset_counts()
+            card, card_s, ctx = spmd_fake_count(arch, shape_name, batch,
+                                                layers, switches, "cuda")
+            k6 = read_counts()
             torch.cuda.empty_cache()
-            meta, meta_s = spmd_fake_count(arch, shape_name, batch, layers,
-                                           "meta")
+            meta, meta_s, _ = spmd_fake_count(arch, shape_name, batch,
+                                              layers, switches, "meta")
             coll = collective_bytes(card.collectives)
-            cell = f"{arch} {shape_name}"
+            cell = f"{arch} {shape_name}" + "".join(
+                f" {k}" for k in sorted(switches))
+            if ctx is not None:
+                print(f"  (b) {cell}: seq_shard={ctx.seq_shard} "
+                      f"attn_seq_shard={ctx.attn_seq_shard}; K6 launches on "
+                      f"the card {k6['K6']} (" + ", ".join(
+                          f"{k} {v}" for k, v in k6.items()
+                          if k.startswith("K6 ")) + ")")
+                check(ctx.seq_shard == (shape_name == "prefill_32k"),
+                      f"[spmd] {cell}: seq_shard {ctx.seq_shard}")
+                check(k6["K6"] == k6["K6 sm90_bf16"]
+                      + k6[f"K6 {K6_F32_ROUTE}"]
+                      and (k6["K6"] > 0 or not switches),
+                      f"[spmd] {cell}: K6 launches {k6}")
             print(f"  (b) {cell} at "
                   + ("full size" if batch is None else f"batch {batch}")
                   + f"{'' if layers is None else f', {layers} layers'}, fake "
@@ -4883,8 +5034,12 @@ def phase_spmd() -> dict:
                   f"[spmd] {cell}: an empty count on the fake group")
             cells[cell] = dict(
                 batch=batch, layers=layers, flops_per_device=card.flops,
+                k6_flops_per_device=card.k6_flops,
                 bytes_per_device=card.bytes, collectives=coll,
-                card_count_s=card_s, meta_count_s=meta_s)
+                card_count_s=card_s, meta_count_s=meta_s,
+                **({} if ctx is None else dict(
+                    seq_shard=ctx.seq_shard,
+                    attn_seq_shard=ctx.attn_seq_shard, k6_launches=k6["K6"])))
             del card, meta
             torch.cuda.empty_cache()
     out.update(fake_mesh=list(SPMD_FAKE_MESH), fake_cells=cells)
@@ -5099,6 +5254,7 @@ def main() -> int:
     lm_f32_err, f32_counts = phase_lm_f32(lm.pop("params"))
     k6 = phase_k6_timing()
     k6_gate = phase_k6_gate()
+    k6_stripes = phase_k6_stripes()
     moe = phase_lm_moe()
     moe_counts = moe.pop("counts")
     print(f"[lm serve moe] summary {json.dumps(moe)}")
@@ -5247,6 +5403,7 @@ def main() -> int:
             shape=rows[0]["shape"], k6_route=route, k6_sources=k6_sources,
             small_shapes_max_abs_err=k6_small_err[route][0],
             small_shapes_max_block_rms=k6_small_err[route][1],
+            stripes=k6_stripes[tname],
             by_shape={r["name"]: dict(ms=r["ms"], ms2=r["ms2"],
                                       plain_ms=r["plain_ms"],
                                       library_ms=r["lib_ms"],
@@ -5312,6 +5469,7 @@ def main() -> int:
                         if "batch" in r})
                if route == "sm90_bf16" else
                dict(lm_f32_logits_max_abs_err=lm_f32_err, gate=k6_gate,
+                    gate_row_base=k6_stripes["gate_row_base"],
                     tensor_core_route=K6_F32_ROUTE,
                     headers=tc["headers"],
                     whisper_medium=dict(

@@ -35,6 +35,22 @@ unknown ``kind`` raises ``KeyError`` whenever a context is active.
 ``decode_state_spec`` / ``shard_state`` lay a decode cache out by the
 reference's rule (KV and SSM caches alike), and ``shard_like`` lines an
 operand up with another before an operator runs on the shards.
+
+Sequence parallelism (the reference's ``seq_shard``, which its dry run sets
+for every cell of S >= 32,768 that is not a decode): ``"btd"`` is
+``(dp, model, None)``, the residual stream's sequence over ``model``.  The
+port's form of what GSPMD inserts around a projection is Megatron's:
+:func:`gather_seq` all-gathers the sequence before a column-parallel product
+(every block's entry: attention, MLP, MoE, SSM, cross-attention, the
+unembedding) and reduce-scatters its gradient back; a row-parallel
+product's ``Partial`` sum reaching ``shard_act(..., "btd")`` is
+reduce-scattered to the sequence shards, and that constraint's gradient is
+all-gathered.  A product then never flattens a (batch, sequence) pair that
+is sharded on both, which DTensor refuses in some PyTorch versions.  With
+``attn_seq_shard`` the attention's query sequence goes over ``model`` when
+the heads do not divide it (:func:`attn_stripe_dim`, the reference's
+``shard_attn_logits`` rule), as K6's query stripes
+(``kernels/flash_attention/ops.py::flash_attention_striped``).
 """
 from __future__ import annotations
 
@@ -164,15 +180,23 @@ def use_ctx(ctx: Optional[ShardCtx]):
     """``ctx`` active in this thread for the block.  Over a ``DeviceMesh``
     the block also lets DTensor ops take plain tensors as replicated: the
     model code's own positions, masks and rotary tables, which every rank
-    makes alike."""
+    makes alike.  That switch is DTensor's, one for the process
+    (``implicit_replication``, whose own exit turns it off); the block
+    restores the state it found, so that a block nested in another (a
+    recompute under ``remat``) does not end the enclosing one's."""
     prev = current_ctx()
     _tls.ctx = ctx
     try:
         if ctx is not None and ctx.spmd:
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
-            with implicit_replication():
+            from torch.distributed.tensor import DTensor
+
+            dispatcher = DTensor._op_dispatcher
+            was = dispatcher._allow_implicit_replication
+            dispatcher._allow_implicit_replication = True
+            try:
                 yield
+            finally:
+                dispatcher._allow_implicit_replication = was
         else:
             yield
     finally:
@@ -210,28 +234,54 @@ def placements(spec: tuple, mesh) -> tuple:
 
 
 class _Constrain(torch.autograd.Function):
-    """``x`` redistributed to ``want``, and its cotangent too: what
-    ``with_sharding_constraint`` does to a value and, in the transpose, to
-    its cotangent (a ``Partial`` gradient of the residual stream is
-    all-reduced here, as GSPMD reduces it; a masked-partial embedding's
-    forward reduction gets a gradient it can take)."""
+    """``x`` redistributed to ``want``, and its cotangent to ``grad`` (by
+    default ``want`` too): what ``with_sharding_constraint`` does to a
+    value and, in the transpose, to its cotangent (a ``Partial`` gradient
+    of the residual stream is all-reduced here, as GSPMD reduces it; a
+    masked-partial embedding's forward reduction gets a gradient it can
+    take)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, want):
-        ctx.mesh, ctx.want = mesh, want
-        return x.redistribute(mesh, want)
+    def forward(ctx, x, mesh, want, grad=None):
+        ctx.mesh, ctx.grad = mesh, want if grad is None else grad
+        return _dense(x.redistribute(mesh, want))
 
     @staticmethod
     def backward(ctx, g):
-        if tuple(g.placements) != ctx.want:
-            g = g.redistribute(ctx.mesh, ctx.want)
-        return g, None, None
+        if tuple(g.placements) != ctx.grad:
+            g = _dense(g.redistribute(ctx.mesh, ctx.grad))
+        return g, None, None, None
 
 
-def _redistribute(x, spec: tuple, ctx: ShardCtx):
+def _dense(t):
+    """The DTensor ``t`` with a contiguous local shard: gathering an uneven
+    shard (a sequence the mesh does not divide) leaves a padded buffer's
+    view in some PyTorch versions, which a product's view then refuses."""
+    local = t.to_local()
+    if local.is_contiguous():
+        return t
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local.contiguous(), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _redistribute(x, spec: tuple, ctx: ShardCtx, seq: bool = False):
+    """``x`` constrained to ``spec``; ``seq``: ``spec`` shards the sequence
+    (dimension 1) of an activation."""
     want = placements(spec, ctx.mesh)
     if tuple(x.placements) == want:
         return x
+    if seq and not any(p.is_shard(1) for p in x.placements):
+        # onto the sequence shards (a reduce-scatter of a row-parallel
+        # product's Partial sum, or a replica's slice): the gradient comes
+        # back with its sequence whole, where a Partial's gradient is
+        # replicated, as the product's backward takes it
+        from torch.distributed.tensor import Replicate
+        grad = tuple(Replicate() if p.is_partial() else p
+                     for p in x.placements)
+        return _Constrain.apply(x, ctx.mesh, want, grad)
     return _Constrain.apply(x, ctx.mesh, want)
 
 
@@ -248,14 +298,50 @@ def shard_act(x: torch.Tensor, kind: str, lead: int = 0) -> torch.Tensor:
     spec = (None,) * lead + _ACT_SPECS[kind](ctx)
     if not (ctx.spmd and is_dtensor(x)):
         return x
-    return _redistribute(x, spec, ctx)
+    return _redistribute(x, spec, ctx,
+                         seq=kind == "btd" and ctx.seq_shard and not lead)
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor activation (B, S, ...) whose sequence is sharded (Megatron's
+    sequence parallelism: ``"btd"`` under ``seq_shard``, or a query
+    stripe's output) all-gathered on it before a product, every other
+    placement kept; its gradient goes back to ``x``'s placements (a
+    column-parallel product's ``Partial`` gradient reduce-scattered to the
+    sequence shards).  Anything else is returned as it is."""
+    if not is_dtensor(x) or not any(p.is_shard(1) for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(x.placements)
+    return _Constrain.apply(x, x.device_mesh, tuple(
+        Replicate() if p.is_shard(1) else p for p in pl), pl)
+
+
+def attn_stripe_dim(n_heads: int, n_kv_heads: int) -> Optional[int]:
+    """The mesh dimension over which self-attention runs as K6's query
+    stripes under the active context, or None: with ``attn_seq_shard`` on
+    a ``DeviceMesh``, when the ``model`` axis does not divide the query
+    heads (the reference's ``shard_attn_logits``: its (B, H, Sq, Sk)
+    scores' query sequence over ``model``), and also when it divides the
+    query heads but not the kv heads (the reference shards its scores'
+    query heads there; K6's heads rule needs both to divide, so the port
+    takes the stripe: the same values, another program)."""
+    ctx = current_ctx()
+    if ctx is None or not ctx.attn_seq_shard or not ctx.spmd:
+        return None
+    tp = ctx.tp_size
+    if n_heads % tp == 0 and n_kv_heads % tp == 0:
+        return None
+    return mesh_axis_names(ctx.mesh).index(ctx.tp)
 
 
 def shard_attn_logits(logits: torch.Tensor) -> torch.Tensor:
     """(B, H, Sq, Sk) attention scores: with ``attn_seq_shard``, heads over
     tp when they divide, else the query sequence over tp.  The port's
-    self-attention forms no score tensor (K6 keeps its tiles on chip, and
-    its sharding rule shards by batch or heads only), so this only pins a
+    self-attention forms no score tensor (K6 keeps its tiles on chip): it
+    takes the query sequence as K6's stripes where :func:`attn_stripe_dim`
+    says so, and the heads through K6's rule otherwise.  This only pins a
     DTensor given to it; anything else is returned as it is."""
     ctx = current_ctx()
     if ctx is None or not ctx.attn_seq_shard or not (

@@ -3,9 +3,13 @@
 //
 //   out[b, h, i, :] = sum_j softmax_j(mask(q_i . k_j * D^-1/2)) v[b, h / G, j, :]
 //
-// for bfloat16 q (B, Hq, S, D) and k, v (B, Hkv, S, D), G = Hq / Hkv; out is
-// (B, Hq, S, D) in bfloat16.  A key j is masked for query i when j >= S, when
-// causal and j > i, or when window > 0 and i - j >= window.  Per key tile of
+// for bfloat16 q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D), G = Hq / Hkv; out is
+// (B, Hq, Sq, D) in bfloat16.  q is a stripe of query rows: its row i is row
+// row_base + i of the keys' sequence (row_base = 0, Sq = Sk: the whole
+// sequence).  A key j is masked for query i when j >= Sk, when causal and
+// j > row_base + i, or when window > 0 and row_base + i - j >= window.  A
+// rank of a query-sequence-sharded attention runs its stripe so.  Per key
+// tile of
 // BK = 64 keys, with c = D^-1/2 log2 e and s = q . k in float32: a masked s
 // is -inf, m' = max(m, c rowmax s), alpha = 2^(m - m'), p = 2^(c s - m')
 // (one fused multiply-add), l = l * alpha + sum p, acc = acc * alpha +
@@ -27,14 +31,16 @@
 // axis and (m, s, acc) ride in VMEM scratch.  Here one block owns BQ = 64
 // query rows (one wgmma M) of one (b, h) and walks its key tiles in a loop,
 // writing its output once.  No atomics and no split over keys: two launches
-// give the same bits.  Keys at or past S are masked, the rule of ref.py.
+// give the same bits, and stripes whose row_base is a multiple of BQ give
+// the bits of the whole launch's rows.  Keys at or past Sk are masked, the
+// rule of ref.py.
 //
 // Design.  160 threads: one consumer warpgroup (warps 0-3) and one producer
 // warp (warp 4), whose lane 0 issues every TMA load.
 //   * Q goes to shared memory once; K and V tiles go into a ring of NS stages
-//     by TMA (cp.async.bulk.tensor) through 3-D tensor maps (D, S, B H), so
-//     rows past S of a head are zero-filled instead of read from the next
-//     head.  Every tile is stored as D / 64 column chunks of 64 rows x 128
+//     by TMA (cp.async.bulk.tensor) through 3-D tensor maps (D, Sq, B Hq) and
+//     (D, Sk, B Hkv), so rows past Sq or Sk of a head are zero-filled instead
+//     of read from the next head.  Every tile is stored as D / 64 column chunks of 64 rows x 128
 //     bytes with the 128-byte swizzle, each chunk 1024-byte aligned.  One
 //     mbarrier per stage says "full" (the producer's expect_tx, completed by
 //     the bytes), one says "empty" (128 consumer arrivals after the tile's
@@ -47,7 +53,7 @@
 //     meets over the 4 threads of a quad (shfl_xor 1, 2); the row sum stays
 //     per thread until the epilogue (alpha is uniform over the quad).  The
 //     mask is applied only on tiles that cross the diagonal, the window's
-//     edge or S.  The scale is folded into the exponent's fused multiply-add
+//     edge or Sk.  The scale is folded into the exponent's fused multiply-add
 //     (the max of the raw scores, times c > 0, is the max of the scaled
 //     ones), and 2^x is one ex2.approx.ftz, so a score costs one FFMA and
 //     one MUFU op beside its max and sum.
@@ -58,8 +64,9 @@
 //     memory: LBO is the 64-column chunk stride (BK x 128 bytes), SBO 1024
 //     bytes, a k-step of 16 keys advances 2048 bytes.
 //   * Tiles wholly masked for the block are skipped: up to the diagonal
-//     when causal, from q0 - window + 1 with a window; on a skipped tile a
-//     row's p would all be 0, so no bit changes.
+//     when causal, from g0 - window + 1 with a window (g0 = row_base + q0,
+//     the block's first global row); on a skipped tile a row's p would all
+//     be 0, so no bit changes.
 //     Query tiles go out last-first over every (b, h), so the long causal
 //     rows start in the first wave.
 //   * Shared memory: 64 D 2 + NS 2 (64 D 2) bytes, NS = 3 at D = 64 (56 KB,
@@ -273,7 +280,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
                             __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
-                            int S, int causal, int window, float scale_log2) {
+                            int Sq, int Sk, int row_base, int causal,
+                            int window, float scale_log2) {
   constexpr int NS = stages<D>();
   constexpr int TILE = tile_bytes<D>();
   constexpr int CHUNK = BK * 128;  // one 64-column chunk of a K or V tile
@@ -288,10 +296,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int bh = blockIdx.x;
   const int bhk = bh / Hq * Hkv + bh % Hq / (Hq / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  // key tiles with an unmasked key for some row of [q0, q0 + BQ)
-  const int k_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / BK * BK;
-  const int k_hi = causal ? min(S, q0 + BQ) : S;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the stripe's row
+  const int g0 = row_base + q0;                         // the global row
+  // key tiles with an unmasked key for some row of [g0, g0 + BQ)
+  const int k_lo = (window > 0 ? max(0, g0 - window + 1) : 0) / BK * BK;
+  const int k_hi = causal ? min(Sk, g0 + BQ) : Sk;
   const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
   const int tid = threadIdx.x;
 
@@ -328,8 +337,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // the consumer warpgroup: this thread holds rows r and r + 8 of the tile,
-  // columns cl, cl + 1 of every 8-column block of S and of O
+  // the consumer warpgroup: this thread holds rows r and r + 8 of the tile
+  // (global rows row_base + r and row_base + r + 8), columns cl, cl + 1 of
+  // every 8-column block of S and of O
   const int warp = tid / 32, lane = tid % 32;
   const int r = q0 + warp * 16 + lane / 4;
   const int cl = (lane % 4) * 2;
@@ -355,13 +365,13 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_wait_all();
     hold(sc);
 
-    if (k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
-        (window > 0 && q0 + BQ - 1 - k0 >= window)) {
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > g0) ||
+        (window > 0 && g0 + BQ - 1 - k0 >= window)) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
-        const int qi = r + (i & 2 ? 8 : 0);
+        const int qi = row_base + r + (i & 2 ? 8 : 0);
         const int kj = k0 + (i / 4) * 8 + cl + (i & 1);
-        if (kj >= S || (causal && kj > qi) || (window > 0 && qi - kj >= window))
+        if (kj >= Sk || (causal && kj > qi) || (window > 0 && qi - kj >= window))
           sc[i] = -INFINITY;
       }
     }
@@ -420,8 +430,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = r + 8 * h;
-    if (qi >= S) continue;
-    __nv_bfloat16* row = out + ((size_t)bh * S + qi) * D + cl;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row = out + ((size_t)bh * Sq + qi) * D + cl;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
@@ -431,6 +441,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // The 3-D map (D, S, heads) of a contiguous bfloat16 (heads, S, D) tensor:
 // 64 x 64 x 1 boxes with the 128-byte swizzle; rows past S read as zeros.
+// Q's map has Sq rows, K's and V's Sk.
 int encode(CUtensorMap* map, const void* ptr, int D, int S, int heads) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
@@ -448,22 +459,23 @@ int encode(CUtensorMap* map, const void* ptr, int D, int S, int heads) {
 
 template <int D>
 int run(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-        int Hkv, int S, int causal, int window, float scale_log2,
-        cudaStream_t stream) {
+        int Hkv, int Sq, int Sk, int row_base, int causal, int window,
+        float scale_log2, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   auto kern = flash_attention_sm90_kernel<D>;
   static const cudaError_t opted = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (opted != cudaSuccess) return static_cast<int>(opted);
   CUtensorMap qmap, kmap, vmap;
-  int err = encode(&qmap, q, D, S, B * Hq);
-  if (err == 0) err = encode(&kmap, k, D, S, B * Hkv);
-  if (err == 0) err = encode(&vmap, v, D, S, B * Hkv);
+  int err = encode(&qmap, q, D, Sq, B * Hq);
+  if (err == 0) err = encode(&kmap, k, D, Sk, B * Hkv);
+  if (err == 0) err = encode(&vmap, v, D, Sk, B * Hkv);
   if (err != 0) return err;
-  const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
+  const dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
   kern<<<grid, NT, bytes, stream>>>(qmap, kmap, vmap,
                                     static_cast<__nv_bfloat16*>(out), Hq, Hkv,
-                                    S, causal, window, scale_log2);
+                                    Sq, Sk, row_base, causal, window,
+                                    scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -471,29 +483,31 @@ int run(const void* q, const void* k, const void* v, void* out, int B, int Hq,
 
 // Launches K6's bfloat16 route on `stream` (a cudaStream_t passed as a
 // pointer) and returns 0 on success, a cudaError_t, or ERR_NO_ENCODER /
-// ERR_ENCODE (negative; see cuda_error_string).  q (B, Hq, S, D), k and v
-// (B, Hkv, S, D), out (B, Hq, S, D): bfloat16, row-major, contiguous,
-// 16-byte aligned, on the current device.  D is 64, 128 or 256; Hq is a
-// multiple of Hkv; window 0 means none.  scale_log2 is D^-1/2 log2 e.
-// Allocates nothing.
+// ERR_ENCODE (negative; see cuda_error_string).  q (B, Hq, Sq, D), k and v
+// (B, Hkv, Sk, D), out (B, Hq, Sq, D): bfloat16, row-major, contiguous,
+// 16-byte aligned, on the current device; q's rows are rows row_base ..
+// row_base + Sq - 1 of the keys' sequence, row_base >= 0 and row_base + Sq
+// <= Sk.  D is 64, 128 or 256; Hq is a multiple of Hkv; window 0 means
+// none.  scale_log2 is D^-1/2 log2 e.  Allocates nothing.
 extern "C" int flash_attention_sm90(const void* q, const void* k,
                                     const void* v, void* out, int B, int Hq,
-                                    int Hkv, int S, int D, int causal,
-                                    int window, float scale_log2,
-                                    void* stream) {
-  if (B <= 0 || S <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+                                    int Hkv, int Sq, int Sk, int row_base,
+                                    int D, int causal, int window,
+                                    float scale_log2, void* stream) {
+  if (B <= 0 || Sq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || row_base < 0 || row_base + Sq > Sk)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return run<64>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale_log2,
-                     st);
+      return run<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, row_base, causal,
+                     window, scale_log2, st);
     case 128:
-      return run<128>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale_log2,
-                      st);
+      return run<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, row_base, causal,
+                      window, scale_log2, st);
     case 256:
-      return run<256>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale_log2,
-                      st);
+      return run<256>(q, k, v, out, B, Hq, Hkv, Sq, Sk, row_base, causal,
+                      window, scale_log2, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

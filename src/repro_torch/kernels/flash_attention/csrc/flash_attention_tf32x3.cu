@@ -3,9 +3,12 @@
 //
 //   out[b, h, i, :] = sum_j softmax_j(mask(q_i . k_j * D^-1/2)) v[b, h / G, j, :]
 //
-// for float32 q (B, Hq, S, D) and k, v (B, Hkv, S, D), G = Hq / Hkv; out is
-// (B, Hq, S, D) float32.  A key j is masked for query i when j >= S, when
-// causal and j > i, or when window > 0 and i - j >= window.  Per key tile of
+// for float32 q (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D), G = Hq / Hkv; out is
+// (B, Hq, Sq, D) float32.  q is a stripe of query rows: its row i is row
+// row_base + i of the keys' sequence (row_base = 0, Sq = Sk: the whole
+// sequence).  A key j is masked for query i when j >= Sk, when causal and
+// j > row_base + i, or when window > 0 and row_base + i - j >= window.  Per
+// key tile of
 // BK = 64 keys, with c = D^-1/2 log2 e and s = q . k: a masked s is -inf,
 // m' = max(m, c rowmax s), alpha = 2^(m - m'), p = 2^(c s - m') (one fused
 // multiply-add), l = l * alpha + sum p, acc = acc * alpha + p v; m starts at
@@ -19,7 +22,8 @@
 // axis and (m, s, acc) ride in VMEM scratch.  Here a block owns NWG x 64
 // query rows of one (b, h), one consumer warpgroup per 64 rows (one wgmma M),
 // and walks its key tiles in a loop, writing its output once.  No atomics
-// and no split over keys: two launches give the same bits.
+// and no split over keys: two launches give the same bits, and stripes
+// whose row_base is a multiple of NWG x 64 give the whole launch's rows'.
 //
 // 3xTF32, the scheme of K1-K4 (../../csrc/tf32x3.cuh).  Every float32
 // operand x is split as hi = tf32(x), lo = tf32(x - hi) (nearest, ties away,
@@ -42,9 +46,9 @@
 // 16-bit types only).  Q and K (rows, D) already are, for S = Q K^T.  For
 // O = P V the B operand must be keys-contiguous, so the pre-pass
 // (prepare_kv_kernel, one launch of the same entry point) writes, once per
-// (b, kv head), the split K (khi, klo: (B Hkv, S, D)) and the split,
-// transposed V (vthi, vtlo: (B Hkv, D, S_pad), S_pad = S rounded up to 64,
-// zero past S).  P is the A operand from registers: the f32 accumulator of
+// (b, kv head), the split K (khi, klo: (B Hkv, Sk, D)) and the split,
+// transposed V (vthi, vtlo: (B Hkv, D, Sk_pad), Sk_pad = Sk rounded up to
+// 64, zero past Sk).  P is the A operand from registers: the f32 accumulator of
 // S gives a thread keys (2c, 2c + 1) of each 8-key block, where a TF32 A
 // fragment wants k-columns (c, c + 4); so the pre-pass stores the keys of
 // each 8-key block of V^T in the order (0, 2, 4, 6, 1, 3, 5, 7), and k-column
@@ -64,13 +68,14 @@
 //     wgmma.m64n64k8 with A = Q (hi or lo) and B = K from shared memory.
 //   * The softmax runs on the accumulator fragment, as on the bfloat16
 //     route: rows r and r + 8 of a warp's 16, quad shuffles for the row max,
-//     masks only on tiles that cross the diagonal, the window's edge or S,
+//     masks only on tiles that cross the diagonal, the window's edge or Sk,
 //     one FFMA and one ex2.approx.ftz a score.
 //   * P V: p is split into hi and lo in registers; per stage of V^T,
 //     24 wgmma.m64nNk8 with A from registers into a fresh partial, N = 64
 //     columns of D (two of N = 32 at D = 256).
 //   * Tiles wholly masked for the block are skipped (up to the diagonal when
-//     causal, from q0 - window + 1 with a window); a tile wholly masked for
+//     causal, from g0 - window + 1 with a window, g0 = row_base + q0 the
+//     block's first global row); a tile wholly masked for
 //     one warpgroup of the block leaves its rows' state as it is (alpha = 1,
 //     p = 0).  Query tiles go out last-first, so long causal rows start first.
 //   * Registers set the shape per head width.  Blocks of 288 threads (two
@@ -246,8 +251,9 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
                               const __grid_constant__ CUtensorMap klmap,
                               const __grid_constant__ CUtensorMap vhmap,
                               const __grid_constant__ CUtensorMap vlmap,
-                              float* __restrict__ out, int Hq, int Hkv, int S,
-                              int causal, int window, float scale_log2) {
+                              float* __restrict__ out, int Hq, int Hkv, int Sq,
+                              int Sk, int row_base, int causal, int window,
+                              float scale_log2) {
   constexpr int NWG = n_wg<D>();
   constexpr int NCONS = 128 * NWG;
   constexpr int NS = stages<D>();
@@ -262,10 +268,11 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int bh = blockIdx.x;
   const int bhk = bh / Hq * Hkv + bh % Hq / (Hq / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * (BQ * NWG);
-  // key tiles with an unmasked key for some row of [q0, q0 + NWG BQ)
-  const int k_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / BK * BK;
-  const int k_hi = causal ? min(S, q0 + BQ * NWG) : S;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * (BQ * NWG);  // stripe row
+  const int g0 = row_base + q0;                                 // global row
+  // key tiles with an unmasked key for some row of [g0, g0 + NWG BQ)
+  const int k_lo = (window > 0 ? max(0, g0 - window + 1) : 0) / BK * BK;
+  const int k_hi = causal ? min(Sk, g0 + BQ * NWG) : Sk;
   const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
   const int tid = threadIdx.x;
 
@@ -317,11 +324,13 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // a consumer warpgroup: this thread holds rows r and r + 8 of its 64,
-  // columns cl, cl + 1 of every 8-column block of S and of O
+  // a consumer warpgroup: this thread holds rows r and r + 8 of its 64
+  // (global rows row_base + r and row_base + r + 8), columns cl, cl + 1 of
+  // every 8-column block of S and of O; gw is the warpgroup's first global
+  // row
   const int wg = tid / 128, t = tid % 128;
   const int warp = t / 32, lane = t % 32;
-  const int qw = q0 + wg * BQ;
+  const int qw = q0 + wg * BQ, gw = row_base + qw;
   const int r = qw + warp * 16 + lane / 4;
   const int cl = (lane % 4) * 2;
   const uint32_t qh = sq + wg * q_bytes<D>(), ql = qh + BQ * D * 4;
@@ -388,13 +397,13 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_arrive(empty + 8 * s);
     }
 
-    if (k0 + BK > S || (causal && k0 + BK - 1 > qw) ||
-        (window > 0 && qw + BQ - 1 - k0 >= window)) {
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > gw) ||
+        (window > 0 && gw + BQ - 1 - k0 >= window)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        const int qi = r + (i & 2 ? 8 : 0);
+        const int qi = row_base + r + (i & 2 ? 8 : 0);
         const int kj = k0 + (i / 4) * 8 + cl + (i & 1);
-        if (kj >= S || (causal && kj > qi) || (window > 0 && qi - kj >= window))
+        if (kj >= Sk || (causal && kj > qi) || (window > 0 && qi - kj >= window))
           sc[i] = -INFINITY;
       }
     }
@@ -476,8 +485,8 @@ flash_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int qi = r + 8 * h;
-    if (qi >= S) continue;
-    float* row = out + ((size_t)bh * S + qi) * D + cl;
+    if (qi >= Sq) continue;
+    float* row = out + ((size_t)bh * Sq + qi) * D + cl;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<float2*>(row + 8 * j) =
@@ -543,29 +552,30 @@ int encode(CUtensorMap* map, const void* ptr, int dim0, int dim1, int heads) {
 template <int D>
 int run(const float* q, const float* k, const float* v, float* out,
         float* khi, float* klo, float* vthi, float* vtlo, int B, int Hq,
-        int Hkv, int S, int causal, int window, float scale_log2,
-        cudaStream_t stream) {
+        int Hkv, int Sq, int Sk, int row_base, int causal, int window,
+        float scale_log2, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   auto kern = flash_attention_tf32x3_kernel<D>;
   static const cudaError_t opted = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (opted != cudaSuccess) return static_cast<int>(opted);
-  const int s_pad = (S + BK - 1) / BK * BK;
+  const int s_pad = (Sk + BK - 1) / BK * BK;
   prepare_kv_kernel<<<dim3(s_pad / 32, D / 32, B * Hkv), 256, 0, stream>>>(
-      k, v, khi, klo, vthi, vtlo, S, s_pad, D);
+      k, v, khi, klo, vthi, vtlo, Sk, s_pad, D);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   CUtensorMap qmap, khmap, klmap, vhmap, vlmap;
-  err = encode(&qmap, q, D, S, B * Hq);
-  if (err == 0) err = encode(&khmap, khi, D, S, B * Hkv);
-  if (err == 0) err = encode(&klmap, klo, D, S, B * Hkv);
+  err = encode(&qmap, q, D, Sq, B * Hq);
+  if (err == 0) err = encode(&khmap, khi, D, Sk, B * Hkv);
+  if (err == 0) err = encode(&klmap, klo, D, Sk, B * Hkv);
   if (err == 0) err = encode(&vhmap, vthi, s_pad, D, B * Hkv);
   if (err == 0) err = encode(&vlmap, vtlo, s_pad, D, B * Hkv);
   if (err != 0) return err;
-  const dim3 grid(B * Hq, (S + BQ * n_wg<D>() - 1) / (BQ * n_wg<D>()));
+  const dim3 grid(B * Hq, (Sq + BQ * n_wg<D>() - 1) / (BQ * n_wg<D>()));
   kern<<<grid, n_threads<D>(), bytes, stream>>>(qmap, khmap, klmap, vhmap,
-                                                vlmap, out, Hq, Hkv, S, causal,
-                                                window, scale_log2);
+                                                vlmap, out, Hq, Hkv, Sq, Sk,
+                                                row_base, causal, window,
+                                                scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -575,32 +585,36 @@ int run(const float* q, const float* k, const float* v, float* out,
 // pointer): the pre-pass, then the attention kernel.  Returns 0 on success,
 // a cudaError_t, or ERR_NO_ENCODER / ERR_ENCODE (negative; see
 // cuda_error_string), and writes to *products the TF32 products a product
-// takes (TERMS).  q (B, Hq, S, D), k and v (B, Hkv, S, D), out (B, Hq, S, D):
-// float32, row-major, contiguous, q 16-byte aligned, on the current device.
-// Scratch, allocated by the caller, 16-byte aligned: khi, klo (B, Hkv, S, D)
-// and vthi, vtlo (B, Hkv, D, S_pad), S_pad = S rounded up to 64.  D is 64,
-// 128 or 256; Hq is a multiple of Hkv; window 0 means none.  scale_log2 is
-// D^-1/2 log2 e.  Allocates nothing.
+// takes (TERMS).  q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), out (B, Hq, Sq,
+// D): float32, row-major, contiguous, q 16-byte aligned, on the current
+// device; q's rows are rows row_base .. row_base + Sq - 1 of the keys'
+// sequence, row_base >= 0 and row_base + Sq <= Sk.  Scratch, allocated by
+// the caller, 16-byte aligned: khi, klo (B, Hkv, Sk, D) and vthi, vtlo (B,
+// Hkv, D, Sk_pad), Sk_pad = Sk rounded up to 64.  D is 64, 128 or 256; Hq is
+// a multiple of Hkv; window 0 means none.  scale_log2 is D^-1/2 log2 e.
+// Allocates nothing.
 extern "C" int flash_attention_tf32x3(const float* q, const float* k,
                                       const float* v, float* out, float* khi,
                                       float* klo, float* vthi, float* vtlo,
-                                      int B, int Hq, int Hkv, int S, int D,
-                                      int causal, int window, float scale_log2,
+                                      int B, int Hq, int Hkv, int Sq, int Sk,
+                                      int row_base, int D, int causal,
+                                      int window, float scale_log2,
                                       int* products, void* stream) {
   *products = TERMS;
-  if (B <= 0 || S <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || Sq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || row_base < 0 || row_base + Sq > Sk)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return run<64>(q, k, v, out, khi, klo, vthi, vtlo, B, Hq, Hkv, S,
-                     causal, window, scale_log2, st);
+      return run<64>(q, k, v, out, khi, klo, vthi, vtlo, B, Hq, Hkv, Sq,
+                     Sk, row_base, causal, window, scale_log2, st);
     case 128:
-      return run<128>(q, k, v, out, khi, klo, vthi, vtlo, B, Hq, Hkv, S,
-                      causal, window, scale_log2, st);
+      return run<128>(q, k, v, out, khi, klo, vthi, vtlo, B, Hq, Hkv, Sq,
+                      Sk, row_base, causal, window, scale_log2, st);
     case 256:
-      return run<256>(q, k, v, out, khi, klo, vthi, vtlo, B, Hq, Hkv, S,
-                      causal, window, scale_log2, st);
+      return run<256>(q, k, v, out, khi, klo, vthi, vtlo, B, Hq, Hkv, Sq,
+                      Sk, row_base, causal, window, scale_log2, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -26,6 +26,14 @@ reference kernel instead lets zero-padded keys into the softmax when
 ``causal=False`` and ``S`` is not a multiple of its tile; that quirk is not
 copied).
 
+A query stripe: ``q`` may hold ``Sq`` rows of a longer sequence, rows
+``row_base .. row_base + Sq - 1`` of the ``Sk`` keys of ``k`` and ``v``
+(``row_base + Sq <= Sk``); the masks use the global row, ``kj <= row_base +
+i`` and ``(row_base + i) - kj < window``.  ``row_base = 0, Sq = Sk`` is the
+whole sequence.  A rank of a query-sequence-sharded attention runs its own
+stripe (``ops.py``); the stripes' outputs are the whole output's rows, and
+their backwards' ``dk``, ``dv`` are each a stripe's share of a sum.
+
 Which query rows a tile is applied to may differ from the kernels' (they
 skip tiles per query tile, this version per row range): a tile that is
 wholly masked for a row is a no-op on that row's state (alpha = 1, p = 0),
@@ -51,11 +59,12 @@ KV_TILE = 64     # the kernels' key tile, one wgmma N, at every width and type
 BACKWARD_CHUNK = 1 << 26
 
 
-def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
-    """(S, S) boolean: key j is visible to query i."""
-    qi = torch.arange(s, device=device)[:, None]
-    kj = torch.arange(s, device=device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+def _mask(sq: int, sk: int, causal: bool, window: int, device,
+          row_base: int = 0) -> torch.Tensor:
+    """(Sq, Sk) boolean: key j is visible to query row ``row_base + i``."""
+    qi = torch.arange(row_base, row_base + sq, device=device)[:, None]
+    kj = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= kj <= qi
     if window > 0:
@@ -63,32 +72,48 @@ def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
     return mask
 
 
-def attention_pairs(s: int, window: int, causal: bool = True) -> int:
-    """(query, key) pairs attention keeps at length ``s``: causal keys
-    ``j <= i`` (and ``i - j < window`` when ``window`` > 0); bidirectional
-    keys ``j > i - window`` (all when ``window`` is 0)."""
+def _prefix_pairs(n: int, s: int, window: int, causal: bool) -> int:
+    """Pairs kept in the first ``n`` query rows of ``s`` keys (``n <= s``):
+    causal, row i keeps ``min(i + 1, window)`` keys; bidirectional,
+    ``s - max(0, i - window + 1)`` (all ``s`` when ``window`` is 0)."""
     if causal:
-        if not window or window >= s:
-            return s * (s + 1) // 2
-        return window * (window + 1) // 2 + (s - window) * window
-    if not window or window > s:
-        return s * s
-    return s * s - (s - window) * (s - window + 1) // 2
+        if not window or window >= n:
+            return n * (n + 1) // 2
+        return window * (window + 1) // 2 + (n - window) * window
+    m = max(0, n - window) if window else 0
+    return n * s - m * (m + 1) // 2
+
+
+def attention_pairs(s: int, window: int, causal: bool = True,
+                    row_base: int = 0, sq: int | None = None) -> int:
+    """(query, key) pairs attention keeps over ``s`` keys, for the query
+    rows ``row_base .. row_base + sq - 1`` (default: all ``s`` rows):
+    causal keys ``j <= i`` (and ``i - j < window`` when ``window`` > 0);
+    bidirectional keys ``j > i - window`` (all when ``window`` is 0)."""
+    sq = s - row_base if sq is None else sq
+    return (_prefix_pairs(row_base + sq, s, window, causal)
+            - _prefix_pairs(row_base, s, window, causal))
 
 
 def attention_work(b: int, hq: int, hkv: int, s: int, d: int, window: int,
-                   itemsize: int, causal: bool = True) -> tuple[float, float]:
-    """Operations and bytes of attention over the unmasked pairs: two
-    products of 2 B Hq D flops per pair; q, k, v read and out written once."""
-    flops = 4.0 * b * hq * d * attention_pairs(s, window, causal)
-    nbytes = itemsize * (2.0 * b * hq * s * d + 2.0 * b * hkv * s * d)
+                   itemsize: int, causal: bool = True, row_base: int = 0,
+                   sq: int | None = None) -> tuple[float, float]:
+    """Operations and bytes of attention over the unmasked pairs of the
+    query rows ``row_base .. row_base + sq - 1`` of ``s`` keys (default:
+    all): two products of 2 B Hq D flops per pair; q, k, v read and out
+    written once."""
+    sq = s - row_base if sq is None else sq
+    flops = 4.0 * b * hq * d * attention_pairs(s, window, causal, row_base,
+                                               sq)
+    nbytes = itemsize * (2.0 * b * hq * sq * d + 2.0 * b * hkv * s * d)
     return flops, nbytes
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          window: int = 0) -> torch.Tensor:
-    """``q`` (B, Hq, S, D), ``k``/``v`` (B, Hkv, S, D) -> (B, Hq, S, D).
+                          causal: bool = True, window: int = 0,
+                          row_base: int = 0) -> torch.Tensor:
+    """``q`` (B, Hq, Sq, D), rows ``row_base ..`` of the sequence of
+    ``k``/``v`` (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
 
     Raises ``RuntimeError`` when grad mode is on and an input requires a
     gradient: the walk's in-place updates cannot be differentiated.
@@ -98,26 +123,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash_attention_plain updates its state in place and cannot be "
             "differentiated; call ops.flash_attention, whose backward is "
             "flash_attention_backward")
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
     bk = KV_TILE
     dev = q.device
     work = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = float(d) ** -0.5 * LOG2E
-    qf = q.to(work).reshape(b, hkv, g, s, d)
+    qf = q.to(work).reshape(b, hkv, g, sq, d)
     kf, vf = k.to(work), v.to(work)
-    m = torch.full((b, hkv, g, s), NEG_BIG, dtype=work, device=dev)
-    tot = torch.zeros((b, hkv, g, s), dtype=work, device=dev)
-    acc = torch.zeros((b, hkv, g, s, d), dtype=work, device=dev)
-    for k0 in range(0, s, bk):
-        k1 = min(k0 + bk, s)
-        # rows for which this tile holds at least one unmasked key
-        lo = k0 if causal else 0
-        hi = min(s, k1 - 1 + window) if window > 0 else s
+    m = torch.full((b, hkv, g, sq), NEG_BIG, dtype=work, device=dev)
+    tot = torch.zeros((b, hkv, g, sq), dtype=work, device=dev)
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=work, device=dev)
+    for k0 in range(0, sk, bk):
+        k1 = min(k0 + bk, sk)
+        # the stripe's rows for which this tile holds an unmasked key
+        lo = max(0, k0 - row_base) if causal else 0
+        hi = min(sq, k1 - 1 + window - row_base) if window > 0 else sq
         if lo >= hi:
             continue
-        qi = torch.arange(lo, hi, device=dev)[:, None]
+        qi = torch.arange(row_base + lo, row_base + hi, device=dev)[:, None]
         kj = torch.arange(k0, k1, device=dev)[None, :]
         mask = torch.ones((hi - lo, k1 - k0), dtype=torch.bool, device=dev)
         if causal:
@@ -138,21 +163,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             + p @ vf[:, :, None, k0:k1]
         m[..., lo:hi] = m_new
     out = acc / tot.clamp_min(1e-38)[..., None]
-    return out.reshape(b, hq, s, d).to(q.dtype)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, dout: torch.Tensor,
-                             causal: bool = True, window: int = 0):
+                             causal: bool = True, window: int = 0,
+                             row_base: int = 0):
     """``(dq, dk, dv)`` of attention at ``q``, ``k``, ``v`` for the output's
-    cotangent ``dout`` (B, Hq, S, D), each in its input's dtype.
+    cotangent ``dout`` (B, Hq, Sq, D), each in its input's dtype; ``q`` the
+    rows ``row_base ..`` of the sequence of ``k``/``v`` (B, Hkv, Sk, D).
+    Of a stripe, ``dq`` is its rows' and ``dk``, ``dv`` its share of a sum
+    over the stripes.
 
     Not a port of a Pallas kernel: the reference has no Pallas backward (its
     models differentiate a masked einsum with ``jax.value_and_grad``), so
     this is plain torch, as the reference's backward is XLA ops.  It
     recomputes the scores densely in float32 (float64 for float64 inputs)
     under the forward's masks (causal, window; the dense form has no keys at
-    or past S), ``p = softmax(q k^T D^-0.5)``, then ``dv = p^T dout``,
+    or past Sk), ``p = softmax(q k^T D^-0.5)``, then ``dv = p^T dout``,
     ``ds = p * (dp - rowsum(p * dp))`` with ``dp = dout v^T``,
     ``dq = ds k D^-0.5`` and ``dk = ds^T q D^-0.5``; a GQA group's query
     heads are summed onto their key/value head.  The rowsum is taken over
@@ -160,18 +189,18 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     forward's bfloat16 rounding.  Key/value heads are taken in chunks whose
     score blocks hold at most ``BACKWARD_CHUNK`` elements.
     """
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
     work = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = float(d) ** -0.5
-    hidden = ~_mask(s, causal, window, q.device)
+    hidden = ~_mask(sq, sk, causal, window, q.device, row_base)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    step = max(1, BACKWARD_CHUNK // (b * g * s * s))
+    step = max(1, BACKWARD_CHUNK // max(1, b * g * sq * sk))
     for h0 in range(0, hkv, step):
         h1 = min(h0 + step, hkv)
-        qc = q[:, h0 * g:h1 * g].to(work).reshape(b, h1 - h0, g, s, d)
-        doc = dout[:, h0 * g:h1 * g].to(work).reshape(b, h1 - h0, g, s, d)
+        qc = q[:, h0 * g:h1 * g].to(work).reshape(b, h1 - h0, g, sq, d)
+        doc = dout[:, h0 * g:h1 * g].to(work).reshape(b, h1 - h0, g, sq, d)
         kc = k[:, h0:h1, None].to(work)
         vc = v[:, h0:h1, None].to(work)
         p = torch.softmax((qc @ kc.transpose(-1, -2)).mul_(scale)
@@ -181,6 +210,6 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         ds.sub_((p * ds).sum(-1, keepdim=True)).mul_(p)
         del p
         dq[:, h0 * g:h1 * g] = (ds @ kc).mul_(scale).reshape(
-            b, (h1 - h0) * g, s, d)
+            b, (h1 - h0) * g, sq, d)
         dk[:, h0:h1] = (ds.transpose(-1, -2) @ qc).sum(2).mul_(scale)
     return dq, dk, dv

@@ -21,7 +21,9 @@ traffic a fused program moves, not XLA's "bytes accessed".
 
 Every family's cells (``SHARDED_FAMILIES``: dense, MoE, SSM, hybrid,
 vlm, audio) are counted as the sharded program, per device, as the
-reference compiles them: the step runs with its parameters as DTensors
+reference compiles them (``seq_shard`` at S >= 32,768 outside decode, as
+the reference's ``_ctx_for`` sets it: the residual stream sequence-sharded,
+``distributed/sharding.py``): the step runs with its parameters as DTensors
 over the production mesh (``launch/mesh.py::production_device_mesh``, a
 fake process group of 256 or 512 ranks that this one process drives as
 rank 0, device type ``cuda``) and its inputs (tokens, patch and frame
@@ -30,7 +32,9 @@ reference's decode-state rule (:func:`build_sharded_cell`), and
 :func:`count_sharded` counts rank 0's local work *below* DTensor: each
 shard is a :class:`Counting` tensor, whose ``__torch_dispatch__`` adds up
 every local operator's FLOPs (``torch.utils.flop_counter``'s formulas,
-K6's included) and bytes, and records every ``_c10d_functional``
+K6's included: a query stripe of ``attn_seq_shard`` counted as the busiest
+stripe of its width, so that rank 0's count is the slowest rank's) and
+bytes, and records every ``_c10d_functional``
 collective with its result's bytes; a dispatch mode adds the plain
 tensors' operators (positions, masks).  A mode above DTensor would count
 global work, not one device's.  The paper cell (:func:`run_vdt_cell`) is
@@ -50,7 +54,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import math
 import time
@@ -170,11 +173,12 @@ _COLLECTIVE_WAITS = {"_c10d_functional::wait_tensor",
 
 
 class DeviceWork:
-    """One device's counted work: FLOPs, bytes, and its collectives as
-    ``(kind, result bytes)`` records."""
+    """One device's counted work: FLOPs (``k6_flops`` of them K6's), bytes,
+    and its collectives as ``(kind, result bytes)`` records."""
 
     def __init__(self):
         self.flops = 0
+        self.k6_flops = 0
         self.bytes = 0
         self.collectives: list = []
 
@@ -190,7 +194,10 @@ class DeviceWork:
             raise NotImplementedError(f"no HLO kind for collective {func}")
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
-            self.flops += int(formula(*args, **kwargs, out_val=out))
+            flops = int(formula(*args, **kwargs, out_val=out))
+            self.flops += flops
+            if name == "repro_torch::flash_attention_fwd":
+                self.k6_flops += flops
         if func not in _NO_TRAFFIC and not _is_view(func):
             self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
 
@@ -452,10 +459,7 @@ def build_sharded_cell(arch: str, shape_name: str, multi_pod: bool,
         arch, shape_name, cfg_override, batch_override, device)
     if mesh is None:
         mesh = production_device_mesh(multi_pod=multi_pod)
-    # no sequence-sharded residual (the reference's seq_shard at S >= 32k):
-    # a matmul flattens (B, S), and DTensor in the card's PyTorch cannot
-    # flatten two sharded dimensions (ROADMAP Queue 1, 13h)
-    ctx = dataclasses.replace(_ctx_for(mesh, cfg, shape), seq_shard=False)
+    ctx = _ctx_for(mesh, cfg, shape)
     pspec = param_shardings(params, ctx, expert_parallel=cfg.expert_parallel)
     pbytes = _param_bytes(params, pspec, ctx)
     fn = _step_fn(cfg, shape, ctx)
@@ -538,7 +542,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                                       f"{cfg.family!r} family")
         n_chips = len(make_production_mesh(multi_pod=multi_pod).devices)
         with production_group(multi_pod):
-            fn, args, arg_bytes, cfg, shape, meta, _, _ = \
+            fn, args, arg_bytes, cfg, shape, meta, _, ctx = \
                 build_sharded_cell(arch, shape_name, multi_pod,
                                    cfg_override=cfg_override)
             work = count_sharded(fn, *args)
@@ -556,7 +560,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                    argument_bytes_per_device=arg_bytes,
                    roofline=rl.as_dict(), params=cfg.param_count(),
                    active_params=cfg.active_param_count(),
-                   flops_per_device=work.flops, bytes_per_device=work.bytes)
+                   flops_per_device=work.flops, bytes_per_device=work.bytes,
+                   k6_flops_per_device=work.k6_flops, seq_shard=ctx.seq_shard,
+                   attn_seq_shard=ctx.attn_seq_shard)
     except Exception as e:   # one cell's failure is recorded, the grid goes on
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-4000:])

@@ -14,12 +14,9 @@ Variants (each is one hypothesis from the §Perf log):
   all            — attn_seq_shard + chunked_ce
 
 Counts are taken on ``meta`` tensors, per device as the sharded program
-(``dryrun.count_sharded``).  ``attn_seq_shard`` still changes no count: the
-port's self-attention is K6, which forms no score tensor for
-``shard_attn_logits`` to pin, and K6's sharding rule offers the batch and
-the heads but not the query sequence (it takes one ``S`` for q and k and no
-query offset; a query stripe with a ``row_base``, as K1 has, is queued in
-ROADMAP).  The output says so.
+(``dryrun.count_sharded``).  ``attn_seq_shard`` runs K6 as query stripes
+over ``model`` where the heads do not divide it (the reference's rule), and
+K6's FLOPs per device are then the busiest stripe's.
 """
 import argparse
 import dataclasses
@@ -35,11 +32,6 @@ VARIANTS = {
     "all": dict(ctx=dict(attn_seq_shard=True), cfg={},
                 train=dict(chunked_ce=512)),
 }
-
-SEQ_SHARD_NOTE = ("attn_seq_shard changes no count: K6 forms no score "
-                  "tensor to pin and its sharding rule has no query-sequence "
-                  "strategy (one S for q and k, no query offset)")
-
 
 def run_variant(arch: str, shape: str, variant: str, force=False):
     v = VARIANTS[variant]
@@ -71,11 +63,10 @@ def main():
     else:
         rec = run_variant(arch, shape, args.variant, force=args.force)
     out = {k: rec.get(k) for k in ("cell", "status", "counted", "wall_s",
-                                   "error")}
+                                   "error", "seq_shard", "attn_seq_shard",
+                                   "flops_per_device", "k6_flops_per_device")}
     if rec.get("roofline"):
         out["roofline"] = rec["roofline"]
-    if VARIANTS.get(args.variant, {}).get("ctx", {}).get("attn_seq_shard"):
-        out["note"] = SEQ_SHARD_NOTE
     print(json.dumps(out, indent=1))
 
 

@@ -24,7 +24,12 @@ shard's offset along the cache's slots when they are sharded (the
 reference's ``"cache_seq"``), so that only the shard that holds the slot
 writes; the decode's attention over a head-sharded cache (``"cache"``)
 runs on each rank's heads (``_attend_cache``), and so does a sharded
-cross-attention over its K/V (whisper's decoder).
+cross-attention over its K/V (whisper's decoder).  A sequence-sharded input
+(``seq_shard``) is gathered before the projections (``gather_seq``), and
+so is a cross-attention's source; under ``attn_seq_shard``, where
+``sharding.attn_stripe_dim`` says so, self-attention runs as K6's query
+stripes (``flash_attention_striped``, after RoPE on the whole sequence),
+their output gathered before ``w_o``.
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ from typing import Optional
 import torch
 
 from repro_torch._device import is_dtensor
+from repro_torch.distributed.sharding import attn_stripe_dim, gather_seq
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention_striped
 from repro_torch.models.layers import dense_init, rope
 
 __all__ = ["KVCache", "attn_apply", "attn_decode", "attn_init", "cross_attend",
@@ -130,17 +137,21 @@ def self_attention(params: dict, x: torch.Tensor, cfg,
     RoPE) and ``v`` as ``(B, S, Hkv, D)``, the layout of the KV cache."""
     dt = x.dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    x = gather_seq(x)
     b, s, _ = x.shape
     q = _split_heads(x @ params["w_q"].to(dt), hq, hd)
     k = _split_heads(x @ params["w_k"].to(dt), hkv, hd)
     v = _split_heads(x @ params["w_v"].to(dt), hkv, hd)
     if use_rope:
         q, k = rope(q, k, positions, cfg.rope_theta)
-    o = flash_attention(q.transpose(1, 2).contiguous(),
-                        k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(), causal=causal,
-                        window=_kernel_window(window, s))
-    return _merge_heads(o, hq) @ params["w_o"].to(dt), k, v
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    win = _kernel_window(window, s)
+    stripe = attn_stripe_dim(hq, hkv) if is_dtensor(q) else None
+    if stripe is None:
+        o = flash_attention(qt, kt, vt, causal=causal, window=win)
+    else:
+        o = flash_attention_striped(qt, kt, vt, causal, win, stripe)
+    return gather_seq(_merge_heads(o, hq)) @ params["w_o"].to(dt), k, v
 
 
 def cross_kv(params: dict, kv_x: torch.Tensor, cfg):
@@ -148,6 +159,7 @@ def cross_kv(params: dict, kv_x: torch.Tensor, cfg):
     ``(B, T, Hkv, D)``, no RoPE."""
     dt = kv_x.dtype
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    kv_x = gather_seq(kv_x)
     return (_split_heads(kv_x @ params["w_k"].to(dt), hkv, hd),
             _split_heads(kv_x @ params["w_v"].to(dt), hkv, hd))
 
@@ -159,6 +171,7 @@ def cross_attend(params: dict, x: torch.Tensor, k: torch.Tensor,
     (softmax in float32, probabilities in the compute dtype)."""
     dt = x.dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    x = gather_seq(x)
     q = _split_heads(x @ params["w_q"].to(dt), hq, hd)
     if is_dtensor(k):
         # as the decode's attention over a sharded cache, every slot valid

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_seq
+
 __all__ = ["Dtypes", "dense_init", "mlp_apply", "mlp_init", "rms_norm",
            "rope"]
 
@@ -81,7 +83,9 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, *,
 
 
 def mlp_apply(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """Gated SiLU MLP (llama-style)."""
+    """Gated SiLU MLP (llama-style); a sequence-sharded ``x`` is gathered
+    first (``sharding.gather_seq``)."""
+    x = gather_seq(x)
     wg = params["w_gate"].to(compute_dtype)
     wu = params["w_up"].to(compute_dtype)
     wd = params["w_down"].to(compute_dtype)

@@ -19,7 +19,10 @@ all T tokens (capacity ``int(cf * T * k / E) + 1``, one stable sort), and
 keeps its slice of the buffer: its experts, and its share of the capacity
 slots over the data axes (:func:`_experts_sharded`).  The table, gather and
 combine have no DTensor rule; they run on each rank's shards through
-``local_map``, with their gradients' layouts stated.  A per-rank dispatch
+``local_map``, with their gradients' layouts stated.  A sequence-sharded
+``x`` (``seq_shard``) is gathered on its sequence first, as every
+block's input is (``sharding.gather_seq``): the rows are then sharded
+over the batch only, and the dispatch is the one above.  A per-rank dispatch
 with a local capacity (Megatron's, DeepSpeed's) would drop other
 assignments: it is not this layer.
 
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import is_dtensor
+from repro_torch.distributed.sharding import gather_seq
 from repro_torch.models.layers import dense_init
 
 __all__ = ["moe_apply", "moe_dispatch_table", "moe_init", "moe_param_shapes"]
@@ -249,6 +253,7 @@ def moe_dispatch_table(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     ``moe_apply`` routes: every (token, choice) assignment kept, by slot,
     as its flat index, sentinel T*k where none; of DTensor tokens, the
     global table, replicated."""
+    x = gather_seq(x)
     _, _, top_i, capacity = _routing(params, x.reshape(-1, x.shape[-1]), cfg)
 
     def table(ti):
@@ -262,6 +267,7 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, compute_dtype):
     routed globally: the capacity counts all B S tokens and the stable sort
     orders all assignments, so exactly the assignments the unsharded layer
     drops are dropped."""
+    x = gather_seq(x)
     b, s, d = x.shape
     t = b * s
     k = cfg.experts_per_token

@@ -28,7 +28,9 @@ z | x B C | dt split (its column shards do not line up with it), the conv
 runs on the channel shards, the SSD on the batch and the heads (gathered
 first when they do not divide the axis), and the decode recurrence on the
 decode state's shards (P over ``model``, the reference's cache layout):
-each through ``local_map``, DTensor having no rule for them.
+each through ``local_map``, DTensor having no rule for them.  The conv and
+the SSD need the whole sequence: a sequence-sharded input (``seq_shard``)
+is gathered at the block's entry (``sharding.gather_seq``).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import is_dtensor
-from repro_torch.distributed.sharding import shard_like
+from repro_torch.distributed.sharding import gather_seq, shard_like
 from repro_torch.models.layers import dense_init
 
 __all__ = ["SSMCache", "init_ssm_cache", "ssd_chunked", "ssm_apply",
@@ -282,6 +284,7 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg, compute_dtype,
     where they divide, the heads (:func:`ssd_chunked`), and ``out_proj``'s
     product is the row-parallel ``Partial`` sum that the caller's
     ``shard_act(..., "btd")`` reduces."""
+    x = gather_seq(x)
     b, s, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim

@@ -14,7 +14,10 @@ A vlm's ``patches`` (B, P, D) are prepended to the token embeddings.
 ``shard_act`` is called where the reference calls it (the embeddings, each
 residual add, the hybrid's shared block, the logits): the identity on
 plain tensors, a redistribution of DTensors when the parameters are
-sharded over a ``DeviceMesh`` (``distributed/sharding.py``); the MoE
+sharded over a ``DeviceMesh`` (``distributed/sharding.py``; under
+``seq_shard`` the residual stream is sequence-sharded, every block gathers
+it at its entry, and so does the unembedding, whose logits stay
+vocabulary-sharded, ``"btv"``); the MoE
 layers' aux losses, each the global one, are summed over the layers.  The embedding lookup is
 ``torch.nn.functional.embedding``, the same gather as indexing, which
 DTensor shards over a vocabulary-sharded table.
@@ -29,7 +32,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device, seeded_generator
-from repro_torch.distributed.sharding import shard_act
+from repro_torch.distributed.sharding import (current_ctx, gather_seq,
+                                              shard_act, use_ctx)
 from repro_torch.models.attention import (attn_apply, attn_init,
                                           self_attention)
 from repro_torch.models.layers import (Dtypes, dense_init, mlp_apply,
@@ -80,10 +84,20 @@ def remat_call(cfg, params: dict):
     ``torch.utils.checkpoint`` (non-reentrant; the reference's
     ``jax.checkpoint``) when ``cfg.remat`` is set and a gradient of
     ``params`` is being taken, else directly.  So serving, which takes no
-    gradient, runs each layer once."""
+    gradient, runs each layer once.  The recompute runs under the sharding
+    context of the forward (``use_ctx``): the backward of CUDA tensors runs
+    in the autograd engine's own thread, where the thread-local context of
+    the caller is unset."""
     if cfg.remat and torch.is_grad_enabled() and any(
             t.requires_grad for t in leaves(params)):
-        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+        ctx = current_ctx()
+
+        def body(fn, *args):
+            with use_ctx(ctx):
+                return fn(*args)
+
+        return lambda fn, *args: checkpoint(body, fn, *args,
+                                            use_reentrant=False)
     return lambda fn, *args: fn(*args)
 
 
@@ -247,13 +261,14 @@ def embed_inputs(params: dict, tokens, cfg, patches=None) -> torch.Tensor:
     prepended, constrained to ``"btd"``.  Sharded, the lookup of a
     vocabulary-sharded table is a masked partial sum, which DTensor cannot
     concatenate with the batch-sharded patches: the tokens' rows are
-    reduced to ``"btd"`` first."""
+    reduced to ``"btd"`` first (and their sequence gathered, under
+    ``seq_shard``)."""
     emb = params["embed"]
     x = F.embedding(torch.as_tensor(tokens, device=emb.device), emb).to(
         Dtypes.compute(cfg))
     if patches is not None:
         x = torch.cat([torch.as_tensor(patches, device=emb.device).to(x.dtype),
-                       shard_act(x, "btd")], dim=1)
+                       gather_seq(shard_act(x, "btd"))], dim=1)
     return shard_act(x, "btd")
 
 
@@ -306,5 +321,5 @@ def lm_forward(params: dict, tokens: torch.Tensor, cfg, patches=None):
         x, aux_l = run(_layer, params, lp, x, positions, cfg, dt, w, flag)
         if aux_l is not None:
             aux = aux + aux_l
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = gather_seq(rms_norm(x, params["final_ln"], cfg.norm_eps))
     return shard_act(x @ unembedding(params, cfg, dt), "btv"), aux

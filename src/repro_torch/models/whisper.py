@@ -16,7 +16,12 @@ decoder's on ``params["layers"]``; the layer loops are Python loops.  With
 Sharded (parameters as DTensors over a ``DeviceMesh``,
 ``distributed/sharding.py``): ``shard_act`` pins the reference's eight
 points (the encoder's input and both residual adds, the decoder's input
-and its three residual adds, the logits ``"btv"``).  The reference's
+and its three residual adds, the logits ``"btv"``; under ``seq_shard``
+the encoder's frames and the decoder's tokens are sequence-sharded, an
+uneven split where the model axis does not divide them, as DTensor's
+``torch.chunk``; the encoder's output is gathered once for the
+cross-attention, and the decoder's last hidden state before the
+unembedding).  The reference's
 ``param_shardings`` treats a leaf as layer-stacked only under
 ``/layers/``, so ``enc_layers``' attention weights may be sharded on their
 layer axis (``P("data", "model", None)`` on a 2 x 2 mesh); the port keeps
@@ -29,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import is_dtensor, resolve_device, seeded_generator
-from repro_torch.distributed.sharding import shard_act
+from repro_torch.distributed.sharding import gather_seq, shard_act
 from repro_torch.models.attention import attn_apply, attn_init
 from repro_torch.models.layers import (Dtypes, dense_init, mlp_apply,
                                        mlp_init, rms_norm)
@@ -188,12 +193,12 @@ def decoder_forward(params: dict, tokens, enc_out: torch.Tensor,
     _require_audio(cfg)
     dt = Dtypes.compute(cfg)
     x = embed_inputs(params, tokens, cfg)
-    enc = enc_out.to(dt)
+    enc = gather_seq(enc_out.to(dt))
     positions = _positions(x)
     run = remat_call(cfg, params)
     for lp in unstack_layers(params["layers"], cfg.n_layers):
         x = run(decoder_layer, lp, x, enc, cfg, positions)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = gather_seq(rms_norm(x, params["final_ln"], cfg.norm_eps))
     return shard_act(x @ params["unembed"].to(dt), "btv")
 
 

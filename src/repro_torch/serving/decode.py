@@ -44,7 +44,12 @@ T_enc, Hkv, D), its kv heads over tp when they divide it, else its slots
 P, N) P over tp, a conv cache (L, B, K - 1, C) its channels.  A vlm's
 patches are sharded by batch like its tokens.  An audio prefill projects
 every layer's cross-attention K/V first and lays them out so, then
-attends over them as its decode steps do.
+attends over them as its decode steps do.  Under ``seq_shard`` (a long
+prefill: the residual stream sequence-sharded, ``sharding.gather_seq``
+before every block) the caches come out laid out as above, and the last
+position's hidden state is gathered first; ``decode_step`` runs under a
+context with ``seq_shard`` off, as the reference's dry run gives decode
+cells, and raises under one with it on.
 
 A ring keeps ``min(S, window)`` slots, as the reference's does: when the
 prompt is shorter than the window, the first decoded token takes slot
@@ -66,7 +71,8 @@ from typing import Optional
 import torch
 
 from repro_torch._device import is_dtensor, resolve_device
-from repro_torch.distributed.sharding import shard_act, shard_state
+from repro_torch.distributed.sharding import (current_ctx, gather_seq,
+                                              shard_act, shard_state)
 from repro_torch.models.attention import (KVCache, attn_decode,
                                           cross_attend, cross_kv, init_cache,
                                           self_attention)
@@ -253,7 +259,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, patches=None,
 
 def _logits(params: dict, x: torch.Tensor, cfg, dt) -> torch.Tensor:
     """The last position's logits (B, Vp)."""
-    x = rms_norm(x[:, -1], params["final_ln"], cfg.norm_eps)
+    x = rms_norm(gather_seq(x)[:, -1], params["final_ln"], cfg.norm_eps)
     return x @ unembedding(params, cfg, dt)
 
 
@@ -282,7 +288,7 @@ def _prefill_ssm(params: dict, x: torch.Tensor, pos: torch.Tensor, cfg, dt):
 
 
 def _prefill_audio(params: dict, tokens, frames, cfg, dt):
-    enc = encoder_forward(params, frames, cfg)
+    enc = gather_seq(encoder_forward(params, frames, cfg))
     x = embed_inputs(params, tokens, cfg)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -316,8 +322,15 @@ def _prefill_audio(params: dict, tokens, frames, cfg, dt):
 
 
 def decode_step(params: dict, token: torch.Tensor, state: DecodeState, cfg):
-    """``token`` (B, 1) -> ``(logits (B, Vp), new DecodeState)``."""
+    """``token`` (B, 1) -> ``(logits (B, Vp), new DecodeState)``.  Raises
+    ``ValueError`` under a context with ``seq_shard`` on: one token has no
+    sequence to shard."""
     require_ported(cfg)
+    ctx = current_ctx()
+    if ctx is not None and ctx.seq_shard:
+        raise ValueError("decode_step runs under a context with seq_shard "
+                         "off (a decode cell's, as the dry run makes it); "
+                         "the active one has it on")
     dt = Dtypes.compute(cfg)
     x = embed_inputs(params, token, cfg)                  # (B, 1, D)
     if cfg.family in ("ssm", "hybrid"):

@@ -4,15 +4,20 @@
     python tests/_spmd_worker.py OUT_DIR CASE [CASE ...]
 
 For each case (an architecture's ``SMOKE`` configuration, or a variant of
-one, ``arch@name``) it reads ``OUT_DIR/{case}_inputs.npz`` (the reference's
-float32 parameters as ``p/<path>`` arrays, ``tokens`` (B, S + 1) and
-``decode`` (B, N) tokens, and ``overrides``, the configuration's changed
-fields as JSON; a vlm's ``patches`` (B, P, D) and an audio model's
-``frames`` (B, T_enc, D), where the case has them), starts four ranks (``torch.multiprocessing``, spawn), and
-on each rank runs the train step, the prefill and ``N`` decode steps with
-the parameters as DTensors (``shard_params``, experts over ``model`` where
-the configuration is expert-parallel) and the inputs sharded by batch,
-under ``use_ctx(ShardCtx(mesh))``; rank 0 also runs them on plain tensors.
+one, ``arch@name``, either with a ``#switches`` suffix) it reads
+``OUT_DIR/{case}_inputs.npz`` (the reference's float32 parameters as
+``p/<path>`` arrays, ``tokens`` (B, S + 1) and ``decode`` (B, N) tokens,
+``overrides``, the configuration's changed fields as JSON, and optionally
+``ctx``, the ``ShardCtx`` switches as JSON (``seq_shard``,
+``attn_seq_shard``); a vlm's ``patches`` (B, P, D) and an audio model's
+``frames`` (B, T_enc, D), where the case has them), starts four ranks
+(``torch.multiprocessing``, spawn), and on each rank runs the train step,
+the prefill and ``N`` decode steps with the parameters as DTensors
+(``shard_params``, experts over ``model`` where the configuration is
+expert-parallel) and the inputs sharded by batch, under
+``use_ctx(ShardCtx(mesh, **switches))`` (the decode steps with
+``seq_shard`` off, as the reference's dry run decodes); rank 0 also runs
+them on plain tensors.
 Rank 0 writes ``OUT_DIR/{case}_out.npz``: the sharded (``spmd/...``) and
 plain (``plain/...``) loss, grad norm, updated parameters, prefill logits
 and each decode step's logits; each decode-cache leaf's placements as text
@@ -64,6 +69,7 @@ def _full(t):
 
 def _run(params, inputs, cfg, ctx):
     """Train step, prefill and decode steps; numpy results by name."""
+    import dataclasses
     import warnings
 
     from repro_torch.distributed.sharding import (shard_batch, shard_params,
@@ -109,6 +115,9 @@ def _run(params, inputs, cfg, ctx):
         out["prefill"] = _full(logits)
         if ctx is not None:
             out.update(_cache_placements(dstate))
+    dec_ctx = None if ctx is None else dataclasses.replace(ctx,
+                                                           seq_shard=False)
+    with use_ctx(dec_ctx):
         for i in range(decode.shape[1]):
             logits, dstate = decode_step(params, decode[:, i:i + 1], dstate,
                                          cfg)
@@ -148,16 +157,20 @@ def _rank(rank: int, out_dir: str, cases: list, store: str):
         mesh = device_mesh(MESH, ("data", "model"), "cpu")
         for case in cases:
             with np.load(Path(out_dir) / f"{case}_inputs.npz") as npz:
+                arch = case.split("#")[0].split("@")[0]
                 cfg = dataclasses.replace(
-                    registry.get_smoke_config(case.split("@")[0]),
+                    registry.get_smoke_config(arch),
                     dtype="float32", **json.loads(str(npz["overrides"])))
                 inputs = {k: npz[k] for k in ("tokens", "decode",
                                               "patches", "frames")
                           if k in npz.files}
+                switches = json.loads(str(npz["ctx"])) \
+                    if "ctx" in npz.files else {}
                 params = lm_params_from_numpy(_unflatten(npz), cfg,
                                               device="cpu")
-            got = {f"spmd/{k}": v for k, v in
-                   _run(params, inputs, cfg, ShardCtx(mesh=mesh)).items()}
+            got = {f"spmd/{k}": v for k, v in _run(
+                params, inputs, cfg,
+                ShardCtx(mesh=mesh, **switches)).items()}
             if rank == 0:
                 got.update({f"plain/{k}": v for k, v in
                             _run(params, inputs, cfg, None).items()})

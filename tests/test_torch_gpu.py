@@ -296,6 +296,76 @@ def test_cuda_flash_attention_kernel_matches_plain(b, hq, hkv, s, d, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window,n", [
+    (1, 15, 5, 2_048, 64, True, 0, 16), (2, 4, 1, 1_024, 128, True, 300, 4),
+    (1, 4, 2, 768, 256, False, 0, 3), (2, 8, 2, 512, 64, False, 100, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_stripes_match_plain_and_the_whole(
+        b, hq, hkv, s, d, causal, window, n, dtype):
+    """K6's query stripes (``row_base``) on both routes: each stripe against
+    the plain version at its offset (2e-4 in float32; bfloat16 at the
+    limits above), the stripes concatenated equal to the whole launch bit
+    for bit (each stripe a multiple of both kernels' query tiles), and a
+    stripe at a ``row_base`` that is no multiple of 64 within tolerance;
+    every launch on the dtype's route."""
+    _card()
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+
+    route = "sm90_bf16" if dtype == torch.bfloat16 else "sm90_tf32x3"
+    r = np.random.RandomState(s + d + n)
+    q, k, v = (torch.as_tensor(r.randn(b, h, s, d).astype(np.float32))
+               .to("cuda", dtype) for h in (hq, hkv, hkv))
+    rows = s // n
+    before = dict(flash_attention.launches_by_route)
+    total = flash_attention.launches
+    whole = flash_attention(q, k, v, causal=causal, window=window)
+    parts = []
+    for i in range(n):
+        qs = q[:, :, i * rows:(i + 1) * rows].contiguous()
+        got = flash_attention_fwd(qs, k, v, causal, window, i * rows)
+        want = flash_attention_plain(qs, k, v, causal, window, i * rows)
+        if dtype == torch.bfloat16:
+            _assert_k6_bf16_matches_plain(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        parts.append(got)
+    assert torch.equal(torch.cat(parts, dim=2), whole)
+    r0 = s // 2 + 37
+    qs = q[:, :, r0:r0 + rows // 2].contiguous()
+    got = flash_attention_fwd(qs, k, v, causal, window, r0)
+    want = flash_attention_plain(qs, k, v, causal, window, r0)
+    if dtype == torch.bfloat16:
+        _assert_k6_bf16_matches_plain(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(
+        got.float(), flash_attention_ref(qs, k, v, causal, window,
+                                         r0).float(),
+        rtol=2e-4 if dtype == torch.float32 else 5e-2,
+        atol=2e-4 if dtype == torch.float32 else 5e-2)
+    assert flash_attention.launches - total == n + 2
+    assert flash_attention.launches_by_route[route] - before[route] == n + 2
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_tf32x3_gate_at_a_row_base():
+    """The float32 route's precision gate on a stripe: the last half of
+    smollm-360m's rows (``row_base`` 1,024) against the plain recurrence in
+    float64 at that offset, within 2 x the plain float32 version's error."""
+    _card()
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+
+    r = np.random.RandomState(5)
+    q, k, v = (torch.as_tensor(r.randn(2, h, 2_048, 64).astype(np.float32))
+               .cuda() for h in (15, 5, 5))
+    qs = q[:, :, 1_024:].contiguous()
+    ref = flash_attention_plain(qs.double(), k.double(), v.double(), True, 0,
+                                1_024)
+    _assert_gate(flash_attention_fwd(qs, k, v, True, 0, 1_024),
+                 flash_attention_plain(qs, k, v, True, 0, 1_024), ref)
+
+
+@pytest.mark.gpu
 def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take():
     _card()
     q = torch.zeros((1, 2, 8, 32), device="cuda")
@@ -1645,7 +1715,16 @@ GLOO_CASES = {"smollm-360m": {}, "deepseek-moe-16b": {},
               "deepseek-moe-16b@drop": {"capacity_factor": 1.0},
               "mixtral-8x7b": {}, "mamba2-130m": {},
               "mamba2-130m@3heads": {"d_model": 24}, "zamba2-1.2b": {},
-              "internvl2-1b": {}, "whisper-medium": {}}
+              "internvl2-1b": {}, "whisper-medium": {},
+              # sequence parallelism (#seq: seq_shard; #both: and
+              # attn_seq_shard, K6's query stripes where the heads do not
+              # divide the model axis)
+              "smollm-360m#both": {}, "deepseek-moe-16b#seq": {},
+              "mamba2-130m#seq": {}, "zamba2-1.2b#both": {},
+              "internvl2-1b#both": {},
+              "whisper-medium@15frames#seq": {"encoder_frames": 15}}
+GLOO_SWITCHES = {"seq": {"seq_shard": True},
+                 "both": {"seq_shard": True, "attn_seq_shard": True}}
 # the paper's LP step (tests/_spmd_paper_worker.py): depth L, classes C
 GLOO_PAPER = dict(L=10, C=4, alpha=0.3, n_iters=4)
 
@@ -1677,7 +1756,8 @@ def gloo_mesh_run(tmp_path_factory):
 
     out = tmp_path_factory.mktemp("gloo")
     for case, over in GLOO_CASES.items():
-        cfg = dataclasses.replace(get_smoke_config(case.split("@")[0]),
+        arch, _, switches = case.partition("#")
+        cfg = dataclasses.replace(get_smoke_config(arch.split("@")[0]),
                                   dtype="float32", **over)
         r = np.random.RandomState(0)
         init = init_encdec if cfg.family == "audio" else init_lm
@@ -1688,7 +1768,9 @@ def gloo_mesh_run(tmp_path_factory):
                     flat(init(cfg, 0, device="cpu"))},
                  tokens=r.randint(0, cfg.vocab_size, (4, 17)).astype(np.int32),
                  decode=r.randint(0, cfg.vocab_size, (4, 4)).astype(np.int32),
-                 overrides=np.array(json.dumps(over)), **extras)
+                 overrides=np.array(json.dumps(over)),
+                 ctx=np.array(json.dumps(GLOO_SWITCHES.get(switches, {}))),
+                 **extras)
     L, c = GLOO_PAPER["L"], GLOO_PAPER["C"]
     r = np.random.RandomState(2)
     nb, n_nodes = 4 << L, (2 << L) - 1
@@ -1714,8 +1796,10 @@ def gloo_mesh_run(tmp_path_factory):
 def test_cuda_host_gloo_mesh_matches_plain_tensors(case, gloo_mesh_run):
     """The card machine's PyTorch (DTensor's rules differ by version) runs
     the sharded train step, prefill and 4 decode steps of each case over a
-    2 x 2 gloo mesh equal to plain tensors, as ``test_torch_spmd.py`` holds
-    them on the CPU host: ``rtol=1e-5``, ``atol`` 1e-6 of the largest
+    2 x 2 gloo mesh equal to plain tensors (with ``seq_shard`` and
+    ``attn_seq_shard`` for the ``#`` cases, decode with ``seq_shard`` off),
+    as ``test_torch_spmd.py`` and ``test_torch_spmd_seq.py`` hold them on
+    the CPU host: ``rtol=1e-5``, ``atol`` 1e-6 of the largest
     magnitude (at least 1; a first moment 1e-5 of its own).  PyTorch 2.11
     differentiated a reduction that DTensor inserts before a ``log``
     wrongly: every gradient was off until the cross-entropy reduced its
