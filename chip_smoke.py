@@ -233,7 +233,18 @@ Phases (any failure exits non-zero):
    quantisation step, both timed; (g) the 32 layers as 4 stages of 8 on
    ``["cuda:0"] * 4`` (``distributed/pipeline.py``), 8 microbatches of 1 x
    512 tokens, K6 256 launches on ``sm90_bf16``, bit for bit the stages run
-   one after another;
+   one after another; (h) the launcher's SPMD path: the same flags under
+   ``python -m torch.distributed.run --standalone --nproc-per-node 1``
+   (loopback only; the rank is this script with ``--launcher-rank``, which
+   runs ``launch/train.py``'s ``main`` with each step timed and K6 counted
+   on the rank's own counters), one NCCL rank over a ``(1, 1)`` ``("data",
+   "model")`` mesh, the state as DTensors: SIGTERM to the rank after its
+   step-2 line, then restarted to step 8; every step K6 64 launches on
+   ``sm90_bf16``; its step-8 checkpoint against (a)'s, bit for bit, else
+   within ``2e-3`` of each tensor's largest magnitude, the differing leaves
+   listed; (i) (h)'s step-4 checkpoint, written through the DTensor gather,
+   resumed by the one-device launcher in this process to step 8, against
+   (a)'s as (h)'s;
 20. ``[dryrun]``: the dry-run tooling (``launch/dryrun.py``): (a) ``python -m
    repro_torch.launch.dryrun --all --force`` in a subprocess, every cell of
    10 architectures x 4 shapes on the single-pod mesh and the paper cell
@@ -416,7 +427,8 @@ TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 256
 # its own defaults (8 x 128 tokens), 8 steps, a checkpoint every 4; the
 # preempted run gets SIGTERM after its "step 2" line; checkpoints under
 # build/ (git-ignored), removed when the phase ends.  The pipeline: its 32
-# layers as 4 stages of 8 on ["cuda:0"] * 4, 8 microbatches of 1 x 512
+# layers as 4 stages of 8 on ["cuda:0"] * 4, 8 microbatches of 1 x 512.
+# (h): the same flags on one torchrun rank (this script, --launcher-rank)
 LAUNCH_FLAGS = ["--arch", LM_ARCH, "--steps", "8", "--ckpt-every", "4",
                 "--log-every", "1", "--device", "cuda"]
 LAUNCH_STEPS, LAUNCH_TOKENS, LAUNCH_PREEMPT_AFTER = 8, 8 * 128, 2
@@ -4024,6 +4036,46 @@ def launcher_cmd(ckpt_dir: Path) -> list:
             *LAUNCH_FLAGS, "--ckpt-dir", str(ckpt_dir)]
 
 
+def torchrun_cmd(ckpt_dir: Path) -> list:
+    """(h): one rank under torchrun, this script's ``--launcher-rank``."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", str(REPO / "chip_smoke.py"),
+            "--launcher-rank", *LAUNCH_FLAGS, "--ckpt-dir", str(ckpt_dir)]
+
+
+def launcher_rank(argv: list) -> int:
+    """One rank of (h), started by torchrun: ``launch/train.py``'s ``main``
+    on ``argv``, each step timed and its K6 launches counted on this
+    process's own counters (every count 0 just before the run, read just
+    after); rank 0 prints them as one ``[launcher rank]`` JSON line."""
+    from repro_torch.launch import train as launcher
+
+    rows = []
+    launcher.make_train_step = launcher_step_probe(rows)
+    reset_counts()
+    rc = launcher.main(argv)
+    counts = read_counts()
+    if os.environ.get("RANK") == "0":
+        print("[launcher rank] " + json.dumps(dict(rows=rows, counts=counts)),
+              flush=True)
+    return rc
+
+
+def child_pids(parent: int, marker: str) -> list:
+    """The processes whose parent is ``parent`` and whose command line
+    holds ``marker``."""
+    pids = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            ppid = int(stat.read_text().rsplit(")", 1)[1].split()[1])
+            cmd = (stat.parent / "cmdline").read_bytes()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == parent and marker.encode() in cmd:
+            pids.append(int(stat.parent.name))
+    return sorted(pids)
+
+
 def launcher_env() -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO / "src") + (
@@ -4031,23 +4083,29 @@ def launcher_env() -> dict:
     return env
 
 
-def run_launcher(ckpt_dir: Path, preempt_after: int | None = None):
+def run_launcher(ckpt_dir: Path, preempt_after: int | None = None,
+                 torchrun: bool = False):
     """The launcher as a subprocess from the checkout's root (it reuses the
-    kernels ``phase_build`` built under ``build/repro_torch``); with
-    ``preempt_after``, SIGTERM once it prints that step's line.  Returns
-    (exit code, its output, wall seconds)."""
+    kernels ``phase_build`` built under ``build/repro_torch``), or with
+    ``torchrun`` one rank of it under torchrun; with ``preempt_after``,
+    SIGTERM once it prints that step's line, to the launcher (to the rank,
+    not to torchrun).  Returns (exit code, its output, wall seconds)."""
     t0 = time.perf_counter()
-    proc = subprocess.Popen(launcher_cmd(ckpt_dir), cwd=REPO,
-                            env=launcher_env(), stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen(
+        torchrun_cmd(ckpt_dir) if torchrun else launcher_cmd(ckpt_dir),
+        cwd=REPO, env=launcher_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
     lines = []
     try:
         for line in proc.stdout:
             lines.append(line)
             print("    | " + line.rstrip())
-            if preempt_after is not None and line.startswith(
-                    f"step {preempt_after:5d} "):
-                proc.send_signal(signal.SIGTERM)
+            if preempt_after is not None and f"step {preempt_after:5d} " \
+                    in line:
+                ranks = child_pids(proc.pid, "--launcher-rank") \
+                    if torchrun else [proc.pid]
+                check(len(ranks) == 1, f"torchrun's ranks: {ranks}")
+                os.kill(ranks[0], signal.SIGTERM)
                 preempt_after = None
         proc.wait(timeout=600)
     finally:
@@ -4068,6 +4126,86 @@ def differing_leaves(a: list, b: list) -> list:
     return [i for i, (x, y) in enumerate(zip(a, b))
             if x.dtype != y.dtype or x.shape != y.shape
             or x.tobytes() != y.tobytes()]
+
+
+def launcher_verdict(got: list, want: list, what: str) -> str:
+    """``got``'s leaves against ``want``'s: bit for bit, else each leaf
+    that differs (listed) within the train-step tolerance, ``2e-3`` of its
+    largest magnitude."""
+    check(len(got) == len(want), f"{what}: {len(got)} leaves, not "
+                                 f"{len(want)}")
+    bad = differing_leaves(got, want)
+    if not bad:
+        return "bit for bit"
+    for i in bad:
+        check(got[i].dtype == want[i].dtype and
+              got[i].shape == want[i].shape, f"{what}: leaf {i}'s type "
+                                              "or shape differs")
+        x, y = got[i].astype(np.float64), want[i]
+        err = float(np.abs(x - y).max())
+        tol = 2e-3 * float(np.abs(y).max())
+        print(f"    {what} leaf {i} {y.shape}: max abs {err:.3e}")
+        check(err <= tol, f"{what}: leaf {i} off by {err} > {tol}")
+    return f"within 2e-3 of each tensor's max (leaves {bad})"
+
+
+def launcher_rank_rows(out: str) -> list:
+    """The rows of each ``[launcher rank]`` line in ``out``."""
+    return [r for line in out.splitlines() if "[launcher rank] " in line
+            for r in json.loads(line.split("[launcher rank] ", 1)[1])["rows"]]
+
+
+def launcher_spmd(a_dir: Path, arrays_a: list, n_k6: int) -> dict:
+    """(h) the launcher on one torchrun rank, preempted and restarted; (i)
+    its step-4 checkpoint resumed in this process on one device; each final
+    checkpoint against (a)'s."""
+    from repro_torch.runtime import checkpoint as ckpt
+
+    h_dir, i_dir = LAUNCH_DIR / "h", LAUNCH_DIR / "i"
+    final, half = (f"step_{LAUNCH_STEPS:08d}",
+                   f"step_{LAUNCH_STEPS // 2:08d}")
+    rc, out1, wall1 = run_launcher(h_dir, LAUNCH_PREEMPT_AFTER,
+                                   torchrun=True)
+    check(rc == 0 and "preemption requested" in out1,
+          f"launcher (h) exited {rc} without a clean preemption")
+    stopped = ckpt.latest_step(h_dir)
+    check(stopped is not None and stopped <= LAUNCH_STEPS // 2,
+          f"launcher (h) left step {stopped}, not one up to "
+          f"{LAUNCH_STEPS // 2} for (i) to resume")
+    rc, out2, wall2 = run_launcher(h_dir, torchrun=True)
+    check(rc == 0 and f"resumed from step {stopped}" in out2
+          and f"step {LAUNCH_STEPS - 1:5d} " in out2,
+          f"launcher (h) restarted exited {rc} or did not resume")
+    runs = [launcher_rank_rows(out1), launcher_rank_rows(out2)]
+    rows = runs[0] + runs[1]
+    check(len(rows) == LAUNCH_STEPS, f"launcher (h) ran {len(rows)} steps")
+    for r in rows:
+        check(r["K6"] == n_k6 and r["K6 sm90_bf16"] == n_k6,
+              f"launcher (h) step launched K6 {r}, expected {n_k6} on "
+              "sm90_bf16")
+    verdict_h = launcher_verdict(ckpt_arrays(h_dir / final), arrays_a,
+                                 "(h)")
+    for name in {f"step_{stopped:08d}", final} - {half}:
+        shutil.rmtree(h_dir / name)
+    i_dir.mkdir()
+    os.rename(h_dir / half, i_dir / half)
+    (i_dir / "LATEST").write_text(half)
+    shutil.rmtree(h_dir)
+    i = launcher_run_a(i_dir)
+    check(f"resumed from step {LAUNCH_STEPS // 2}" in i["text"],
+          "launcher (i) did not resume from (h)'s step-4 checkpoint")
+    check(k6_route_only(i["counts"], "sm90_bf16",
+                        n_k6 * (LAUNCH_STEPS - LAUNCH_STEPS // 2)),
+          f"launcher (i) launched K6 {i['counts']}")
+    verdict_i = launcher_verdict(ckpt_arrays(i_dir / final), arrays_a,
+                                 "(i)")
+    shutil.rmtree(i_dir)
+    return dict(stopped=stopped, ms=[r["ms"] for r in rows],
+                warm_ms=[r["ms"] for run in runs for r in run[1:]],
+                k6=[r["K6 sm90_bf16"] for r in rows],
+                wall_s=[wall1, wall2], resume=verdict_h,
+                i_ms=[r["ms"] for r in i["rows"]], i_wall_s=i["wall_s"],
+                i_resume=verdict_i)
 
 
 def launcher_run_a(ckpt_dir: Path) -> dict:
@@ -5055,8 +5193,10 @@ def phase_train_launcher() -> dict:
     prints ``preemption requested``, checkpoints and exits 0; (c) the same
     command again, resumed to the end; (d) its final checkpoint against
     (a)'s, bit for bit (else a second (a), and if the two uninterrupted runs
-    differ, the train-step tolerance); (e) restores and saves timed; (f)
-    gradient compression; (g) the pipeline."""
+    differ, the train-step tolerance); (h) one torchrun rank of the
+    launcher's SPMD path, preempted and restarted, against (a); (i) (h)'s
+    step-4 checkpoint resumed on one device against (a); (e) restores and
+    saves timed; (f) gradient compression; (g) the pipeline."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.runtime import checkpoint as ckpt
@@ -5113,17 +5253,27 @@ def phase_train_launcher() -> dict:
                               f"resumed one differs at leaves {bad}")
             print(f"  two uninterrupted runs differ at leaves {twin} "
                   f"({len(a2['rows'])} steps)")
-            b_arrays = ckpt_arrays(b_dir / final)
-            for i in bad:
-                x, y = b_arrays[i].astype(np.float64), arrays_a[i]
-                err = float(np.abs(x - y).max())
-                tol = 2e-3 * float(np.abs(y).max())
-                print(f"    leaf {i} {y.shape}: max abs {err:.3e}")
-                check(err <= tol, f"leaf {i} off by {err} > {tol}")
-            verdict = f"within 2e-3 of each tensor's max (leaves {bad})"
+            verdict = launcher_verdict(ckpt_arrays(b_dir / final), arrays_a,
+                                       "(d)")
         print(f"  (d) resumed run's step-{LAUNCH_STEPS} checkpoint == the "
               f"uninterrupted run's: {verdict}")
         shutil.rmtree(b_dir)
+        torch.cuda.empty_cache()
+        spmd = launcher_spmd(a_dir, arrays_a, n_k6)
+        print(f"  (h) one torchrun rank, the state as DTensors: preempted "
+              f"after step {LAUNCH_PREEMPT_AFTER}'s line, checkpoint at step "
+              f"{spmd['stopped']}, restarted to step {LAUNCH_STEPS} "
+              f"({spmd['wall_s'][0]:.2f} + {spmd['wall_s'][1]:.2f} s); steps "
+              + ", ".join(f"{ms:.1f}" for ms in spmd["ms"]) + " ms (median "
+              f"warm {np.median(spmd['warm_ms']):.1f}, the first step of "
+              f"each run cold, against (a)'s {np.median(warm):.1f}); K6 {n_k6} launches a step, all "
+              f"sm90_bf16; step-{LAUNCH_STEPS} checkpoint against (a)'s: "
+              f"{spmd['resume']}")
+        print(f"  (i) (h)'s step-{LAUNCH_STEPS // 2} checkpoint resumed on "
+              f"one device in process ({spmd['i_wall_s']:.2f} s; steps "
+              + ", ".join(f"{ms:.1f}" for ms in spmd["i_ms"]) + " ms): "
+              f"step-{LAUNCH_STEPS} checkpoint against (a)'s: "
+              f"{spmd['i_resume']}")
         io = launcher_io(a_dir, LAUNCH_DIR, arrays_a)
         del arrays_a
         print(f"  (e) restore of {io['gb']:.2f} GB: onto the CPU "
@@ -5147,7 +5297,7 @@ def phase_train_launcher() -> dict:
     return dict(step_ms=[r["ms"] for r in steps], k6_per_step=n_k6,
                 tokens_per_step=LAUNCH_TOKENS, peak_gib=a["peak_gib"],
                 wall_s=dict(a=a["wall_s"], b=wall_b, c=wall_c),
-                preempted_at=stopped, resume=verdict, io=io,
+                preempted_at=stopped, resume=verdict, spmd=spmd, io=io,
                 profile=prof, compression=comp, pipeline=pipe)
 
 def main() -> int:
@@ -5162,6 +5312,8 @@ def main() -> int:
               "a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
+    if sys.argv[1:2] == ["--launcher-rank"]:   # one rank of (h)
+        return launcher_rank(sys.argv[2:])
     from repro_torch.data.synthetic import secstr_like
 
     t_start = time.perf_counter()
@@ -5450,7 +5602,9 @@ def main() -> int:
                         ms_per_step=launcher["step_ms"],
                         tokens_per_step=launcher["tokens_per_step"],
                         peak_gib=launcher["peak_gib"],
-                        pipeline_launches=launcher["pipeline"]["k6_bf16"]),
+                        pipeline_launches=launcher["pipeline"]["k6_bf16"],
+                        spmd_launches_per_step=launcher["spmd"]["k6"],
+                        spmd_ms_per_step=launcher["spmd"]["ms"]),
                     spmd=dict(prefill_launches=spmd["prefill_k6"],
                               prefill_max_abs_err=spmd["prefill_err"],
                               prefill_bitwise=spmd["prefill_bitwise"],

@@ -419,7 +419,7 @@ def shard_like(x, src, dims: dict):
     return _Constrain.apply(x, x.device_mesh, want)
 
 
-def _own_shard(t: torch.Tensor, pl: tuple, mesh) -> torch.Tensor:
+def own_shard(t: torch.Tensor, pl: tuple, mesh) -> torch.Tensor:
     """This rank's shard of the full tensor ``t`` under the placements
     ``pl`` (even shards; the mesh dimensions split in order): a view of
     ``t``, copied only where the view is not contiguous.  A tensor the mesh
@@ -450,7 +450,7 @@ def shard_params(params, ctx: ShardCtx, expert_parallel: bool = False):
             return {k: walk(node[k], spec[k]) for k in node}
         pl = placements(spec, ctx.mesh)
         return DTensor.from_local(
-            _own_shard(node.detach(), pl, ctx.mesh), ctx.mesh, pl,
+            own_shard(node.detach(), pl, ctx.mesh), ctx.mesh, pl,
             run_check=False, shape=node.shape,
             stride=node.stride()).requires_grad_(node.requires_grad)
 

@@ -19,12 +19,27 @@ network), :func:`fake_process_group` a fake one of any size, whose
 collectives move nothing, for counting a sharded step on one process
 (``launch/dryrun.py``).  ``LocalMesh`` stays for ``pipeline_forward`` and
 the serving engine's single controller.
+
+The launcher's ranks (``launch/train.py``): one rank a device, NCCL on
+``cuda:LOCAL_RANK``, gloo on the CPU, no fallback (:func:`backend_for`,
+:func:`rank_device`).  :func:`spawn_ranks` starts N ranks with
+``torch.multiprocessing`` (``spawn``) that meet through
+:func:`file_process_group` over a store file in a fresh temporary
+directory; :func:`env_process_group` is one rank under ``torchrun``
+(``env://``).  :func:`make_local_device_mesh` is the reference's
+``make_local_mesh()`` over them: ``(world_size, 1)`` over ``("data",
+"model")``.  :func:`all_reduce_int` and :func:`broadcast_int` agree on one
+integer across the ranks (a preemption request, the step to resume).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import os
+import signal
+import tempfile
+import threading
 
 import torch
 import torch.distributed as dist
@@ -149,3 +164,130 @@ def fake_process_group(world_size: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+def backend_for(device_type: str) -> str:
+    """The process group's backend for ranks on ``device_type``: NCCL for
+    CUDA (raises where this PyTorch has none: no fallback to gloo), gloo
+    for the CPU."""
+    if device_type == "cuda":
+        if not dist.is_nccl_available():
+            raise RuntimeError("CUDA ranks need NCCL, and this PyTorch has "
+                               "no NCCL backend")
+        return "nccl"
+    if device_type == "cpu":
+        return "gloo"
+    raise ValueError(f"no rank backend for device type {device_type!r}")
+
+
+def rank_device(device_type: str, local_rank: int) -> torch.device:
+    """The device of the rank ``local_rank`` of this host: ``cuda:
+    local_rank`` (made current; raises without that card) or the CPU."""
+    if device_type != "cuda":
+        return resolve_device(device_type)
+    resolve_device("cuda")
+    if local_rank >= torch.cuda.device_count():
+        raise RuntimeError(f"rank {local_rank} of this host has no card: "
+                           f"{torch.cuda.device_count()} visible")
+    dev = torch.device("cuda", local_rank)
+    torch.cuda.set_device(dev)
+    return dev
+
+
+@contextlib.contextmanager
+def local_process_group(device_type: str, rank: int, world_size: int,
+                        store_path: str):
+    """Rank ``rank`` of ``world_size`` on this host, rendezvous through the
+    store file at ``store_path``: the default process group for the block
+    (destroyed on exit); yields the rank's device."""
+    dev = rank_device(device_type, rank)
+    with file_process_group(backend_for(device_type), rank, world_size,
+                            store_path,
+                            device=dev if dev.type == "cuda" else None):
+        yield dev
+
+
+@contextlib.contextmanager
+def env_process_group(device_type: str):
+    """This process as one rank of a ``torchrun`` launch (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``PORT`` from its
+    environment, ``env://``): the default process group for the block
+    (destroyed on exit); yields the rank's device."""
+    dev = rank_device(device_type, int(os.environ.get("LOCAL_RANK", 0)))
+    kw = {"device_id": dev} if dev.type == "cuda" else {}
+    dist.init_process_group(backend_for(device_type), init_method="env://",
+                            **kw)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, nprocs: int, *args) -> None:
+    """Run ``fn(rank, nprocs, store_path, *args)`` in ``nprocs`` spawned
+    processes (``fn`` and ``args`` picklable; ``store_path`` a new file
+    in a fresh temporary directory, for :func:`local_process_group`).
+    Returns when every rank has exited 0.  If one fails, the others are
+    killed and its traceback is raised here
+    (``torch.multiprocessing.ProcessRaisedException``).  A SIGTERM to this
+    process is passed on to every rank while they run."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            fn, args=(nprocs, os.path.join(tmp, "store"), *args),
+            nprocs=nprocs, start_method="spawn", join=False)
+        with _forwarded(signal.SIGTERM, ctx.pids()):
+            while not ctx.join(grace_period=0):
+                pass
+
+
+@contextlib.contextmanager
+def _forwarded(signum, pids):
+    """``signum`` sent to this process is sent on to ``pids`` for the
+    block (where it can be: a handler needs the main thread)."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def forward(*_):
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signum)
+
+    prev = signal.signal(signum, forward)
+    try:
+        yield
+    finally:
+        signal.signal(signum, prev)
+
+
+def make_local_device_mesh(device_type: str):
+    """The reference's ``make_local_mesh()`` as a ``DeviceMesh``: every
+    rank of the default process group along ``"data"``, ``"model"`` of
+    size 1."""
+    return device_mesh((dist.get_world_size(), 1), ("data", "model"),
+                       device_type)
+
+
+def _int_tensor(value: int) -> torch.Tensor:
+    """``value`` on the device the default group's backend reduces on."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    return torch.tensor([int(value)], dtype=torch.int64, device=dev)
+
+
+def all_reduce_int(value: int, op=dist.ReduceOp.MAX) -> int:
+    """``value`` reduced over every rank of the default group by ``op``
+    (every rank calls it)."""
+    t = _int_tensor(value)
+    dist.all_reduce(t, op=op)
+    return int(t.item())
+
+
+def broadcast_int(value: int, src: int = 0) -> int:
+    """Rank ``src``'s ``value`` on every rank of the default group (every
+    rank calls it)."""
+    t = _int_tensor(value)
+    dist.broadcast(t, src=src)
+    return int(t.item())

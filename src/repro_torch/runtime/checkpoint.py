@@ -21,9 +21,20 @@ on-disk format::
   leaf in its place; :func:`config_fingerprint` hashes a configuration as
   the reference does.
 * **Elastic**: the stored arrays are whole.  :func:`restore` places each
-  leaf on the device of the matching leaf of ``like``, or on ``device``:
-  the port's form of the reference's ``shardings``.  So a checkpoint moves between the CPU and
-  the card, and between device lists of any length.
+  leaf on the device of the matching leaf of ``like``, or on ``device``;
+  where ``like``'s leaf is a DTensor, the result is a DTensor of its mesh
+  and placements, each rank keeping its own shard of the stored array: the
+  port's form of the reference's ``shardings``.  So a checkpoint moves
+  between the CPU and the card, between device lists of any length, and
+  between any numbers of ranks.
+* **Sharded state**: under a ``torch.distributed`` process group,
+  :func:`save` and :func:`save_async` are collectives that every rank calls
+  with its own shards of the same tree.  Each DTensor leaf is gathered whole
+  (``full_tensor()``, in ``_tree.flatten``'s leaf order, the same on every
+  rank); only rank 0 of the default group writes (in ``save_async``, in its
+  background thread); ``save`` returns on every rank once rank 0's write
+  has ended, and raises on every rank if it failed.  Without a process
+  group nothing of this runs.
 
 A failed background write is raised by the next ``save_async`` or by
 ``wait_for_saves`` (the reference's thread would only print it).
@@ -43,8 +54,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch._device import resolve_device
+from repro_torch._device import is_dtensor, resolve_device
 from repro_torch._tree import flatten, unflatten
 
 __all__ = ["save", "save_async", "restore", "latest_step", "config_fingerprint"]
@@ -75,10 +87,54 @@ def _host_copy(leaf):
     return np.array(leaf)
 
 
-def save(ckpt_dir: str | Path, step: int, tree: Any,
-         fingerprint: str = "") -> Path:
-    """Synchronous atomic checkpoint write."""
-    ckpt_dir = Path(ckpt_dir)
+def _sharded() -> bool:
+    """Whether this process is one rank of a ``torch.distributed`` group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def _gathered(leaves: list, to_host) -> list:
+    """``to_host`` of each leaf's whole value on the writing rank (rank 0
+    of the default group, or the only process), ``[]`` on every other: a
+    DTensor leaf is gathered first, a collective every rank joins in this
+    order, one leaf at a time."""
+    writer = not _sharded() or dist.get_rank() == 0
+    host = []
+    for leaf in leaves:
+        if is_dtensor(leaf):
+            leaf = leaf.detach().full_tensor()
+        if writer:
+            host.append(to_host(leaf))
+    return host
+
+
+def save(ckpt_dir: str | Path, step: int, tree: Any, fingerprint: str = "",
+         _collective: bool = True) -> Path:
+    """Synchronous atomic checkpoint write.  Under a process group (and
+    ``_collective``, which only ``save_async``'s writer thread turns off on
+    its host snapshot) every rank calls it: rank 0 writes, and every rank
+    returns once the checkpoint exists or raises if the write failed."""
+    leaves, treedef = flatten(tree)
+    if not (_collective and _sharded()):
+        return _write(Path(ckpt_dir), step, treedef,
+                      [_host_array(leaf) for leaf in leaves], fingerprint)
+    from repro_torch.launch.mesh import all_reduce_int
+
+    host, error = _gathered(leaves, _host_array), None
+    if dist.get_rank() == 0:
+        try:
+            _write(Path(ckpt_dir), step, treedef, host, fingerprint)
+        except Exception as e:  # every rank must hear of it, then raise
+            error = e
+    del host
+    if not all_reduce_int(error is None, dist.ReduceOp.MIN):
+        raise RuntimeError(f"checkpoint step {step}: rank 0's write "
+                           "failed") from error
+    return Path(ckpt_dir) / f"step_{step:08d}"
+
+
+def _write(ckpt_dir: Path, step: int, treedef, host: list,
+           fingerprint: str) -> Path:
+    """Write the host arrays ``host`` as ``step``'s checkpoint, atomically."""
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / (f"step_{step:08d}.tmp-{os.getpid()}"
@@ -86,9 +142,6 @@ def save(ckpt_dir: str | Path, step: int, tree: Any,
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-
-    leaves, treedef = flatten(tree)
-    host = [_host_array(leaf) for leaf in leaves]
     np.savez(tmp / "arrays.npz", **{str(i): a for i, a in enumerate(host)})
     manifest = {
         "step": step,
@@ -119,13 +172,19 @@ class _AsyncSaver:
         self._lock = threading.Lock()
 
     def submit(self, ckpt_dir, step, tree, fingerprint=""):
-        # snapshot to host synchronously (cheap vs serialization)
+        # snapshot to host synchronously (cheap vs serialization); sharded
+        # leaves are gathered by every rank, and only the writer (rank 0)
+        # keeps a snapshot and starts a thread
         leaves, treedef = flatten(tree)
-        snapshot = unflatten(treedef, [_host_copy(leaf) for leaf in leaves])
+        host = _gathered(leaves, _host_copy)
+        if _sharded() and dist.get_rank() != 0:
+            return
+        snapshot = unflatten(treedef, host)
 
         def work():
             try:
-                save(ckpt_dir, step, snapshot, fingerprint)
+                save(ckpt_dir, step, snapshot, fingerprint,
+                     _collective=False)
             except Exception as e:  # raised again by the caller's next wait
                 self._error = e
 
@@ -151,10 +210,15 @@ _SAVER = _AsyncSaver()
 
 
 def save_async(ckpt_dir, step, tree, fingerprint=""):
+    """Snapshot ``tree`` to host memory, then write it in the background.
+    Under a process group every rank calls it (the snapshot gathers
+    DTensor leaves); rank 0 writes."""
     _SAVER.submit(ckpt_dir, step, tree, fingerprint)
 
 
 def wait_for_saves():
+    """Wait for this process's background write, raising its failure (on
+    the ranks of a group only rank 0 has one)."""
     _SAVER.wait()
 
 
@@ -175,7 +239,11 @@ def restore(ckpt_dir: str | Path, like: Any, step: Optional[int] = None,
     Each leaf is a tensor of the stored dtype, on ``device`` if given, else
     on the device of the matching leaf of ``like`` (the CPU for a leaf that
     is not a tensor): the stored global arrays are placed onto the
-    *current* devices regardless of those they were saved from.
+    *current* devices regardless of those they were saved from.  Where
+    ``like``'s leaf is a DTensor, the leaf is a DTensor on its mesh with
+    its placements, whose local tensor is this rank's shard of the stored
+    array (``device`` does not apply; no collective: every rank reads the
+    file).
     """
     ckpt_dir = Path(ckpt_dir)
     if step is None:
@@ -203,5 +271,25 @@ def restore(ckpt_dir: str | Path, like: Any, step: Optional[int] = None,
             a = data[str(i)]
             if tuple(a.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {i}: shape {a.shape} != {ref.shape}")
-            out.append(torch.from_numpy(a).to(dev))
+            t = torch.from_numpy(a)
+            out.append(_shard_like(t, ref, i) if is_dtensor(ref)
+                       else t.to(dev))
     return unflatten(treedef, out), step
+
+
+def _shard_like(whole: torch.Tensor, like, i: int):
+    """The stored array ``whole`` laid out as the DTensor ``like``: this
+    rank's shard of it, on ``like``'s device."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import own_shard
+
+    pl = tuple(like.placements)
+    if any(p.is_partial() for p in pl):
+        raise ValueError(f"leaf {i}: cannot restore onto a Partial DTensor")
+    local = own_shard(whole, pl, like.device_mesh).to(like.device)
+    if tuple(local.shape) != tuple(like.to_local().shape):
+        raise ValueError(f"leaf {i}: shard {tuple(local.shape)} != "
+                         f"{tuple(like.to_local().shape)} (uneven shards)")
+    return DTensor.from_local(local, like.device_mesh, pl, run_check=False,
+                              shape=whole.shape, stride=whole.stride())

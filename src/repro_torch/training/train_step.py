@@ -16,7 +16,11 @@ The cross-entropy of vocabulary-sharded logits (``"btv"``) is an explicit
 reduction in DTensor ops (``_ce_sharded``): each rank's log-sum-exp over
 its vocabulary shard, the max and the sums reduced across shards, the
 label's logit picked against a sharded vocabulary index, so the (B, S, V)
-logits are never gathered.  (``torch.distributed.tensor.parallel.
+logits are never gathered.  Where every rank holds the whole vocabulary
+(the launcher's ``(n, 1)`` data-parallel mesh, and one rank), each rank
+takes the plain cross-entropy of its own rows instead (``_ce_rows``), a
+``Partial`` sum over the data axes reduced explicitly: on one rank the
+step is then the plain step bit for bit.  (``torch.distributed.tensor.parallel.
 loss_parallel()`` takes a 1-D mesh only in the PyTorch the card runs.)
 Its sums over the vocabulary shards are reduced by an explicit
 redistribution before the ``log``: PyTorch 2.11 differentiates the
@@ -62,17 +66,64 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
     as in the reference, positions past the last whole chunk are not
     scored, and the sum is divided by B S."""
     if is_dtensor(logits):
+        if _vocab_whole(logits, chunked):
+            return _ce_rows(logits, labels, chunked)
         return _ce_sharded(logits, labels, chunked)
     if chunked:
         b, s, _ = logits.shape
-        tot = torch.zeros((), dtype=torch.float32, device=logits.device)
-        for i in range(s // chunked):
-            sl = slice(i * chunked, (i + 1) * chunked)
-            ls = torch.log_softmax(logits[:, sl].to(torch.float32), dim=-1)
-            tot = tot - ls.gather(-1, labels[:, sl, None]).sum()
-        return tot / (b * s)
+        return _ce_sum(logits, labels, chunked) / (b * s)
     ls = torch.log_softmax(logits.to(torch.float32), dim=-1)
     return -ls.gather(-1, labels[..., None]).mean()
+
+
+def _ce_sum(logits: torch.Tensor, labels: torch.Tensor,
+            chunked: int) -> torch.Tensor:
+    """The summed cross-entropy of the positions :func:`_ce` scores, of
+    plain tensors."""
+    if not chunked:
+        ls = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        return -ls.gather(-1, labels[..., None]).sum()
+    tot = torch.zeros((), dtype=torch.float32, device=logits.device)
+    for i in range(logits.shape[1] // chunked):
+        sl = slice(i * chunked, (i + 1) * chunked)
+        ls = torch.log_softmax(logits[:, sl].to(torch.float32), dim=-1)
+        tot = tot - ls.gather(-1, labels[:, sl, None]).sum()
+    return tot
+
+
+def _vocab_whole(logits, chunked: int) -> bool:
+    """Whether each rank holds the whole vocabulary of its rows of the
+    DTensor ``logits`` (no mesh dimension of more than one rank splits
+    it, none holds a ``Partial`` sum), and, with ``chunked``, its whole
+    sequence too (the chunks are the sequence's)."""
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    split = {last, 1} if chunked else {last}
+    return not any(p.is_partial() or (p.is_shard() and p.dim in split
+                                      and mesh.size(i) > 1)
+                   for i, p in enumerate(logits.placements))
+
+
+def _ce_rows(logits, labels, chunked: int):
+    """:func:`_ce` of DTensor logits whose vocabulary each rank holds
+    whole: each rank's summed cross-entropy of its own rows (the labels
+    laid out as the logits' rows), a ``Partial`` sum over the mesh
+    dimensions that split the rows, reduced by an explicit redistribution
+    and divided by B S."""
+    from torch.distributed.tensor import (Partial, Replicate,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import local_map
+
+    b, s, _ = logits.shape
+    mesh = logits.device_mesh
+    splits = [p.is_shard() and p.dim < 2 for p in logits.placements]
+    rows = [p if cut else Replicate()
+            for p, cut in zip(logits.placements, splits)]
+    labels = labels.redistribute(mesh, rows) if is_dtensor(labels) else \
+        distribute_tensor(labels, mesh, rows, src_data_rank=None)
+    tot = local_map(lambda x, y: _ce_sum(x, y, chunked),
+                    out_placements=[Partial() if cut else Replicate()
+                                    for cut in splits])(logits, labels)
+    return (tot / (b * s)).redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def _ce_sharded(logits, labels, chunked: int):

@@ -1821,3 +1821,28 @@ def test_cuda_host_gloo_mesh_matches_plain_tensors(case, gloo_mesh_run):
             1e-6 * max(1.0, scale)
         np.testing.assert_allclose(res[f"spmd/{name}"], want, rtol=1e-5,
                                    atol=atol, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_cuda_host_gloo_launcher_matches_one_rank(tmp_path):
+    """The training launcher on four gloo CPU ranks in the card machine's
+    PyTorch (DTensor's rules differ by version), against its own one-rank
+    run, as ``tests/test_torch_launch_multi.py`` holds them on the CPU
+    host: smollm-360m ``SMOKE`` in float32, 4 steps, a checkpoint every 2;
+    each step's loss and both checkpoints' leaves at that file's
+    tolerance (``rtol=1e-5``, ``atol`` 1e-6 of each tensor's largest
+    magnitude, a parameter's at least 1e-3 of the summed learning
+    rates)."""
+    _card()
+    from test_torch_launch_multi import Run, _arrays, _assert_spmd_close, \
+        _port
+
+    four = Run(_port(tmp_path / "r4", 4), tmp_path / "r4")
+    one = Run(_port(tmp_path / "r1", 1), tmp_path / "r1")
+    four.wait(), one.wait()
+    assert four.out.count("done: loss") == one.out.count("done: loss") == 1
+    np.testing.assert_allclose(four.losses, one.losses, rtol=1e-5, atol=0)
+    for steps in (2, 4):
+        name = f"step_{steps:08d}"
+        _assert_spmd_close(_arrays(four.dir / name), _arrays(one.dir / name),
+                           steps)

@@ -9,6 +9,12 @@ gradient compression (``distributed/compression.py``).
   and the watchdog; the bf16 and int8 bounds and int8's unbiasedness;
 - the host snapshot: ``save_async`` copies a CPU leaf before it returns, so
   an in-place write after it does not reach the file;
+- a DTensor tree on gloo ranks (``tests/_ckpt_worker.py``: ``Shard(0)``,
+  ``Shard(1)``, ``Replicate``, int32, 0-dim and 2-D-mesh leaves): ``save``
+  and ``save_async`` on 8 ranks write the whole arrays bit for bit, rank 0
+  alone; the reference's 8 -> 4 -> 8 elastic case (and 8 -> 2) restores
+  DTensors with ``like``'s placements, each rank's local tensor its slice
+  of the stored array bit for bit;
 - interchange: smollm-360m ``SMOKE``'s train state saved by either package
   restores in the other with every leaf in its place, bit for bit (both
   number leaves in JAX's order);
@@ -189,6 +195,66 @@ def test_elastic_restore_across_device_counts(tmp_path, shards):
     parts = load_sh.scatter(restored["w"])
     assert step == 1 and len(parts) == n_load
     assert torch.equal(load_sh.gather(parts, "cpu"), w)
+
+
+@pytest.fixture(scope="module")
+def dtensor_ckpt(tmp_path_factory):
+    """``tests/_ckpt_worker.py``'s four phases of spawned gloo ranks."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = tmp_path_factory.mktemp("dtensor_ckpt")
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, str(root / "tests" / "_ckpt_worker.py"), str(out)],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, OMP_NUM_THREADS="1",
+                 PYTHONPATH=str(root / "src")))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return out
+
+
+def _ranks(out, phase: str) -> list:
+    import json
+
+    return [json.loads(p.read_text()) for p in
+            sorted(out.glob(f"{phase}_rank*.json"),
+                   key=lambda p: int(p.stem.rsplit("rank", 1)[1]))]
+
+
+def test_sharded_save_writes_whole_arrays_from_rank_zero_alone(dtensor_ckpt):
+    from _ckpt_worker import whole
+
+    want = [np.asarray(v) for v in flatten(whole())[0]]
+    for name in ("save8", "async8", "save4"):
+        d = dtensor_ckpt / name
+        assert sorted(p.name for p in d.iterdir()) == ["LATEST",
+                                                       "step_00000002"]
+        with np.load(d / "step_00000002" / "arrays.npz") as data:
+            got = [data[str(i)] for i in range(len(data.files))]
+        assert len(got) == len(want) == 7
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    # rank 0 wrote save8 and async8, and (of 4) save4; no other rank wrote
+    assert [r["savez"] for r in _ranks(dtensor_ckpt, "p8")] == [2] + [0] * 7
+    assert [r["savez"] for r in _ranks(dtensor_ckpt, "p4")] == [1] + [0] * 3
+
+
+@pytest.mark.parametrize("phase,n", [("p4", 4), ("p8b", 8), ("p2", 2)])
+def test_sharded_restore_onto_other_rank_counts(dtensor_ckpt, phase, n):
+    ranks = _ranks(dtensor_ckpt, phase)
+    assert len(ranks) == n
+    for rank, r in enumerate(ranks):
+        assert r["savez"] == 0 or (phase == "p4" and rank == 0)
+        assert len(r["leaves"]) == r["n_leaves"] == 7
+        for k, leaf in r["leaves"].items():
+            assert leaf["dtensor"] == (k != "step"), (rank, k)
+            assert leaf["placements"] == leaf["like_placements"], (rank, k)
+            assert leaf["shape"] == leaf["like_shape"], (rank, k)
+            assert leaf["equal"], (rank, k)
 
 
 # ------------------------------------------------------------- preemption
