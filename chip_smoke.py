@@ -246,7 +246,8 @@ Phases (any failure exits non-zero):
    resumed by the one-device launcher in this process to step 8, against
    (a)'s as (h)'s;
 20. ``[dryrun]``: the dry-run tooling (``launch/dryrun.py``): (a) ``python -m
-   repro_torch.launch.dryrun --all --force`` in a subprocess, every cell of
+   repro_torch.launch.dryrun --all --force`` in a subprocess started before
+   the LM phases (it needs no card, and runs beside them), every cell of
    10 architectures x 4 shapes on the single-pod mesh and the paper cell
    counted on ``meta`` tensors at full size (34 ok, 7 skipped, 0 errors);
    (b) meanwhile, each cell's count on meta at its card batch, and K6 held
@@ -293,8 +294,12 @@ Phases (any failure exits non-zero):
    a fake process group of 2 x 2 ranks, each counted per device
    (``count_sharded``) with CUDA shards and with meta shards: FLOPs, bytes
    and every collective record equal.  mixtral-8x7b (47 B parameters) is
-   counted on meta only, by the dry run, and held on the CPU by the tests.
-   The phase's wall time on its own line.
+   counted on meta only, by the dry run, and held on the CPU by the tests;
+   (c) gemma3-1b's SMOKE float32 train step at B 16 x S 256 with heads of
+   64 (``SPMD_SMOKE_STEP``: K6 by query heads, 4 over the model axis, the
+   one kv head whole) on the fake 2 x 2 group, CUDA shards == meta shards,
+   its collective bytes printed by kind.  The phase's wall time on its own
+   line.
 
 Each path runs with every launch counter set to 0 just before and read just
 after; K1-K4 count their launches by route too, and every one of them must
@@ -458,6 +463,10 @@ SPMD_TRAIN = (2, 2_048)
 SPMD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-4)
 SPMD_F32_RTOL, SPMD_BF16_TOL = 1e-5, 1e-2
 SPMD_FAKE_MESH = (2, 2)
+# (c): gemma3-1b's SMOKE float32 train step at B 16 x S 256 on the fake
+# group, with heads of 64 (K6's widths; SMOKE's are 16): 4 query heads
+# over the model axis, its 1 kv head whole (K6 by query heads)
+SPMD_SMOKE_STEP = ("gemma3-1b", 16, 256, 64)
 # (b)'s cells: (arch, shape, batch, layers; None = all, the dry run's
 # context switches beside its own): smollm-360m's three kinds, then one
 # cell of each family sharded since (deepseek-moe-16b's depth cut to 4
@@ -507,6 +516,10 @@ SPMD_ENCDEC = (("internvl2-1b", 24, LM_PROMPT, SPMD_TRAIN[1]),
 # bfloat16 carriers at test_torch_distributed.py's bfloat16 tolerance;
 # SPMD_PAPER_REPS steps of each timed
 SPMD_PAPER_BF16_TOL, SPMD_PAPER_REPS = 5e-2, 10
+
+
+# subprocesses started in the background, stopped at exit if still running
+STARTED: list = []
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4465,18 +4478,22 @@ def launcher_pipeline(params) -> dict:
 
 def dryrun_grid_start():
     """``python -m repro_torch.launch.dryrun --all --force`` (every cell
-    counted on meta tensors, no card) as a subprocess."""
-    return subprocess.Popen(
+    counted on meta tensors, no card) as a subprocess, its start time as
+    ``t0``; ``main`` kills it if the run ends before it has."""
+    proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
          "--force"], cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True,
         env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    proc.t0 = time.perf_counter()
+    STARTED.append(proc)
+    return proc
 
 
-def dryrun_grid_finish(proc, t0: float) -> dict:
+def dryrun_grid_finish(proc) -> dict:
     """Wait for the grid; its cells' statuses must be ``DRYRUN_GRID``."""
-    out, _ = proc.communicate(timeout=600)
-    wall = time.perf_counter() - t0
+    out, _ = proc.communicate(timeout=900)
+    wall = time.perf_counter() - proc.t0
     lines = out.splitlines()
     status = [ln.split("]")[0].strip("[ ") for ln in lines
               if ln.startswith("[")]
@@ -4650,8 +4667,9 @@ def dryrun_k6_shapes() -> list:
     return cases
 
 
-def phase_dryrun() -> dict:
-    """[dryrun]: (a) the whole grid counted on meta in a subprocess; (b)
+def phase_dryrun(grid=None) -> dict:
+    """[dryrun]: (a) the whole grid counted on meta in a subprocess (``grid``,
+    started earlier so that it overlaps the phases before, else here); (b)
     meanwhile, the cells' meta counts and K6 against its plain version at
     the cells' attention shapes (launches of milliseconds each, timed on the
     device); (c) once the grid has ended, each ``DRYRUN_CELLS`` cell and the
@@ -4662,11 +4680,11 @@ def phase_dryrun() -> dict:
           "cells' meta counts and K6 at their shapes; (c) then the cells on "
           "the card at a batch it holds, each against its meta count")
     t0 = time.perf_counter()
-    grid = dryrun_grid_start()
+    grid = dryrun_grid_start() if grid is None else grid
     try:
         meta_work = dryrun_meta_counts()
         k6 = phase_k6_timing(dryrun_k6_shapes())
-        result = dict(grid=dryrun_grid_finish(grid, t0))
+        result = dict(grid=dryrun_grid_finish(grid))
     finally:
         if grid.poll() is None:
             grid.kill()
@@ -5095,10 +5113,59 @@ def spmd_fake_count(arch: str, shape_name: str, batch: int, layers,
     return work, time.perf_counter() - t0, ctx
 
 
+def spmd_smoke_step_count(device: str):
+    """(c): ``SPMD_SMOKE_STEP``'s sharded train step (AdamW) counted per
+    device on a fake group of ``SPMD_FAKE_MESH`` ranks, its shards on
+    ``device`` (tokens seeded on the card); returns ``(work, host s)``."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.distributed.sharding import (ShardCtx, placements,
+                                                  shard_params, use_ctx)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    arch, b, s, hd = SPMD_SMOKE_STEP
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              head_dim=hd)
+    mesh = device_mesh(SPMD_FAKE_MESH, ("data", "model"), "cuda")
+    ctx = ShardCtx(mesh=mesh)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    state = init_train_state(shard_params(init_lm(cfg, 0, device=device),
+                                          ctx), opt)
+    if device == "meta":
+        tokens = torch.empty((b, s + 1), dtype=torch.int64, device="meta")
+    else:
+        tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), device=device,
+                               generator=torch.Generator(device)
+                               .manual_seed(0))
+    tokens = distribute_tensor(tokens, mesh, placements(("data", None), mesh),
+                               src_data_rank=None)
+    step = make_train_step(cfg, opt)
+
+    def fn(state, tokens):
+        with use_ctx(ctx):
+            return step(state, {"tokens": tokens})
+
+    t0 = time.perf_counter()
+    work = dryrun.count_sharded(fn, state, tokens)
+    if device != "meta":
+        torch.cuda.synchronize()
+    return work, time.perf_counter() - t0
+
+
 def phase_spmd() -> dict:
     """[spmd]: (a) the one-rank NCCL mesh against plain tensors: the
     paper's LP step, smollm-360m, ``SPMD_FAMILIES`` and ``SPMD_ENCDEC``;
-    (b) the dry run's sharded cells on a fake 2 x 2 group, card == meta."""
+    (b) the dry run's sharded cells on a fake 2 x 2 group, card == meta;
+    (c) ``SPMD_SMOKE_STEP`` on the fake group, card == meta, its
+    collective bytes by kind."""
     import tempfile
 
     import torch
@@ -5180,6 +5247,33 @@ def phase_spmd() -> dict:
                     attn_seq_shard=ctx.attn_seq_shard, k6_launches=k6["K6"])))
             del card, meta
             torch.cuda.empty_cache()
+        reset_counts()
+        card, card_s = spmd_smoke_step_count("cuda")
+        k6 = read_counts()
+        meta, meta_s = spmd_smoke_step_count("meta")
+        coll = collective_bytes(card.collectives)
+        arch, b, s, hd = SPMD_SMOKE_STEP
+        cell = f"{arch} SMOKE train {b}x{s} (heads of {hd})"
+        print(f"  (c) {cell}, fake group {SPMD_FAKE_MESH}: collective bytes "
+              "per device by kind on the card " + ", ".join(
+                  f"{k} {v:,}" for k, v in coll.items())
+              + f" ({card_s:.2f} s host); K6 launches {k6['K6']}; on meta "
+              f"{collective_bytes(meta.collectives)['total']:,} bytes "
+              f"({meta_s:.2f} s host)")
+        check((card.flops, card.bytes, card.collectives)
+              == (meta.flops, meta.bytes, meta.collectives),
+              f"[spmd] {cell}: the fake group's count on the card differs "
+              f"from meta: collectives {coll} vs "
+              f"{collective_bytes(meta.collectives)}")
+        check(k6["K6"] > 0 and coll["all-reduce"] > 0
+              and coll["all-to-all"] == 0,
+              f"[spmd] {cell}: K6 launches {k6['K6']}, collectives {coll}")
+        cells[cell] = dict(batch=b, seq=s, collectives=coll,
+                           flops_per_device=card.flops,
+                           bytes_per_device=card.bytes, k6_launches=k6["K6"],
+                           card_count_s=card_s, meta_count_s=meta_s)
+        del card, meta
+        torch.cuda.empty_cache()
     out.update(fake_mesh=list(SPMD_FAKE_MESH), fake_cells=cells)
     out["wall_s"] = time.perf_counter() - t0
     print(f"[spmd] phase wall {out['wall_s']:.1f} s")
@@ -5401,6 +5495,8 @@ def main() -> int:
     del divs, data
 
     k6_small_err = phase_k6_small()
+    # the dry run's grid needs no card: it runs beside the LM phases
+    grid = dryrun_grid_start()
     lm = phase_lm_serve()
     lm_counts = lm["counts"]
     lm_f32_err, f32_counts = phase_lm_f32(lm.pop("params"))
@@ -5429,7 +5525,7 @@ def main() -> int:
     print(f"[train] summary {json.dumps(train)}")
     launcher = phase_train_launcher()
     print(f"[train launcher] summary {json.dumps(launcher)}")
-    dry = phase_dryrun()
+    dry = phase_dryrun(grid)
     print(f"[dryrun] summary {json.dumps(dry)}")
     spmd = phase_spmd()
     print(f"[spmd] summary {json.dumps(spmd)}")
@@ -5649,4 +5745,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for proc in STARTED:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()

@@ -50,7 +50,14 @@ is sharded on both, which DTensor refuses in some PyTorch versions.  With
 ``attn_seq_shard`` the attention's query sequence goes over ``model`` when
 the heads do not divide it (:func:`attn_stripe_dim`, the reference's
 ``shard_attn_logits`` rule), as K6's query stripes
-(``kernels/flash_attention/ops.py::flash_attention_striped``).
+(``kernels/flash_attention/ops.py::flash_attention_striped``); where the
+query heads divide it and the kv heads do not, K6 runs by query heads
+(:func:`attn_heads_dim`), with or without ``attn_seq_shard``.
+
+Collectives held to the reference's: a weight reaches its product through
+:func:`product_weight` (its FSDP shards gathered once, by a constraint
+the product saves), and :func:`redistribute` reduces ``Partial`` sums over
+several mesh dimensions in one all-reduce over them flattened.
 """
 from __future__ import annotations
 
@@ -302,6 +309,81 @@ def shard_act(x: torch.Tensor, kind: str, lead: int = 0) -> torch.Tensor:
                          seq=kind == "btd" and ctx.seq_shard and not lead)
 
 
+def product_weight(w: torch.Tensor, dtype) -> torch.Tensor:
+    """A parameter ``w`` cast to ``dtype`` for a product.  Of a DTensor
+    that takes a gradient under a ``DeviceMesh`` context, its FSDP shards
+    (a dimension sharded over the data axes) are all-gathered here by an
+    explicit constraint, whose gradient reduce-scatters them back: the
+    product then saves the gathered weight, so that its backward does not
+    gather it again, as GSPMD's does not (under ``remat`` the recompute
+    gathers it once more, as ``jax.checkpoint``'s does).  Without a
+    gradient (serving) DTensor's own product decides, which for a few
+    tokens moves the activation rather than the weight.  Anything else is
+    only cast."""
+    w = w.to(dtype)
+    ctx = current_ctx()
+    if ctx is None or not (ctx.spmd and is_dtensor(w) and w.requires_grad
+                           and torch.is_grad_enabled()):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = mesh_axis_names(w.device_mesh)
+    pl = tuple(w.placements)
+    want = tuple(Replicate() if names[i] in ctx.dp and p.is_shard() else p
+                 for i, p in enumerate(pl))
+    if want == pl:
+        return w
+    return _Constrain.apply(w, w.device_mesh, want, pl)
+
+
+class _ReduceFlat(torch.autograd.Function):
+    """A DTensor's ``Partial`` sums over the mesh dimensions ``dims``
+    reduced by one all-reduce over those dimensions flattened into one
+    group, where DTensor runs one all-reduce a dimension; its gradient, as
+    a redistribution's to ``Replicate``, is the output's."""
+
+    @staticmethod
+    def forward(ctx, t, dims):
+        import torch.distributed._functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = t.device_mesh
+        names = mesh_axis_names(mesh)
+        # (flattened once, when launch/mesh.py's device_mesh made the mesh)
+        group = (mesh if len(dims) == mesh.ndim else
+                 mesh[tuple(names[i] for i in dims)])._flatten()
+        local = funcol.wait_tensor(funcol.all_reduce(t.to_local(), "sum",
+                                                     group))
+        return DTensor.from_local(
+            local, mesh, [Replicate() if i in dims else p
+                          for i, p in enumerate(t.placements)],
+            run_check=False, shape=t.shape, stride=t.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def redistribute(t: torch.Tensor, want) -> torch.Tensor:
+    """``t.redistribute(t.device_mesh, want)`` of a DTensor, where the
+    ``Partial`` sums that ``want`` replicates over more than one mesh
+    dimension (a loss, a norm, the gradient of a replicated weight) are
+    reduced by one all-reduce over those dimensions together
+    (:class:`_ReduceFlat`).  Anything but a DTensor is returned as it
+    is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    want = tuple(want)
+    dims = tuple(i for i, (p, q) in enumerate(zip(t.placements, want))
+                 if p.is_partial() and q == Replicate())
+    if len(dims) > 1:
+        t = _ReduceFlat.apply(t, dims)
+    return t if tuple(t.placements) == want else \
+        t.redistribute(t.device_mesh, want)
+
+
 def gather_seq(x: torch.Tensor) -> torch.Tensor:
     """A DTensor activation (B, S, ...) whose sequence is sharded (Megatron's
     sequence parallelism: ``"btd"`` under ``seq_shard``, or a query
@@ -318,20 +400,39 @@ def gather_seq(x: torch.Tensor) -> torch.Tensor:
         Replicate() if p.is_shard(1) else p for p in pl), pl)
 
 
+def attn_heads_dim(n_heads: int, n_kv_heads: int) -> Optional[int]:
+    """The mesh dimension over which self-attention runs as K6's query
+    heads (``kernels/flash_attention/ops.py::flash_attention_query_heads``)
+    under the active context, or None: on a ``DeviceMesh`` whose ``model``
+    axis divides the query heads but not the kv heads, as the reference
+    shards the query heads there and keeps each rank's kv head whole, when
+    each rank's query heads read one kv head (``query_heads_kv``).  Where
+    both divide, K6's own rule shards the heads."""
+    ctx = current_ctx()
+    if ctx is None or not ctx.spmd:
+        return None
+    from repro_torch.kernels.flash_attention.ops import query_heads_kv
+
+    if query_heads_kv(n_heads, n_kv_heads, ctx.tp_size, 0) is None:
+        return None
+    return mesh_axis_names(ctx.mesh).index(ctx.tp)
+
+
 def attn_stripe_dim(n_heads: int, n_kv_heads: int) -> Optional[int]:
     """The mesh dimension over which self-attention runs as K6's query
     stripes under the active context, or None: with ``attn_seq_shard`` on
     a ``DeviceMesh``, when the ``model`` axis does not divide the query
     heads (the reference's ``shard_attn_logits``: its (B, H, Sq, Sk)
     scores' query sequence over ``model``), and also when it divides the
-    query heads but not the kv heads (the reference shards its scores'
-    query heads there; K6's heads rule needs both to divide, so the port
-    takes the stripe: the same values, another program)."""
+    query heads but not the kv heads and no :func:`attn_heads_dim` layout
+    keeps each rank's query heads on one kv head (the reference shards its
+    scores' query heads there: the same values, another program)."""
     ctx = current_ctx()
     if ctx is None or not ctx.attn_seq_shard or not ctx.spmd:
         return None
     tp = ctx.tp_size
-    if n_heads % tp == 0 and n_kv_heads % tp == 0:
+    if n_heads % tp == 0 and (n_kv_heads % tp == 0 or attn_heads_dim(
+            n_heads, n_kv_heads) is not None):
         return None
     return mesh_axis_names(ctx.mesh).index(ctx.tp)
 

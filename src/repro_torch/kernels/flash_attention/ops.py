@@ -49,13 +49,19 @@ each rank's ``row_base`` its stripe's first row (``torch.chunk``'s split,
 DTensor's).  ``register_sharding`` cannot give a rank its own offset, so
 the stripe is no strategy of the rule: it runs its shards directly, and
 its backward gives dq for the stripe's rows and dk, dv as a ``Partial``
-sum over the stripes, reduced to k's and v's placements.  A stripe's FLOP
-formula counts the busiest stripe of its width (the last when causal),
-whatever its ``row_base``: a dry run counts one rank's work, and the step
-waits for the busiest.  Both kernels take head widths 64, 128 and 256, those of the
-ported dense configurations, with q, k and v of one type.  The reference's
-``block_q``/``block_k`` arguments are TPU tile sizes and are not taken: the
-kernels' tiles are fixed (``KV_TILE``).
+sum over the stripes, reduced to k's and v's placements.  Query heads
+(the reference's layout where the axis divides ``Hq`` but not ``Hkv``):
+:func:`flash_attention_query_heads` runs each rank's share of q's heads,
+k and v replicated there, on the one kv head they read
+(:func:`query_heads_kv`; k and v narrowed to it, so that the kernels'
+uniform rule ``h // (Hq / Hkv)`` holds on the shard); its dk, dv are a
+``Partial`` sum over the ranks, left so for the kv heads' producer.  A
+stripe's FLOP formula counts the busiest stripe of its width (the last
+when causal), whatever its ``row_base``: a dry run counts one rank's work,
+and the step waits for the busiest.  Both kernels take head widths 64,
+128 and 256, those of the ported dense configurations, with q, k and v of
+one type.  The reference's ``block_q``/``block_k`` arguments are TPU tile
+sizes and are not taken: the kernels' tiles are fixed (``KV_TILE``).
 """
 from __future__ import annotations
 
@@ -73,7 +79,8 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_plain)
 
 __all__ = ["HEAD_DIMS", "SM90_SOURCE", "TF32X3_SOURCE", "flash_attention",
-           "flash_attention_fwd", "flash_attention_striped", "sm90_library",
+           "flash_attention_fwd", "flash_attention_query_heads",
+           "flash_attention_striped", "query_heads_kv", "sm90_library",
            "tf32x3_library"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -178,24 +185,44 @@ def _stripe_rows(n: int, mesh, dim: int) -> tuple[int, int]:
     return first, max(0, min(chunk, n - first))
 
 
-class _Stripe(torch.autograd.Function):
-    """One rank's query stripe of DTensor operands laid out by
-    :func:`flash_attention_striped`: the operator on its shards at its
-    ``row_base``; the backward's dk, dv a ``Partial`` sum over the stripes'
-    mesh dimension, reduced to k's and v's placements."""
+def query_heads_kv(hq: int, hkv: int, n: int, rank: int):
+    """The key/value head that rank ``rank`` of ``n`` reads when the ``hq``
+    query heads are split over the ``n`` ranks and the ``hkv`` kv heads are
+    not: its query heads ``rank * hq / n ..`` all read kv head ``rank * hq /
+    n // (hq / hkv)``, which K6's uniform rule gives them over that one
+    head.  None where the split does not keep each rank inside one kv head's
+    group (``n`` not a multiple of ``hkv``) or the kv heads divide ``n``."""
+    if hq % n or hkv % n == 0 or n % hkv:
+        return None
+    return rank * (hq // n) // (hq // hkv)
+
+
+class _OnShards(torch.autograd.Function):
+    """One rank's part of DTensor operands laid out by
+    :func:`flash_attention_striped` (``heads`` False: its query stripe at
+    its ``row_base``) or :func:`flash_attention_query_heads` (``heads``:
+    its query heads on the one kv head they read): the operator on its
+    shards; the backward's dk, dv a ``Partial`` sum over mesh dimension
+    ``dim``, a stripe's reduced to k's and v's placements."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, dim):
+    def forward(ctx, q, k, v, causal, window, dim, heads):
         from torch.distributed.tensor import DTensor
 
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window, ctx.dim = causal, window, dim
-        ctx.row_base = _stripe_rows(q.shape[2], q.device_mesh, dim)[0]
-        out = flash_attention_fwd(q.to_local(), k.to_local(), v.to_local(),
+        mesh = q.device_mesh
+        if heads:
+            ctx.row_base = 0
+            ctx.kv = query_heads_kv(q.shape[1], k.shape[1], mesh.size(dim),
+                                    mesh.get_coordinate()[dim])
+        else:
+            ctx.row_base = _stripe_rows(q.shape[2], mesh, dim)[0]
+            ctx.kv = None
+        out = flash_attention_fwd(q.to_local(), *_kv_heads(ctx, k, v),
                                   causal, window, ctx.row_base)
-        return DTensor.from_local(out, q.device_mesh, q.placements,
-                                  run_check=False, shape=q.shape,
-                                  stride=q.stride())
+        return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                                  shape=q.shape, stride=q.stride())
 
     @staticmethod
     def backward(ctx, dout):
@@ -205,17 +232,54 @@ class _Stripe(torch.autograd.Function):
         mesh = q.device_mesh
         dout = dout.redistribute(mesh, q.placements)
         dq, dk, dv = flash_attention_backward(
-            q.to_local(), k.to_local(), v.to_local(), dout.to_local(),
+            q.to_local(), *_kv_heads(ctx, k, v), dout.to_local(),
             ctx.causal, ctx.window, ctx.row_base)
+        if ctx.kv is not None and k.shape[1] > 1:
+            dk, dv = (torch.zeros_like(t.to_local()).index_copy_(
+                1, torch.tensor([ctx.kv], device=g.device), g)
+                      for g, t in ((dk, k), (dv, v)))
         summed = [Partial() if i == ctx.dim else p
                   for i, p in enumerate(k.placements)]
         dq = DTensor.from_local(dq, mesh, q.placements, run_check=False,
                                 shape=q.shape, stride=q.stride())
         dk, dv = (DTensor.from_local(g, mesh, summed, run_check=False,
                                      shape=t.shape, stride=t.stride())
-                  .redistribute(mesh, t.placements)
                   for g, t in ((dk, k), (dv, v)))
-        return dq, dk, dv, None, None, None
+        if ctx.kv is None:
+            # a stripe's dk, dv reduced to k's and v's placements; the
+            # query heads' stay a Partial sum, which the kv heads' gather
+            # (where a column shard cut one) reduce-scatters, half an
+            # all-reduce's bytes
+            dk, dv = (g.redistribute(mesh, t.placements)
+                      for g, t in ((dk, k), (dv, v)))
+        return dq, dk, dv, None, None, None, None
+
+
+def _kv_heads(ctx, k, v):
+    """This rank's k and v shards, narrowed to the one kv head its query
+    heads read (``ctx.kv``) when there is one."""
+    k, v = k.to_local(), v.to_local()
+    if ctx.kv is None or k.shape[1] == 1:
+        return k, v
+    return k.narrow(1, ctx.kv, 1), v.narrow(1, ctx.kv, 1)
+
+
+def _on_shards(q, k, v, causal, window, dim, q_at):
+    """q with ``q_at`` on mesh dimension ``dim``, k and v replicated there,
+    the batch of all three as q's on the other mesh dimensions (else
+    replicated), run by :class:`_OnShards`."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in q.placements]
+    q_pl = [q_at if i == dim else p for i, p in enumerate(rows)]
+    kv_pl = [Replicate() if i == dim else p for i, p in enumerate(rows)]
+    # (a redistribution to the placements a tensor has would still take a
+    # Partial gradient back to them, reduced)
+    q, k, v = (t if list(t.placements) == pl else t.redistribute(mesh, pl)
+               for t, pl in ((q, q_pl), (k, kv_pl), (v, kv_pl)))
+    return _OnShards.apply(q, k, v, bool(causal), int(window), dim,
+                           q_at == Shard(1))
 
 
 def flash_attention_striped(q, k, v, causal: bool = True, window: int = 0,
@@ -225,16 +289,23 @@ def flash_attention_striped(q, k, v, causal: bool = True, window: int = 0,
     k and v replicated there, the batch of all three as q's on the other
     mesh dimensions (else replicated); each rank runs the kernel on its
     stripe at its own ``row_base``.  Returns the output sharded as q."""
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Shard
 
-    mesh = q.device_mesh
-    rows = [Shard(0) if p == Shard(0) else Replicate() for p in q.placements]
-    q_pl = [Shard(2) if i == dim else p for i, p in enumerate(rows)]
-    kv_pl = [Replicate() if i == dim else p for i, p in enumerate(rows)]
-    return _Stripe.apply(q.redistribute(mesh, q_pl),
-                         k.redistribute(mesh, kv_pl),
-                         v.redistribute(mesh, kv_pl), bool(causal),
-                         int(window), dim)
+    return _on_shards(q, k, v, causal, window, dim, Shard(2))
+
+
+def flash_attention_query_heads(q, k, v, causal: bool = True,
+                                window: int = 0, dim: int = 0):
+    """:func:`flash_attention` of DTensor operands with q's heads split over
+    mesh dimension ``dim`` where the kv heads are not (the reference's
+    layout when the axis divides ``Hq`` but not ``Hkv``,
+    :func:`query_heads_kv`): q (B, Hq, S, D) sharded on its heads there, k
+    and v replicated there, the batch of all three as q's on the other mesh
+    dimensions (else replicated); each rank runs the kernel on its query
+    heads and the kv head they read.  Returns the output sharded as q."""
+    from torch.distributed.tensor import Shard
+
+    return _on_shards(q, k, v, causal, window, dim, Shard(1))
 
 
 def _backward_on_shards(q, k, v, dout, causal: bool, window: int,

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import os
 import signal
@@ -113,7 +114,11 @@ def axis_sizes(mesh) -> dict:
 
 def device_mesh(sizes: tuple, axis_names: tuple, device_type: str):
     """A ``DeviceMesh`` of ``sizes`` over ``axis_names``, rank-major, over
-    the default process group, whose world size must be their product."""
+    the default process group, whose world size must be their product.
+    Every choice of two or more of its dimensions is flattened here, once
+    (``sharding.redistribute`` reduces over such a group in one
+    all-reduce): made later, inside a counted step, the first count would
+    hold the flattening's own operations and a second would not."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not dist.is_initialized():
@@ -124,8 +129,12 @@ def device_mesh(sizes: tuple, axis_names: tuple, device_type: str):
     if dist.get_world_size() != n:
         raise ValueError(f"a mesh of shape {tuple(sizes)} needs {n} ranks, "
                          f"the process group has {dist.get_world_size()}")
-    return DeviceMesh(device_type, torch.arange(n).reshape(tuple(sizes)),
+    mesh = DeviceMesh(device_type, torch.arange(n).reshape(tuple(sizes)),
                       mesh_dim_names=tuple(axis_names))
+    for k in range(2, len(sizes) + 1):
+        for names in itertools.combinations(tuple(axis_names), k):
+            (mesh if k == len(sizes) else mesh[names])._flatten()
+    return mesh
 
 
 def production_device_mesh(*, multi_pod: bool = False):

@@ -29,7 +29,14 @@ cross-attention over its K/V (whisper's decoder).  A sequence-sharded input
 so is a cross-attention's source; under ``attn_seq_shard``, where
 ``sharding.attn_stripe_dim`` says so, self-attention runs as K6's query
 stripes (``flash_attention_striped``, after RoPE on the whole sequence),
-their output gathered before ``w_o``.
+their output gathered before ``w_o``.  Where the ``model`` axis divides the
+query heads but not the kv heads (``sharding.attn_heads_dim``), it runs
+as K6's query heads (``flash_attention_query_heads``, the reference's
+layout): the kv heads whole on every rank (gathered where a column shard
+cuts one, as before), their gradients a ``Partial`` sum that the
+gather's backward reduce-scatters.  Every weight reaches its product
+through ``sharding.product_weight``, its FSDP shards gathered once where
+a gradient is taken.
 """
 from __future__ import annotations
 
@@ -40,9 +47,12 @@ from typing import Optional
 import torch
 
 from repro_torch._device import is_dtensor
-from repro_torch.distributed.sharding import attn_stripe_dim, gather_seq
+from repro_torch.distributed.sharding import (attn_heads_dim,
+                                              attn_stripe_dim, gather_seq,
+                                              product_weight)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention_striped
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention_query_heads, flash_attention_striped)
 from repro_torch.models.layers import dense_init, rope
 
 __all__ = ["KVCache", "attn_apply", "attn_decode", "attn_init", "cross_attend",
@@ -139,19 +149,24 @@ def self_attention(params: dict, x: torch.Tensor, cfg,
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     x = gather_seq(x)
     b, s, _ = x.shape
-    q = _split_heads(x @ params["w_q"].to(dt), hq, hd)
-    k = _split_heads(x @ params["w_k"].to(dt), hkv, hd)
-    v = _split_heads(x @ params["w_v"].to(dt), hkv, hd)
+    q = _split_heads(x @ product_weight(params["w_q"], dt), hq, hd)
+    k = _split_heads(x @ product_weight(params["w_k"], dt), hkv, hd)
+    v = _split_heads(x @ product_weight(params["w_v"], dt), hkv, hd)
     if use_rope:
         q, k = rope(q, k, positions, cfg.rope_theta)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     win = _kernel_window(window, s)
-    stripe = attn_stripe_dim(hq, hkv) if is_dtensor(q) else None
-    if stripe is None:
-        o = flash_attention(qt, kt, vt, causal=causal, window=win)
-    else:
+    heads = stripe = None
+    if is_dtensor(q):
+        heads, stripe = attn_heads_dim(hq, hkv), attn_stripe_dim(hq, hkv)
+    if heads is not None:
+        o = flash_attention_query_heads(qt, kt, vt, causal, win, heads)
+    elif stripe is not None:
         o = flash_attention_striped(qt, kt, vt, causal, win, stripe)
-    return gather_seq(_merge_heads(o, hq)) @ params["w_o"].to(dt), k, v
+    else:
+        o = flash_attention(qt, kt, vt, causal=causal, window=win)
+    o = gather_seq(_merge_heads(o, hq))
+    return o @ product_weight(params["w_o"], dt), k, v
 
 
 def cross_kv(params: dict, kv_x: torch.Tensor, cfg):
@@ -160,8 +175,8 @@ def cross_kv(params: dict, kv_x: torch.Tensor, cfg):
     dt = kv_x.dtype
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
     kv_x = gather_seq(kv_x)
-    return (_split_heads(kv_x @ params["w_k"].to(dt), hkv, hd),
-            _split_heads(kv_x @ params["w_v"].to(dt), hkv, hd))
+    return (_split_heads(kv_x @ product_weight(params["w_k"], dt), hkv, hd),
+            _split_heads(kv_x @ product_weight(params["w_v"], dt), hkv, hd))
 
 
 def cross_attend(params: dict, x: torch.Tensor, k: torch.Tensor,
@@ -172,19 +187,19 @@ def cross_attend(params: dict, x: torch.Tensor, k: torch.Tensor,
     dt = x.dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     x = gather_seq(x)
-    q = _split_heads(x @ params["w_q"].to(dt), hq, hd)
+    q = _split_heads(x @ product_weight(params["w_q"], dt), hq, hd)
     if is_dtensor(k):
         # as the decode's attention over a sharded cache, every slot valid
         o = _attend_cache(q, k, v, torch.ones((), dtype=torch.bool,
                                               device=x.device))
         return o.reshape(x.shape[0], x.shape[1], hq * hd) @ \
-            params["w_o"].to(dt)
+            product_weight(params["w_o"], dt)
     k, v = _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
     p = torch.softmax(logits.to(torch.float32), dim=-1).to(dt)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(
         x.shape[0], x.shape[1], hq * hd)
-    return o @ params["w_o"].to(dt)
+    return o @ product_weight(params["w_o"], dt)
 
 
 def attn_apply(params: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -308,9 +323,9 @@ def attn_decode(params: dict, x: torch.Tensor, cache: KVCache, cfg,
     dt = x.dtype
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     b = x.shape[0]
-    q = _split_heads(x @ params["w_q"].to(dt), hq, hd)
-    k_new = _split_heads(x @ params["w_k"].to(dt), hkv, hd)
-    v_new = _split_heads(x @ params["w_v"].to(dt), hkv, hd)
+    q = _split_heads(x @ product_weight(params["w_q"], dt), hq, hd)
+    k_new = _split_heads(x @ product_weight(params["w_k"], dt), hkv, hd)
+    v_new = _split_heads(x @ product_weight(params["w_v"], dt), hkv, hd)
     pos = cache.pos
     q, k_new = rope(q, k_new, pos.reshape(1, 1).expand(b, 1), cfg.rope_theta)
 
@@ -331,5 +346,5 @@ def attn_decode(params: dict, x: torch.Tensor, cache: KVCache, cfg,
     if window is not None:
         valid &= (pos - abs_idx) < window
     o = _attend_cache(q, k, v, valid).reshape(b, 1, hq * hd)
-    out = o @ params["w_o"].to(dt)
+    out = o @ product_weight(params["w_o"], dt)
     return out, KVCache(k=k, v=v, pos=pos + 1, ring=cache.ring)

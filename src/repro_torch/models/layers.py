@@ -14,7 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import gather_seq
+from repro_torch.distributed.sharding import gather_seq, product_weight
 
 __all__ = ["Dtypes", "dense_init", "mlp_apply", "mlp_init", "rms_norm",
            "rope"]
@@ -86,7 +86,7 @@ def mlp_apply(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Gated SiLU MLP (llama-style); a sequence-sharded ``x`` is gathered
     first (``sharding.gather_seq``)."""
     x = gather_seq(x)
-    wg = params["w_gate"].to(compute_dtype)
-    wu = params["w_up"].to(compute_dtype)
-    wd = params["w_down"].to(compute_dtype)
+    wg = product_weight(params["w_gate"], compute_dtype)
+    wu = product_weight(params["w_up"], compute_dtype)
+    wd = product_weight(params["w_down"], compute_dtype)
     return (F.silu(x @ wg) * (x @ wu)) @ wd

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import is_dtensor
-from repro_torch.distributed.sharding import gather_seq
+from repro_torch.distributed.sharding import gather_seq, product_weight
 from repro_torch.models.layers import dense_init
 
 __all__ = ["moe_apply", "moe_dispatch_table", "moe_init", "moe_param_shapes"]
@@ -126,9 +126,9 @@ def _gather(xt: torch.Tensor, table: torch.Tensor, k: int) -> torch.Tensor:
 
 def _expert_ffn(params: dict, xe: torch.Tensor, dt) -> torch.Tensor:
     """The experts' gated FFNs on their buffers: (E, C, D) -> (E, C, D)."""
-    wg = params["w_gate"].to(dt)
-    wu = params["w_up"].to(dt)
-    wd = params["w_down"].to(dt)
+    wg = product_weight(params["w_gate"], dt)
+    wu = product_weight(params["w_up"], dt)
+    wd = product_weight(params["w_down"], dt)
     h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
     return torch.bmm(h, wd)
 
@@ -241,7 +241,8 @@ def _routing(params: dict, xt: torch.Tensor, cfg):
     routing ``(top_p, top_i)`` (T, k) (of DTensor tokens gathered:
     replicated) and the capacity, ``int(cf * T * k / E) + 1`` over all T."""
     k, e = cfg.experts_per_token, cfg.n_experts
-    logits = xt.to(torch.float32) @ params["router"].to(torch.float32)
+    logits = xt.to(torch.float32) @ product_weight(params["router"],
+                                                   torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = _route(probs, k)
     return probs, top_p, top_i, int(cfg.capacity_factor * xt.shape[0] * k
@@ -288,9 +289,9 @@ def moe_apply(params: dict, x: torch.Tensor, cfg, compute_dtype):
     if cfg.n_shared_experts:
         sp = params["shared"]
         xc = xt.to(compute_dtype)
-        hg = F.silu(xc @ sp["w_gate"].to(compute_dtype))
-        hu = xc @ sp["w_up"].to(compute_dtype)
-        y = y + (hg * hu) @ sp["w_down"].to(compute_dtype)
+        hg = F.silu(xc @ product_weight(sp["w_gate"], compute_dtype))
+        hu = xc @ product_weight(sp["w_up"], compute_dtype)
+        y = y + (hg * hu) @ product_weight(sp["w_down"], compute_dtype)
 
     # Switch-style load-balance aux loss: mean over tokens of the routed
     # probability mass, by expert, against each expert's share; the sum

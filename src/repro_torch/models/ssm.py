@@ -23,18 +23,28 @@ here in the reference, and no hand-written kernel runs here in the port.
 
 Sharded (DTensor activations, parameters under ``param_shardings``: the
 ``in_proj`` columns, conv channels and per-head vectors over ``model``
-where they divide it), ``in_proj``'s product is gathered before the
-z | x B C | dt split (its column shards do not line up with it), the conv
-runs on the channel shards, the SSD on the batch and the heads (gathered
-first when they do not divide the axis), and the decode recurrence on the
-decode state's shards (P over ``model``, the reference's cache layout):
-each through ``local_map``, DTensor having no rule for them.  The conv and
-the SSD need the whole sequence: a sequence-sharded input (``seq_shard``)
-is gathered at the block's entry (``sharding.gather_seq``).
+where they divide it), the full-sequence block runs on column pieces
+(:func:`_pieces`) when the mesh splits ``in_proj``'s columns or the conv's
+channels: ``in_proj``'s weight is cut into z | x | B | C | dt and the
+conv's into x | B | C, each piece laid out as the SSD takes its
+activation (z, x and dt split by heads where the SSD splits them, B and C
+whole, or by groups), so that no product's columns are moved, where the
+column shards do not line up with the split (GSPMD moves the product's
+straddling columns; the weight's are fewer at any sequence longer than
+``d_model``).  The conv runs on its pieces' shards (:class:`_Conv`), the
+SSD on the batch and the heads (gathered first when they do not divide
+the axis) through ``local_map``, and B's and C's gradients stay ``Partial``
+sums until the residual's reduction.  The one-token decode gathers its
+product's columns instead (fewer than the weight's), and its recurrence
+runs on the decode state's shards (P over ``model``, the reference's
+cache layout).  The conv and the SSD need the whole sequence: a
+sequence-sharded input (``seq_shard``) is gathered at the block's entry
+(``sharding.gather_seq``).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Optional
 
@@ -42,7 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import is_dtensor
-from repro_torch.distributed.sharding import gather_seq, shard_like
+from repro_torch.distributed.sharding import (gather_seq, own_shard,
+                                              product_weight, shard_like)
 from repro_torch.models.layers import dense_init
 
 __all__ = ["SSMCache", "init_ssm_cache", "ssd_chunked", "ssm_apply",
@@ -99,11 +110,68 @@ def ssm_init(generator: torch.Generator, cfg, *, device) -> dict:
 
 def _split_proj(cfg, proj: torch.Tensor):
     """``in_proj``'s product split into z | x B C | dt.  Of a DTensor, its
-    columns gathered first: their shards do not line up with the split."""
+    columns gathered first: their shards do not line up with the split
+    (the decode's one-token product, which is smaller than the weight)."""
     if is_dtensor(proj):
         proj = shard_like(proj, proj, {0: 0})
     di, gn, h = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
     return proj[..., :di], proj[..., di:2 * di + 2 * gn], proj[..., -h:]
+
+
+class _Columns(torch.autograd.Function):
+    """The DTensor ``w``'s last dimension cut at ``cuts`` into pieces, piece
+    ``i`` laid out as ``pls[i]`` (its columns split over the heads' mesh
+    dimensions, or whole): ``w``'s columns all-gathered over the mesh
+    dimensions that split them, each rank keeping its shard of each piece.
+    The pieces' gradients come back the other way: gathered over those
+    dimensions, a ``Partial`` sum over the others (the products' batch
+    shards), each rank keeping its columns of ``w``."""
+
+    @staticmethod
+    def forward(ctx, w, cuts, pls):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh, last = w.device_mesh, w.ndim - 1
+        ctx.mesh, ctx.pl, ctx.shape, ctx.cuts = mesh, w.placements, w.shape, \
+            cuts
+        whole = [Replicate() if p == Shard(last) else p for p in w.placements]
+        full = w.redistribute(mesh, whole).to_local()
+        out = []
+        for a, b, pl in zip(cuts[:-1], cuts[1:], pls):
+            shape = (*w.shape[:-1], b - a)
+            piece = own_shard(full.narrow(last, a, b - a), [
+                p if p == Shard(last) else Replicate() for p in pl], mesh)
+            out.append(DTensor.from_local(
+                piece, mesh, pl, run_check=False, shape=shape,
+                stride=torch.empty(shape, device="meta").stride()))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh, last = ctx.mesh, len(ctx.shape) - 1
+        given = [g for g in grads if g is not None]
+        # whole columns over the dimensions that split w's; elsewhere the
+        # gradients' common placement (a Partial sum over the batch's
+        # shards), or replicated where they differ
+        want = [Replicate() if p == Shard(last) else
+                q[0] if all(x == q[0] for x in q) else Replicate()
+                for p, q in zip(ctx.pl, zip(*(g.placements for g in given)))]
+        parts = [None if g is None else g.redistribute(mesh, want).to_local()
+                 for g in grads]
+        like = given[0].to_local()
+        full = torch.cat([
+            like.new_zeros((*like.shape[:-1], b - a)) if t is None else t
+            for t, a, b in zip(parts, ctx.cuts[:-1], ctx.cuts[1:])], dim=last)
+        pl = [Shard(last) if p == Shard(last) else q
+              for p, q in zip(ctx.pl, want)]
+        g = DTensor.from_local(
+            own_shard(full, [p if p == Shard(last) else Replicate()
+                             for p in pl], mesh), mesh, pl, run_check=False,
+            shape=ctx.shape, stride=torch.empty(ctx.shape,
+                                                device="meta").stride())
+        return g, None, None
 
 
 def _conv_taps(xbc: torch.Tensor, w: torch.Tensor,
@@ -122,22 +190,51 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     ``w`` (K, C); the reference's K-tap loop in the input's dtype.  Of a
     DTensor, on each rank's batch rows and its shard of the channels
     (``conv_w``'s, over ``model``): ``xbc`` is laid out so, and returned
-    so."""
+    so (:class:`_Conv`)."""
     if not is_dtensor(xbc):
         return _conv_taps(xbc, w, b)
-    from torch.distributed.tensor import Partial, Shard
-    from torch.distributed.tensor.experimental import local_map
+    return _Conv.apply(_channels_like(xbc, w, 1), w, b)
 
-    xbc = _channels_like(xbc, w, 1)
-    pl = list(xbc.placements)
-    w_pl, b_pl = list(w.placements), list(b.placements)
-    # a weight replicated over the batch's ranks gets a partial gradient
-    w_grad = [Partial() if p == Shard(0) else q for p, q in zip(pl, w_pl)]
-    b_grad = [Partial() if p == Shard(0) else q for p, q in zip(pl, b_pl)]
-    return local_map(_conv_taps, out_placements=pl,
-                     in_placements=(pl, w_pl, b_pl),
-                     in_grad_placements=(pl, w_grad, b_grad),
-                     device_mesh=xbc.device_mesh)(xbc, w, b)
+
+class _Conv(torch.autograd.Function):
+    """:func:`_conv_taps` of DTensors on each rank's shards.  Its backward
+    is linear in the output's gradient, so a gradient that comes back as a
+    ``Partial`` sum where the output is replicated (B and C, whole on every
+    rank, from an SSD split by heads) stays one: the input's gradient is
+    that ``Partial`` sum, reduced later with the residual's, where a
+    ``local_map`` would all-reduce it here; the weight's is a ``Partial``
+    sum over the batch's shards and over those."""
+
+    @staticmethod
+    def forward(ctx, xbc, w, b):
+        from torch.distributed.tensor import DTensor
+
+        ctx.save_for_backward(xbc, w, b)
+        out = _conv_taps(xbc.to_local(), w.to_local(), b.to_local())
+        return DTensor.from_local(out, xbc.device_mesh, xbc.placements,
+                                  run_check=False, shape=xbc.shape,
+                                  stride=xbc.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        xbc, w, b = ctx.saved_tensors
+        mesh = xbc.device_mesh
+        pl = [q if q.is_partial() and p == Replicate() else p
+              for p, q in zip(xbc.placements, g.placements)]
+        g = g.redistribute(mesh, pl)
+        with torch.enable_grad():
+            ins = [t.to_local().detach().requires_grad_(True)
+                   for t in (xbc, w, b)]
+            grads = torch.autograd.grad(_conv_taps(*ins), ins, g.to_local())
+        grads = [d.contiguous() for d in grads]
+        summed = [p == Shard(0) or p.is_partial() for p in pl]
+        return tuple(DTensor.from_local(
+            d, mesh, out, run_check=False, shape=t.shape, stride=t.stride())
+            for d, t, out in zip(grads, (xbc, w, b), (pl, *(
+                [Partial() if s else q for s, q in zip(summed, t.placements)]
+                for t in (w, b)))))
 
 
 def _channels_like(x, w, w_dim: int):
@@ -191,6 +288,20 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return _ssd(x, dt, a, bmat, cmat, chunk, h0)
 
 
+class _Dense(torch.autograd.Function):
+    """The identity on local shards, whose gradients are made contiguous: a
+    shard's gradient from the scan's permuted products, handed to a view
+    outside the ``local_map``, would be refused by it."""
+
+    @staticmethod
+    def forward(ctx, *ts):
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return tuple(None if g is None else g.contiguous() for g in gs)
+
+
 def _ssd_sharded(x, dt, a, bmat, cmat, chunk: int, h0):
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
@@ -211,11 +322,14 @@ def _ssd_sharded(x, dt, a, bmat, cmat, chunk: int, h0):
     bc_pl = pl(2, group=grouped or Replicate())
     bc_grad = pl(2, group=grouped or Partial())
     h0_pl = None if h0 is None else h_pl
+    # (a redistribution to the placements a tensor has would still take
+    # its gradient back to them: a Partial B or C would be reduced there)
     x, dt, a, bmat, cmat, h0 = (
-        t if q is None else t.redistribute(mesh, q) for t, q in zip(
+        t if q is None or list(t.placements) == q else t.redistribute(mesh, q)
+        for t, q in zip(
             (x, dt, a, bmat, cmat, h0),
             (x_pl, dt_pl, a_pl, bc_pl, bc_pl, h0_pl)))
-    return local_map(lambda *t: _ssd(*t[:5], chunk, t[5]),
+    return local_map(lambda *t: _ssd(*_Dense.apply(*t[:5]), chunk, t[5]),
                      out_placements=(x_pl, h_pl),
                      in_placements=(x_pl, dt_pl, a_pl, bc_pl, bc_pl, h0_pl),
                      in_grad_placements=(x_pl, dt_pl, a_grad, bc_grad,
@@ -268,6 +382,67 @@ def _ssd(x, dt, a, bmat, cmat, chunk: int, h0):
     return y.permute(0, 1, 3, 2, 4).reshape(b, s, h, p), carry
 
 
+def _heads_split(cfg, a, x) -> list:
+    """Per mesh dimension, whether the SSD splits the heads there: ``a``
+    (``a_log``'s layout) sharded on it, the batch of ``x`` not, and the
+    groups one or dividing it (:func:`ssd_chunked`'s rule)."""
+    from torch.distributed.tensor import Shard
+
+    mesh, g = x.device_mesh, cfg.ssm_groups
+    return [p != Shard(0) and q == Shard(0) and (g == 1 or g % mesh.size(i)
+                                                 == 0)
+            for i, (p, q) in enumerate(zip(x.placements, a.placements))]
+
+
+def _pieces(cfg, params: dict, x):
+    """Of a DTensor ``x`` whose mesh splits ``in_proj``'s columns or the
+    conv's channels over more than one rank: a function of the compute
+    dtype giving ``in_proj``'s z | x | B | C | dt column pieces and the
+    conv's x | B | C weight and bias pieces, each laid out as the SSD takes
+    its activation (:class:`_Columns`): z, x and dt split by heads where
+    the SSD splits them, B and C by groups there when there are several,
+    whole otherwise.  Then no product's columns are moved: GSPMD moves the
+    product's columns that straddle a piece's boundary, this moves the
+    weight's, of which a sequence of more than ``d_model`` tokens has
+    fewer.  None otherwise (plain tensors, or a one-rank split)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    w = params["in_proj"]
+    if not is_dtensor(x) or not any(
+            t.placements[i] == Shard(t.ndim - 1) and x.device_mesh.size(i) > 1
+            for t in (w, params["conv_w"]) for i in range(x.device_mesh.ndim)):
+        return None
+    di, gn, h = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+    split = _heads_split(cfg, params["a_log"], x)
+
+    rows = [q == Shard(0) for q in params["out_proj"].placements]
+
+    def pls(t, by):
+        last = Shard(t.ndim - 1)
+        return [[last if on else p if p != last else Replicate()
+                 for on, p in zip(split_on, t.placements)]
+                for split_on in by]
+
+    grouped = split if cfg.ssm_groups > 1 else [False] * len(split)
+    # z split as out_proj's rows, so that its gated product stays
+    # row-parallel where the heads are whole
+    proj = (rows, split, grouped, grouped, split)
+    conv = (split, grouped, grouped)
+
+    def make(dtype):
+        # the columns first, then each piece's FSDP rows: a rank gathers
+        # the rows of its own pieces only
+        cuts = tuple(itertools.accumulate((0, di, di, gn, gn, h)))
+        conv_cuts = tuple(itertools.accumulate((0, di, gn, gn)))
+        return (tuple(product_weight(t, dtype) for t in _Columns.apply(
+            w.to(dtype), cuts, pls(w, proj))),
+                *(_Columns.apply(params[k].to(dtype), conv_cuts,
+                                 pls(params[k], conv))
+                  for k in ("conv_w", "conv_b")))
+
+    return make
+
+
 def ssm_apply(params: dict, x: torch.Tensor, cfg, compute_dtype,
               h0: Optional[torch.Tensor] = None, return_state: bool = False):
     """Full-sequence SSD block: ``x`` (B, S, D) -> (B, S, D).
@@ -277,26 +452,37 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg, compute_dtype,
     call's ``in_proj`` product; the reference computes that product again)
     and the final SSM state (the reference's ``(out, final_state)``).
 
-    Of a DTensor ``x`` (sharded by batch) under sharded parameters:
-    ``in_proj``'s product is gathered for the split, the conv runs on the
-    channel shards (``conv_w``'s), its output is gathered for the x | B | C
-    split, the SSD runs over the batch and,
-    where they divide, the heads (:func:`ssd_chunked`), and ``out_proj``'s
-    product is the row-parallel ``Partial`` sum that the caller's
-    ``shard_act(..., "btd")`` reduces."""
+    Of a DTensor ``x`` (sharded by batch) under sharded parameters: the
+    products and the conv run on :func:`_pieces` where the mesh splits
+    their columns (else ``in_proj``'s product is taken whole and the conv's
+    output gathered for the x | B | C split), the SSD runs over the batch
+    and, where they divide, the heads (:func:`ssd_chunked`), and
+    ``out_proj``'s product is the row-parallel ``Partial`` sum that the
+    caller's ``shard_act(..., "btd")`` reduces."""
     x = gather_seq(x)
     b, s, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
-    proj = x @ params["in_proj"].to(compute_dtype)
-    z, xbc_in, dt = _split_proj(cfg, proj)
-    xbc = _causal_conv(xbc_in, params["conv_w"].to(compute_dtype),
-                       params["conv_b"].to(compute_dtype))
-    if is_dtensor(xbc):
-        xbc = shard_like(xbc, xbc, {0: 0})
-    xs = xbc[..., :di].reshape(b, s, h, p)
-    bmat = xbc[..., di:di + g * n].reshape(b, s, g, n)
-    cmat = xbc[..., di + g * n:].reshape(b, s, g, n)
+    pieces = _pieces(cfg, params, x)
+    if pieces is None:
+        proj = x @ product_weight(params["in_proj"], compute_dtype)
+        z, xbc_in, dt = _split_proj(cfg, proj)
+        xbc = _causal_conv(xbc_in, params["conv_w"].to(compute_dtype),
+                           params["conv_b"].to(compute_dtype))
+        if is_dtensor(xbc):
+            # the conv's channel shards all-gathered for the x | B | C split
+            xbc = shard_like(xbc, xbc, {0: 0})
+        xs, bmat, cmat = (xbc[..., :di], xbc[..., di:di + g * n],
+                          xbc[..., di + g * n:])
+    else:
+        w, conv_w, conv_b = pieces(compute_dtype)
+        z, x_in, b_in, c_in, dt = (x @ t for t in w)
+        xbc_in = (x_in, b_in, c_in)
+        xs, bmat, cmat = (_causal_conv(t, cw, cb) for t, cw, cb in
+                          zip(xbc_in, conv_w, conv_b))
+    xs = xs.reshape(b, s, h, p)
+    bmat = bmat.reshape(b, s, g, n)
+    cmat = cmat.reshape(b, s, g, n)
     dt = F.softplus(dt.to(torch.float32)
                     + params["dt_bias"].to(torch.float32))
     a = -torch.exp(params["a_log"].to(torch.float32))
@@ -306,18 +492,29 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg, compute_dtype,
                         chunk=min(cfg.ssm_chunk, s), h0=h0)
     y = y.to(compute_dtype)
     skip = params["d_skip"].to(compute_dtype)
-    if is_dtensor(y):
+    gathered = is_dtensor(y) and pieces is None
+    if gathered:
+        # the gathered conv output's x (and the skip) lined up with y's
+        # heads: a local slice, whose gradient is all-gathered back
         xs, skip = shard_like(xs, y, {0: 0, 2: 2}), shard_like(skip, y, {2: 0})
     y = (y + xs * skip[None, None, :, None]).reshape(b, s, di)
     if is_dtensor(y):
-        # the gradient of the heads' merge laid out as its forward, so that
-        # its view back to (B, S, H, P) cuts no head
-        y, z = shard_like(y, y, {0: 0, 2: 2}), shard_like(z, y, {0: 0, 2: 2})
-    out = (y * F.silu(z)) @ params["out_proj"].to(compute_dtype)
+        # the heads' merge's gradient laid out as its forward: where the
+        # heads are split, no collective, and its view back to (B, S, H,
+        # P) cuts no head; where they are whole, the all-gather that the
+        # SSD's backward on every rank's copy needs
+        y = shard_like(y, y, {0: 0, 2: 2})
+    if gathered:
+        # the gathered product's z lined up with y (a local slice; its
+        # gradient all-gathered back)
+        z = shard_like(z, y, {0: 0, 2: 2})
+    out = (y * F.silu(z)) @ product_weight(params["out_proj"], compute_dtype)
     if return_state:
         # a copy: a view would hold the whole projection alive
-        return out, SSMCache(conv=xbc_in[:, -(cfg.ssm_conv - 1):].clone(),
-                             state=hf)
+        k = cfg.ssm_conv - 1
+        conv = xbc_in[:, -k:].clone() if pieces is None else torch.cat(
+            [t[:, -k:] for t in xbc_in], dim=-1)
+        return out, SSMCache(conv=conv, state=hf)
     return out
 
 
@@ -381,7 +578,7 @@ def ssm_decode(params: dict, x: torch.Tensor, cache: SSMCache, cfg,
     b = x.shape[0]
     di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
-    proj = x @ params["in_proj"].to(compute_dtype)
+    proj = x @ product_weight(params["in_proj"], compute_dtype)
     z, xbc, dt = _split_proj(cfg, proj)
 
     # causal conv against the cached window
@@ -410,5 +607,5 @@ def ssm_decode(params: dict, x: torch.Tensor, cache: SSMCache, cfg,
     y = (y + xs * skip[None, :, None]).reshape(b, 1, di)
     if is_dtensor(y):
         z = shard_like(z, y, {0: 0, 2: 2})
-    out = (y * F.silu(z)) @ params["out_proj"].to(compute_dtype)
+    out = (y * F.silu(z)) @ product_weight(params["out_proj"], compute_dtype)
     return out, SSMCache(conv=win[:, 1:], state=state)

@@ -27,13 +27,17 @@ gradient (``remat_call``); it recomputes and changes no value.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch._device import resolve_device, seeded_generator
+from repro_torch._device import is_dtensor, resolve_device, seeded_generator
 from repro_torch.distributed.sharding import (current_ctx, gather_seq,
-                                              shard_act, use_ctx)
+                                              product_weight, shard_act,
+                                              use_ctx)
 from repro_torch.models.attention import (attn_apply, attn_init,
                                           self_attention)
 from repro_torch.models.layers import (Dtypes, dense_init, mlp_apply,
@@ -79,6 +83,11 @@ def leaves(tree: dict):
         yield from (leaves(v) if isinstance(v, dict) else (v,))
 
 
+# the operators whose results a sharded recompute takes from its forward
+_REDUCTIONS = (torch.ops._c10d_functional.all_reduce.default,
+               torch.ops._c10d_functional.wait_tensor.default)
+
+
 def remat_call(cfg, params: dict):
     """How a forward calls its layer bodies: ``fn(*args)`` under
     ``torch.utils.checkpoint`` (non-reentrant; the reference's
@@ -87,7 +96,10 @@ def remat_call(cfg, params: dict):
     gradient, runs each layer once.  The recompute runs under the sharding
     context of the forward (``use_ctx``): the backward of CUDA tensors runs
     in the autograd engine's own thread, where the thread-local context of
-    the caller is unset."""
+    the caller is unset.  Sharded, the recompute takes the all-reduces'
+    results that its forward saved (a selective checkpoint): it reduces no
+    residual again, as the reference's recompute does not, and gathers its
+    weights again, as the reference's does."""
     if cfg.remat and torch.is_grad_enabled() and any(
             t.requires_grad for t in leaves(params)):
         ctx = current_ctx()
@@ -96,9 +108,21 @@ def remat_call(cfg, params: dict):
             with use_ctx(ctx):
                 return fn(*args)
 
+        kw = {}
+        if ctx is not None and ctx.spmd:
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_reductions)
         return lambda fn, *args: checkpoint(body, fn, *args,
-                                            use_reentrant=False)
+                                            use_reentrant=False, **kw)
     return lambda fn, *args: fn(*args)
+
+
+def _save_reductions(ctx, func, *args, **kwargs):
+    """The selective checkpoint's policy: an all-reduce's result (and its
+    wait) is saved, every other operator recomputed."""
+    if func in _REDUCTIONS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _is_ssm(cfg) -> bool:
@@ -256,6 +280,51 @@ def shared_block(sp: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     return x + shard_act(m, "btd"), k, v
 
 
+def _lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, emb)``.  Of a DTensor table whose vocabulary is
+    sharded and takes a gradient, each rank looks its tokens up in its own
+    rows, masked, on its shards (``local_map``): the output a ``Partial``
+    sum over the vocabulary's shards, the table's gradient each rank's
+    rows, a ``Partial`` sum over the tokens' batch shards, which the step
+    reduces over the data axes alone, as the reference's scatter-add is
+    (DTensor's own rule reduces the whole table's).  Serving takes
+    DTensor's rule."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    if not (is_dtensor(emb) and Shard(0) in emb.placements
+            and emb.requires_grad and torch.is_grad_enabled()):
+        return F.embedding(tokens, emb)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, e_pl = emb.device_mesh, list(emb.placements)
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    t_pl = [p if p == Shard(0) else Replicate() for p in tokens.placements]
+    t_pl = [Replicate() if q == Shard(0) else p for p, q in zip(t_pl, e_pl)]
+    tokens = tokens.redistribute(mesh, t_pl)
+    out_pl = [Partial() if q == Shard(0) else p for p, q in zip(t_pl, e_pl)]
+    grad_pl = [Partial() if p == Shard(0) else q for p, q in zip(t_pl, e_pl)]
+    coord, rows = mesh.get_coordinate(), emb.shape[0]
+    first = 0
+    for i, q in enumerate(e_pl):
+        if q == Shard(0):
+            rows = -(-rows // mesh.size(i))
+            first += coord[i] * rows
+
+    def masked(t, e):
+        local = t - first
+        inside = (local >= 0) & (local < e.shape[0])
+        return F.embedding(local.clamp(0, max(e.shape[0] - 1, 0)), e) \
+            * inside[..., None].to(e.dtype)
+
+    return local_map(masked, out_placements=out_pl,
+                     in_placements=(t_pl, e_pl),
+                     in_grad_placements=(t_pl, grad_pl),
+                     device_mesh=mesh)(tokens, emb)
+
+
 def embed_inputs(params: dict, tokens, cfg, patches=None) -> torch.Tensor:
     """Token embeddings in the compute dtype, a vlm's ``patches`` (B, P, D)
     prepended, constrained to ``"btd"``.  Sharded, the lookup of a
@@ -264,7 +333,7 @@ def embed_inputs(params: dict, tokens, cfg, patches=None) -> torch.Tensor:
     reduced to ``"btd"`` first (and their sequence gathered, under
     ``seq_shard``)."""
     emb = params["embed"]
-    x = F.embedding(torch.as_tensor(tokens, device=emb.device), emb).to(
+    x = _lookup(emb, torch.as_tensor(tokens, device=emb.device)).to(
         Dtypes.compute(cfg))
     if patches is not None:
         x = torch.cat([torch.as_tensor(patches, device=emb.device).to(x.dtype),
@@ -275,7 +344,7 @@ def embed_inputs(params: dict, tokens, cfg, patches=None) -> torch.Tensor:
 def unembedding(params: dict, cfg, dt) -> torch.Tensor:
     """The output projection in ``dt``: the embedding's transpose if tied."""
     unemb = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return unemb.to(dt)
+    return product_weight(unemb, dt)
 
 
 def ffn_apply(lp: dict, h: torch.Tensor, cfg, dt):

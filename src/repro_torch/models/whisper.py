@@ -34,7 +34,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import is_dtensor, resolve_device, seeded_generator
-from repro_torch.distributed.sharding import gather_seq, shard_act
+from repro_torch.distributed.sharding import (gather_seq, product_weight,
+                                              shard_act)
 from repro_torch.models.attention import attn_apply, attn_init
 from repro_torch.models.layers import (Dtypes, dense_init, mlp_apply,
                                        mlp_init, rms_norm)
@@ -199,7 +200,7 @@ def decoder_forward(params: dict, tokens, enc_out: torch.Tensor,
     for lp in unstack_layers(params["layers"], cfg.n_layers):
         x = run(decoder_layer, lp, x, enc, cfg, positions)
     x = gather_seq(rms_norm(x, params["final_ln"], cfg.norm_eps))
-    return shard_act(x @ params["unembed"].to(dt), "btv")
+    return shard_act(x @ product_weight(params["unembed"], dt), "btv")
 
 
 def encdec_forward(params: dict, tokens, frames, cfg):

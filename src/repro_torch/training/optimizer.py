@@ -17,6 +17,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch._device import is_dtensor
+from repro_torch.distributed.sharding import redistribute
+
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
            "global_norm", "tree_map", "warmup_cosine"]
 
@@ -73,8 +76,26 @@ def adamw_init(params: dict) -> AdamWState:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(leaf.to(torch.float32).square().sum()
-                          for leaf in _leaves(tree)))
+    """The square root of every leaf's squares summed.  Of DTensors (each
+    sharded or replicated on each mesh dimension), every rank sums its
+    shards' squares, a replicated leaf's over the ranks that hold a copy,
+    and one all-reduce over the whole mesh adds the ranks' sums: adding
+    the leaves' own sums as DTensors reduces some of them one by one in
+    some PyTorch versions."""
+    leaves = list(_leaves(tree))
+    if not (leaves and is_dtensor(leaves[0])):
+        return torch.sqrt(sum(leaf.to(torch.float32).square().sum()
+                              for leaf in leaves))
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = leaves[0].device_mesh
+    local = sum(leaf.to_local().to(torch.float32).square().sum()
+                / math.prod(mesh.size(i) for i, p in
+                            enumerate(leaf.placements) if p.is_replicate())
+                for leaf in leaves)
+    total = DTensor.from_local(local, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(redistribute(total, [Replicate()] * mesh.ndim))
 
 
 def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState,

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch._device import is_dtensor
+from repro_torch.distributed.sharding import redistribute
 from repro_torch.models.transformer import leaves, lm_forward
 from repro_torch.models.whisper import encdec_forward
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
@@ -123,7 +124,7 @@ def _ce_rows(logits, labels, chunked: int):
     tot = local_map(lambda x, y: _ce_sum(x, y, chunked),
                     out_placements=[Partial() if cut else Replicate()
                                     for cut in splits])(logits, labels)
-    return (tot / (b * s)).redistribute(mesh, [Replicate()] * mesh.ndim)
+    return redistribute(tot / (b * s), [Replicate()] * mesh.ndim)
 
 
 def _ce_sharded(logits, labels, chunked: int):
@@ -158,7 +159,7 @@ def _ce_sharded(logits, labels, chunked: int):
         picked = reduced(torch.where(labels[:, sl, None] == vocab, z,
                                      0.0).sum(dim=-1))
         tot = tot + (lse - picked).sum()
-    return (tot / (b * s)).redistribute(mesh, [Replicate()] * mesh.ndim)
+    return redistribute(tot / (b * s), [Replicate()] * mesh.ndim)
 
 
 def lm_loss(params: dict, batch: dict, cfg, aux_weight: float = 0.01,
@@ -189,7 +190,7 @@ def _value_and_grad(loss_fn, params: dict, batch: dict):
         loss, metrics = loss_fn(leafs, batch)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
     by_id = {id(p): (torch.zeros_like(p) if g is None else
-                     g.redistribute(p.device_mesh, p.placements) if sharded
+                     redistribute(g, p.placements) if sharded
                      else g)
              for p, g in zip(flat, grads)}
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),

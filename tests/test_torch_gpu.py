@@ -1711,7 +1711,10 @@ def test_cuda_spmd_encdec_count_on_a_fake_group_equals_meta(arch, shape):
     assert card[1] > 0 and card[2]
 
 
-GLOO_CASES = {"smollm-360m": {}, "deepseek-moe-16b": {},
+GLOO_CASES = {"smollm-360m": {},
+              # 4 query heads divide the model axis, its 1 kv head does
+              # not: K6 by query heads (flash_attention_query_heads)
+              "gemma3-1b": {}, "deepseek-moe-16b": {},
               "deepseek-moe-16b@drop": {"capacity_factor": 1.0},
               "mixtral-8x7b": {}, "mamba2-130m": {},
               "mamba2-130m@3heads": {"d_model": 24}, "zamba2-1.2b": {},
@@ -1727,6 +1730,10 @@ GLOO_SWITCHES = {"seq": {"seq_shard": True},
                  "both": {"seq_shard": True, "attn_seq_shard": True}}
 # the paper's LP step (tests/_spmd_paper_worker.py): depth L, classes C
 GLOO_PAPER = dict(L=10, C=4, alpha=0.3, n_iters=4)
+# one device's collective bytes of the SMOKE float32 train step at B 16 x S
+# 256 on a 2 x 2 fake group, counted on meta in the CPU host's PyTorch
+# (tests/test_torch_spmd_bytes.py)
+FAKE_GROUP_BYTES = {"gemma3-1b": 11_520_264, "mamba2-130m": 3_677_672}
 
 
 @pytest.fixture(scope="module")
@@ -1821,6 +1828,21 @@ def test_cuda_host_gloo_mesh_matches_plain_tensors(case, gloo_mesh_run):
             1e-6 * max(1.0, scale)
         np.testing.assert_allclose(res[f"spmd/{name}"], want, rtol=1e-5,
                                    atol=atol, err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", tuple(FAKE_GROUP_BYTES))
+def test_cuda_host_fake_group_count_equals_the_cpu_host(case):
+    """The card machine's PyTorch, whose DTensor may pick other strategies
+    than the CPU host's, counts the same collective bytes for the sharded
+    step, byte for byte: gemma3-1b's K6 by query heads, mamba2-130m's SSM
+    on its column pieces."""
+    _card()
+    from _spmd_count import port_bytes
+
+    got = port_bytes(case, (16, 256))
+    print(f"{case}: {got}")
+    assert got["total"] == FAKE_GROUP_BYTES[case]
 
 
 @pytest.mark.gpu

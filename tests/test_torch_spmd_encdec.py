@@ -18,6 +18,9 @@ program, on the CPU.
 - The reference's step, prefill and decode, jitted over a 2 x 2 mesh of
   ``Auto`` axes on 4 forced host devices (one subprocess), on the same
   weights and inputs: the port's sharded results within ``2e-3``.
+- Each case's train-step collectives, counted on meta under a fake group,
+  printed beside the reference's HLO ``collective_bytes`` (compiled, then
+  run), and no higher than ``WAS_COLLECTIVES``.
 - whisper's ``param_shardings`` placements equal the reference's spec for
   spec (``enc_layers/attn/w_{q,k,v}`` layer-sharded over ``data``, ``w_o``
   over ``model``); each family's three dry-run cells count alike on CPU and
@@ -35,15 +38,25 @@ import pytest
 import torch
 from test_torch_spmd import (B, N_DECODE, OPT, REF_TOL, ROOT, S, SRC, TOL,
                              _close, _names, _placements, _run_all)
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.configs import registry, shapes
-from repro_torch.distributed.sharding import ShardCtx, param_shardings
+from repro_torch.distributed.sharding import (ShardCtx, param_shardings,
+                                              placements, shard_params,
+                                              use_ctx)
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import device_mesh, fake_process_group
+from repro_torch.launch.roofline import collective_bytes
+from repro_torch.models.transformer import init_lm
 from repro_torch.models.whisper import init_encdec
+from repro_torch.training.optimizer import AdamWConfig
+from repro_torch.training.train_step import init_train_state, make_train_step
 
 CASES = ("internvl2-1b", "whisper-medium")
+# the port's collective bytes of each case's train step before they were
+# held to the reference's (tests/test_torch_spmd_bytes.py): none may rise
+# above them
+WAS_COLLECTIVES = {"internvl2-1b": 678_864, "whisper-medium": 1_612_176}
 
 
 def _reference_code(out) -> str:
@@ -62,6 +75,7 @@ def _reference_code(out) -> str:
         from repro.configs.registry import get_smoke_config
         from repro.distributed.sharding import (ShardCtx, param_shardings,
                                                 use_ctx)
+        from repro.launch.roofline import collective_bytes
         from repro.models.transformer import init_lm
         from repro.models.whisper import init_encdec
         from repro.serving.decode import decode_step, prefill
@@ -77,7 +91,7 @@ def _reference_code(out) -> str:
         flat = lambda tree, pre: {{
             pre + "/".join(k.key for k in path): np.asarray(v, np.float32)
             for path, v in paths(tree)}}
-        specs = {{}}
+        specs, coll = {{}}, {{}}
         for case in {CASES!r}:
             cfg = dataclasses.replace(get_smoke_config(case),
                                       dtype="float32")
@@ -122,8 +136,10 @@ def _reference_code(out) -> str:
             res = {{}}
             with mesh:
                 state = init_train_state(params, opt)
-                new, metrics = jax.jit(train)(
-                    state, {{"tokens": tokens, name: extra}})
+                batch = {{"tokens": tokens, name: extra}}
+                compiled = jax.jit(train).lower(state, batch).compile()
+                coll[case] = collective_bytes(compiled.as_text())
+                new, metrics = compiled(state, batch)
                 res["loss"] = np.asarray(metrics["loss"])
                 res["grad_norm"] = np.asarray(metrics["grad_norm"])
                 res.update(flat(new.params, "param/"))
@@ -135,22 +151,24 @@ def _reference_code(out) -> str:
                     logits, dstate = dec(params, decode[:, i:i + 1], dstate)
                     res[f"decode/{{i}}"] = np.asarray(logits)
             np.savez(f"{out}/{{case}}_ref.npz", **res)
-        print(json.dumps(specs))
+        print(json.dumps({{"specs": specs, "coll": coll}}))
     """)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The reference's weights and inputs, its sharded results and
-    whisper's parameter specs; then the port's sharded and plain results
-    (the worker reads the reference's inputs, so the two run in turn)."""
+    """The reference's weights and inputs, its sharded results, its train
+    steps' HLO collective bytes and whisper's parameter specs; then the
+    port's sharded and plain results (the worker reads the reference's
+    inputs, so the two run in turn)."""
     out = tmp_path_factory.mktemp("spmd_encdec")
     ref_out, = _run_all([([sys.executable, "-c", _reference_code(out)],
                           "the reference's run of the vlm and audio LMs")])
     _run_all([([sys.executable, str(ROOT / "tests" / "_spmd_worker.py"),
                 str(out), *CASES], "the port's 2 x 2 gloo run of the vlm "
                "and audio LMs")])
-    return dict(out=out, specs=json.loads(ref_out.strip().splitlines()[-1]),
+    printed = json.loads(ref_out.strip().splitlines()[-1])
+    return dict(out=out, specs=printed["specs"], coll=printed["coll"],
                 port={case: dict(np.load(out / f"{case}_out.npz"))
                       for case in CASES})
 
@@ -189,6 +207,48 @@ def test_sharded_step_prefill_decode_equal_the_reference(arch, runs):
         np.testing.assert_allclose(
             res[f"spmd/{name}"] - w0, want, rtol=REF_TOL,
             atol=REF_TOL * float(np.abs(want).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("arch", CASES)
+def test_collective_bytes_printed_beside_the_reference(arch, runs):
+    """The port's collectives of the case's SMOKE train step (its patch or
+    frame embeddings sharded by batch) on the same 2 x 2 mesh, counted on
+    meta under a fake group, printed beside the reference's HLO count; both
+    reduce activations, and the port's total is no higher than
+    ``WAS_COLLECTIVES``."""
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              dtype="float32")
+    audio = cfg.family == "audio"
+    with fake_process_group(4):
+        mesh = device_mesh((2, 2), ("data", "model"), "cuda")
+        ctx = ShardCtx(mesh=mesh)
+        opt = AdamWConfig(**OPT)
+        state = init_train_state(shard_params(
+            (init_encdec if audio else init_lm)(cfg, 0, device="meta"), ctx),
+            opt)
+        name, n = ("frames", cfg.encoder_frames) if audio else (
+            "patches", cfg.n_patches)
+
+        def rows(shape, dtype=torch.float32):
+            return distribute_tensor(
+                torch.empty(shape, dtype=dtype, device="meta"), mesh,
+                placements(("data",) + (None,) * (len(shape) - 1), mesh),
+                src_data_rank=None)
+
+        batch = {"tokens": rows((B, S + 1), torch.int64),
+                 name: rows((B, n, cfg.d_model))}
+        step = make_train_step(cfg, opt)
+
+        def fn(state, batch):
+            with use_ctx(ctx):
+                return step(state, batch)
+
+        got = collective_bytes(dryrun.count_sharded(fn, state,
+                                                    batch).collectives)
+    ref = runs["coll"][arch]
+    print(f"{arch}: port {got}; reference HLO {ref}")
+    assert got["all-reduce"] > 0 and ref["all-reduce"] > 0
+    assert got["total"] <= WAS_COLLECTIVES[arch]
 
 
 def _flat_specs(tree, prefix=""):

@@ -191,11 +191,16 @@ def test_sharded_bf16_carriers(case, runs):
     assert np.abs(got - res["plain/step"]).max() > 0
 
 
+# the port's collective bytes of the fitted case's step before they were
+# held to the reference's: they may not rise above them
+WAS_COLLECTIVES = 49_200
+
+
 def test_collective_bytes_printed_beside_the_reference(runs):
     """The port's collectives of the fitted case's step on the same 2 x 2
     mesh (counted on meta under a fake group) beside the reference's HLO
     count: the leaf rows all-gathered, the partials reduce-scattered and
-    the top levels all-reduced."""
+    the top levels all-reduced, no more bytes than ``WAS_COLLECTIVES``."""
     inp = runs["fitted"]["inputs"]
     with fake_process_group(4):
         mesh = device_mesh((2, 2), ("data", "model"), "cuda")
@@ -210,7 +215,7 @@ def test_collective_bytes_printed_beside_the_reference(runs):
     n, c = inp["y"].shape
     assert got["all-gather"] >= n * c * 4
     assert got["reduce-scatter"] > 0 and got["all-reduce"] > 0
-    assert ref["total"] > 0
+    assert ref["total"] > 0 and got["total"] <= WAS_COLLECTIVES
 
 
 def _meta_rows(shape, mesh, dtype=torch.float32, pl=None):
@@ -263,8 +268,9 @@ def test_run_vdt_cell_is_counted_per_device(variant, tmp_path, monkeypatch):
     assert coll["total"] == rec["roofline"]["coll_bytes"]
     n, c = paper_vdt.N_POINTS, paper_vdt.N_CLASSES
     carrier = 2 if variant == "bf16" else 4
-    # the leaf rows gathered in the carrier type (two mesh dimensions)
-    assert coll["all-gather"] == n * c * carrier * (1 + 1 / 16)
+    # the leaf rows gathered in the carrier type, once over the two mesh
+    # dimensions flattened (launch/mesh.py's device_mesh flattens them)
+    assert coll["all-gather"] == n * c * carrier
     specs, _ = paper_vdt.input_specs()
     assert rec["argument_bytes_per_device"] == sum(
         x.numel() * x.element_size() for x in specs.values()) // 256
