@@ -1203,43 +1203,23 @@ def phase_vdt_grf():
 
 
 def lp_engine_class():
-    """``PropagateEngine`` that brackets every scan and resumed segment with
-    CUDA events on the scheduler thread's stream (``device_ms``: their
-    summed spans), and with ``keep=True`` keeps a copy of each monolithic
-    scan's padded stack, alphas and output."""
-    import torch
+    """``PropagateEngine`` that, with ``keep=True``, keeps a copy of each
+    monolithic scan's padded stack, alphas and output."""
     from repro_torch.serving import PropagateEngine
 
     class Recorded(PropagateEngine):
         def __init__(self, *args, keep: bool = False, **kwargs):
-            self.keep, self.scans, self.events = keep, [], []
+            self.keep, self.scans = keep, []
             super().__init__(*args, **kwargs)
-
-        def _timed(self, fn, *args, **kwargs):
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            self.events.append((start, end))
-            return out
 
         def _scan(self, vdt, stack, alphas, n_iters, backend, *,
                   n_walkers=None):
-            out = self._timed(super()._scan, vdt, stack, alphas, n_iters,
-                              backend, n_walkers=n_walkers)
+            out = super()._scan(vdt, stack, alphas, n_iters, backend,
+                                n_walkers=n_walkers)
             if self.keep:
                 self.scans.append((stack.clone(), np.array(alphas),
                                    out.clone(), int(n_iters), n_walkers))
             return out
-
-        def _scan_resume(self, vdt, carry, y0, alphas, n_iters, backend):
-            return self._timed(super()._scan_resume, vdt, carry, y0, alphas,
-                               n_iters, backend)
-
-        def device_ms(self) -> float:
-            torch.cuda.synchronize()
-            return sum(s.elapsed_time(e) for s, e in self.events)
 
     return Recorded
 
@@ -1413,8 +1393,6 @@ def engine_throughput(vdt) -> dict:
                                max_wait_ms=TP_MAX_WAIT_MS,
                                max_queue=4 * TP_MAX_BATCH) as eng:
             warmed = eng.warmup(widths=TP_WIDTHS, n_iters=(TP_ITERS,))
-            eng.device_ms()
-            eng.events.clear()
 
             def client(cid):
                 for r in reqs[cid::k]:
@@ -1430,14 +1408,14 @@ def engine_throughput(vdt) -> dict:
                 t.join()
             wall = time.perf_counter() - t0
             m = eng.metrics()
-            device_s = eng.device_ms() / 1e3
         dispatches = m.dispatches - before.dispatches
         row = dict(clients=k, wall_s=wall, rps=TP_REQUESTS / wall,
                    speedup=TP_REQUESTS / wall / serial_rps,
                    occupancy=(m.batched_requests - before.batched_requests)
                    / max(1, dispatches),
                    dispatches=dispatches, p50_ms=m.latency_p50_ms,
-                   p95_ms=m.latency_p95_ms, device_share=device_s / wall,
+                   p95_ms=m.latency_p95_ms,
+                   walk_share=(m.walk_s - before.walk_s) / wall,
                    warmed=warmed)
         check(m.completed - before.completed == TP_REQUESTS and m.failed == 0,
               f"throughput: {m.completed} completed, {m.failed} failed")
@@ -1445,8 +1423,9 @@ def engine_throughput(vdt) -> dict:
               f"({row['speedup']:.2f} x serial), occupancy "
               f"{row['occupancy']:.1f}, {dispatches} dispatches, p50 "
               f"{row['p50_ms']:.1f} ms, p95 {row['p95_ms']:.1f} ms, "
-              f"device time (CUDA events around each dispatch) / wall "
-              f"{row['device_share']:.3f}; warmup {warmed} shapes")
+              f"the scheduler's walk seconds (enqueue and wait for the "
+              f"device, metrics().walk_s) / wall {row['walk_share']:.3f}; "
+              f"warmup {warmed} shapes")
         levels.append(row)
     return dict(serial_s=serial_s, serial_rps=serial_rps, levels=levels)
 
@@ -1467,7 +1446,7 @@ def engine_wide_exact(vdt, k1_k16_ms: float) -> dict:
     eng.flush()
     wall = time.perf_counter() - t0
     k1 = folded_step.launches - k1
-    ms = eng.device_ms() / LP_CHECK_ITERS
+    ms = eng.metrics().walk_s * 1e3 / LP_CHECK_ITERS
     check(k1 == LP_CHECK_ITERS and all(f.done() for f in futs),
           f"wide exact: {k1} K1 launches")
     x = vdt.x_rows
@@ -1478,7 +1457,8 @@ def engine_wide_exact(vdt, k1_k16_ms: float) -> dict:
     d = x.shape[1]
     bound_ms, by, _ = tc_bound(n, n, d, 64, 4.0 * (n * d + 3 * n * 64 + 64))
     print(f"  exact, 8 requests of width 8 (K=64), {LP_CHECK_ITERS} "
-          f"iterations: {ms:.2f} ms per iteration on the device "
+          f"iterations: {ms:.2f} ms per iteration of the walk (enqueue "
+          f"and wait for the device, metrics().walk_s) "
           f"({wall / LP_CHECK_ITERS * 1e3:.2f} ms wall), K1 launches {k1}; "
           f"a direct K1 launch at K=64 {direct_ms:.2f} ms, bound "
           f"{bound_ms:.2f} ms ({by}), {bound_ms / direct_ms:.3f} of it; K1 "

@@ -27,6 +27,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+# a profiler span whose keyword values reach the trace (``record_function``'s
+# ``args`` string does not); about 1 us when no profiler runs
+from torch._C._profiler import _RecordFunctionFast as _Span
 
 from repro_torch._device import resolve_device
 from repro_torch.core import blocks as blocks_mod
@@ -308,6 +311,12 @@ class VariationalDualTree:
         ``y0`` and has its shape; the continued walk equals the monolithic
         one bit for bit on a given device.  Arguments as
         :meth:`label_propagate`.
+
+        A batched call is profiler spans ``lp.fold``, ``lp.walk`` (the
+        scatter to leaf order, the walk, the gather back) and ``lp.unfold``;
+        an exact one is ``lp.exact``.  Each carries ``n_iters`` and the
+        folded width (batch x columns) as keyword values.  They time the
+        host's enqueueing only: the device runs the walk later.
         """
         y0, y = self._as_labels(y0), self._as_labels(y)
         if y.shape != y0.shape:
@@ -320,17 +329,23 @@ class VariationalDualTree:
                 "backend='grf' does not support segmented resume; "
                 "grf scans dispatch monolithically")
         self._check_backend(backend, batched, y0)
+        span_args = {"n_iters": int(n_iters),
+                     "width": y0.numel() // y0.shape[-2] if y0.ndim > 1 else 1}
         if backend == "exact":
-            return lp_scan_fused_resume(self.x_rows, y, y0, float(self.sigma),
-                                        alpha, int(n_iters),
-                                        divergence=self.bound_divergence.div)
+            with _Span("lp.exact", (), span_args):
+                return lp_scan_fused_resume(
+                    self.x_rows, y, y0, float(self.sigma), alpha,
+                    int(n_iters), divergence=self.bound_divergence.div)
         if y0.ndim == 3:
             batch, _, c = y0.shape
-            out = self.label_propagate_resume(
-                matvec_mod.fold_batch(y), matvec_mod.fold_batch(y0),
-                alpha=self._fold_request_alpha(alpha, batch, c),
-                n_iters=n_iters)
-            return matvec_mod.unfold_batch(out, batch, c)
+            with _Span("lp.fold", (), span_args):
+                y_f, y0_f = matvec_mod.fold_batch(y), matvec_mod.fold_batch(y0)
+                alpha_f = self._fold_request_alpha(alpha, batch, c)
+            with _Span("lp.walk", (), span_args):
+                out = self.label_propagate_resume(y_f, y0_f, alpha=alpha_f,
+                                                  n_iters=n_iters)
+            with _Span("lp.unfold", (), span_args):
+                return matvec_mod.unfold_batch(out, batch, c)
 
         squeeze = y0.ndim == 1
         if squeeze:

@@ -127,6 +127,21 @@ so the per-iteration time estimate reads finished device work.  The
 background scheduler thread launches CUDA work on its own current stream
 (torch's current stream is per thread).
 
+Observability
+-------------
+Besides the reference's counters, ``metrics()`` reports where the scheduler
+thread's time goes, in seconds on the engine's ``clock``: ``linger_s`` (the
+batching window), then per dispatched group ``stage_s`` (grouping, filling
+the host stack, the copy onto the device), ``walk_s`` (enqueueing the walk
+and waiting for the device), ``copy_out_s`` (the result slab to the host)
+and ``resolve_s`` (the futures).  Each phase is also a profiler span,
+``engine.linger`` or ``engine.<phase>`` inside one ``engine.dispatch`` span
+per drained microbatch (keyword values: its number and the entries'
+``seq``s), opened on the scheduler thread only.  ``queued_s`` sums each
+dispatched request's wait from ``t_submit`` to its dispatch's start,
+``blocked_s`` each ``submit``'s wait for room in a full queue, and
+``columns_real`` / ``columns_walked`` the true and the padded widths walked.
+
 Concurrency contract
 --------------------
 ``submit`` is thread-safe and may be called from any thread (or wrapped for
@@ -145,6 +160,9 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+# a profiler span whose keyword values reach the trace (``record_function``'s
+# ``args`` string does not); about 1 us when no profiler runs
+from torch._C._profiler import _RecordFunctionFast as _Span
 
 from repro_torch.core.label_prop import route_backend
 from repro_torch.serving._batching import (DEFAULT_WIDTH_BUCKETS,
@@ -358,6 +376,7 @@ class PropagateEngine(Engine):
                                    aging_s=self.aging_ms / 1e3, clock=clock)
         self._metrics = EngineMetrics()
         self._seq = 0
+        self._n_dispatch = 0  # _dispatch calls so far (the spans' number)
         self._in_flight = 0
         self.segment_iters = None if segment_iters is None else int(segment_iters)
         # arrival-rate estimate feeding the adaptive linger window
@@ -558,6 +577,7 @@ class PropagateEngine(Engine):
             t_deadline=None if validated.deadline_ms is None
             else now + validated.deadline_ms / 1e3,
             epoch=eid)
+        t_put = self._clock()
         try:
             self._queue.put(entry, block=block, timeout=timeout)
         except QueueFull:
@@ -566,6 +586,8 @@ class PropagateEngine(Engine):
                 self._retire_locked()
             self._metrics.count("rejected")
             raise
+        finally:
+            self._metrics.count("blocked_s", self._clock() - t_put)
         if self._closed and fut.cancel():
             # lost the race with shutdown(): the entry landed after (or
             # during) the final flush, so nobody may ever drain it — cancel
@@ -699,7 +721,10 @@ class PropagateEngine(Engine):
                 if not self._queue.wait_nonempty(timeout=0.05):
                     continue
                 if self.max_wait_ms > 0:
-                    self._linger()
+                    t0 = self._clock()
+                    with _Span("engine.linger"):
+                        self._linger()
+                    self._metrics.count("linger_s", self._clock() - t0)
                 self.step()
             except Exception:  # never let the scheduler thread die silently
                 # per-group errors were already delivered via set_exception;
@@ -720,7 +745,22 @@ class PropagateEngine(Engine):
         service pass dispatches with it so a preemption can never nest
         inside another preemption (unbounded recursion while the original
         suspended walk starves).
+
+        The call is one ``engine.dispatch`` span (its number and the
+        entries' ``seq``s as keyword values); each group in it runs the
+        phases ``engine.stage`` (grouping has one of its own), ``engine.walk``,
+        ``engine.copy_out`` and ``engine.resolve``, each span timed on the
+        engine's clock into the ``MetricsSnapshot`` field of its name.
         """
+        t_mark = self._clock()  # the first group's start: grouping is staging
+        self._n_dispatch += 1
+        with _Span("engine.dispatch", (), {
+                "dispatch": self._n_dispatch,
+                "seqs": ",".join(str(e.seq) for e in entries)}):
+            return self._dispatch_groups(entries, preemptible, t_mark)
+
+    def _dispatch_groups(self, entries: list[QueueEntry], preemptible: bool,
+                         t_mark: float) -> int:
         # group by (epoch, n_iters, backend) (+ width bucket unless
         # coalescing) via the canonical serving-tier key: only requests
         # sharing a scan length AND a transition matrix can share a
@@ -733,16 +773,17 @@ class PropagateEngine(Engine):
         # array and never fragments a group.
         groups: dict[tuple[int, int, str, int], list[QueueEntry]] = {}
         dead: list[QueueEntry] = []
-        for entry in entries:
-            if not entry.future.set_running_or_notify_cancel():
-                self._metrics.count("cancelled")  # cancelled post-drain
-                dead.append(entry)
-                continue
-            key = (entry.epoch,) + dispatch_group_key(
-                entry.request, self.buckets,
-                coalesce_widths=self.coalesce_widths)
-            groups.setdefault(key, []).append(entry)
-        self._release(dead)
+        with _Span("engine.stage"):
+            for entry in entries:
+                if not entry.future.set_running_or_notify_cancel():
+                    self._metrics.count("cancelled")  # cancelled post-drain
+                    dead.append(entry)
+                    continue
+                key = (entry.epoch,) + dispatch_group_key(
+                    entry.request, self.buckets,
+                    coalesce_widths=self.coalesce_widths)
+                groups.setdefault(key, []).append(entry)
+            self._release(dead)
 
         resolved = 0
         for (epoch, n_iters, backend, cb), group in sorted(groups.items()):
@@ -766,17 +807,24 @@ class PropagateEngine(Engine):
             group.sort(key=lambda e: e.seq)  # deterministic batch layout
             urgent_resolved = 0
             try:
-                bb = batch_bucket(len(group), self.max_batch)
-                stack = self._staging.setdefault(
-                    (n, bb, cb), np.zeros((bb, n, cb), np.float32))
-                stack.fill(0.0)
-                alphas = np.zeros((bb,), np.float32)  # padding rows: alpha 0
-                for k, entry in enumerate(group):
-                    y0 = entry.request.y0
-                    stack[k, :, :y0.shape[1]] = y0
-                    alphas[k] = entry.request.alpha
-                out, urgent_resolved = self._propagate_group(
-                    group, stack, alphas, n_iters, backend, preemptible,
+                with _Span("engine.stage"):
+                    bb = batch_bucket(len(group), self.max_batch)
+                    stack = self._staging.setdefault(
+                        (n, bb, cb), np.zeros((bb, n, cb), np.float32))
+                    stack.fill(0.0)
+                    alphas = np.zeros((bb,), np.float32)  # padding: alpha 0
+                    for k, entry in enumerate(group):
+                        y0 = entry.request.y0
+                        stack[k, :, :y0.shape[1]] = y0
+                        alphas[k] = entry.request.alpha
+                    # device-resident seed of its own: urgent dispatches
+                    # between segments refill the SAME staging buffers, so
+                    # no walk may read the staging pool after this
+                    # synchronous copy
+                    y0_dev = _to_device(stack, vdt.device)
+                t_staged = self._clock()
+                out, urgent_resolved, walk_s = self._propagate_group(
+                    group, y0_dev, alphas, n_iters, backend, preemptible,
                     vdt, n_walkers=n_walkers)
             except Exception as exc:  # resolve the group, keep scheduling
                 for entry in group:
@@ -784,27 +832,39 @@ class PropagateEngine(Engine):
                 self._metrics.count("failed", len(group))
                 self._release(group)
                 resolved += len(group) + urgent_resolved
+                t_mark = self._clock()
                 continue
             resolved += urgent_resolved
-            self._metrics.record_dispatch(len(group))
+            widths = tuple(e.request.y0.shape[1] for e in group)
+            self._metrics.record_dispatch(
+                len(group), stage_s=t_staged - t_mark, walk_s=walk_s,
+                queued_s=sum(t_mark - e.t_submit for e in group),
+                columns_real=sum(widths), columns_walked=bb * cb)
             # slot-based result layout (engine_api.ResultSlab): ONE
             # device-to-host copy for the whole group, then each future
             # resolves to a zero-copy view sliced to its true width —
             # host-transfer cost per dispatch is one contiguous array,
             # however many requests coalesced into it
-            slab = ResultSlab(
-                data=out.cpu().numpy(),
-                widths=tuple(e.request.y0.shape[1] for e in group))
+            t0 = self._clock()
+            with _Span("engine.copy_out"):
+                slab = ResultSlab(data=out.cpu().numpy(), widths=widths)
             t_done = self._clock()
-            for k, entry in enumerate(group):
-                entry.future.set_result(slab.view(k))
-                self._metrics.record_latency(t_done - entry.t_submit)
-                if entry.t_deadline is not None and t_done > entry.t_deadline:
-                    # answered, but late: visible in metrics so operators
-                    # can tell "meets deadlines" from "merely completes"
-                    self._metrics.count("deadline_missed")
-            self._metrics.count("completed", len(group))
-            self._release(group)
+            latencies, missed = [], 0
+            with _Span("engine.resolve"):
+                for k, entry in enumerate(group):
+                    entry.future.set_result(slab.view(k))
+                    latencies.append(t_done - entry.t_submit)
+                    if (entry.t_deadline is not None
+                            and t_done > entry.t_deadline):
+                        # answered, but late: visible in metrics so
+                        # operators can tell "meets deadlines" from
+                        # "merely completes"
+                        missed += 1
+                self._release(group)
+            t_mark = self._clock()
+            self._metrics.record_resolved(
+                latencies, deadline_missed=missed, copy_out_s=t_done - t0,
+                resolve_s=t_mark - t_done)
             resolved += len(group)
         return resolved
 
@@ -943,15 +1003,18 @@ class PropagateEngine(Engine):
                                           n_iters=n_iters, batched=True,
                                           backend=backend)
 
-    def _propagate_group(self, group: list[QueueEntry], stack: np.ndarray,
+    def _propagate_group(self, group: list[QueueEntry], y0_dev: torch.Tensor,
                          alphas: np.ndarray, n_iters: int, backend: str,
                          preemptible: bool, vdt=None, n_walkers=None):
         """Run one group's LP walk, segmented and preemptible when enabled.
 
-        Returns ``(out, urgent_resolved)`` where ``out`` is the group's
-        final ``(bb, N, cb)`` label stack and ``urgent_resolved`` counts
-        futures resolved by urgent service passes taken at segment
-        boundaries (0 on the monolithic path).
+        Returns ``(out, urgent_resolved, walk_s)`` where ``out`` is the
+        group's final ``(bb, N, cb)`` label stack, ``urgent_resolved``
+        counts futures resolved by urgent service passes taken at segment
+        boundaries (0 on the monolithic path), and ``walk_s`` the engine
+        clock's seconds in this walk's own scans and device waits (each an
+        ``engine.walk`` span; the urgent passes between segments are
+        not in it).
 
         The walk is segmented only when it is worth anything: preemption
         enabled (``segment_iters``), the EDF discipline (the only one with
@@ -971,35 +1034,33 @@ class PropagateEngine(Engine):
             vdt = self.vdt
         dev = vdt.device
         seg = self.segment_iters
-        # device-resident seed of its own: urgent dispatches between
-        # segments refill the SAME staging buffers, so no walk may read the
-        # staging pool after this synchronous copy
-        y0_dev = _to_device(stack, dev)
-        if backend == "grf":
-            # always monolithic: the MC series estimator has no exact
-            # resume primitive (label_propagate_resume rejects grf)
-            out = self._scan(vdt, y0_dev, alphas, n_iters, "grf",
-                             n_walkers=n_walkers)
-            _sync(dev)
-            return out, 0
-        # segment only when this configuration actually preempts — the
-        # capability the engine itself reports, not an attribute probe
-        if (not preemptible or "preempt" not in self.capabilities()
+        # grf always dispatches monolithically: the MC series estimator has
+        # no exact resume primitive (label_propagate_resume rejects grf).
+        # Otherwise segment only when this configuration actually preempts
+        # — the capability the engine itself reports, not an attribute probe
+        if (backend == "grf" or not preemptible
+                or "preempt" not in self.capabilities()
                 or int(n_iters) <= seg):
-            out = self._scan(vdt, y0_dev, alphas, n_iters, backend)
-            _sync(dev)
-            return out, 0
+            t0 = self._clock()
+            with _Span("engine.walk"):
+                out = self._scan(vdt, y0_dev, alphas, n_iters, backend,
+                                 n_walkers=n_walkers)
+                _sync(dev)
+            return out, 0, self._clock() - t0
         rec = _InFlightScan(entries=group, carry=y0_dev, y0=y0_dev,
                             alphas=alphas, n_iters=int(n_iters),
                             backend=backend)
         urgent_resolved = 0
+        walk_s = 0.0
         while rec.iters_done < rec.n_iters:
             k = min(seg, rec.n_iters - rec.iters_done)
             t0 = self._clock()
-            rec.carry = self._scan_resume(vdt, rec.carry, rec.y0,
-                                          rec.alphas, k, rec.backend)
-            _sync(dev)
+            with _Span("engine.walk"):
+                rec.carry = self._scan_resume(vdt, rec.carry, rec.y0,
+                                              rec.alphas, k, rec.backend)
+                _sync(dev)
             dt = max(self._clock() - t0, 0.0)
+            walk_s += dt
             rec.iters_done += k
             with self._state_lock:
                 per_iter = dt / k
@@ -1019,7 +1080,7 @@ class PropagateEngine(Engine):
                 self._metrics.count("preemptions")
                 self._metrics.count("preempt_iters", remaining)
                 urgent_resolved += self._service_urgent(horizon)
-        return rec.carry, urgent_resolved
+        return rec.carry, urgent_resolved, walk_s
 
     def _service_urgent(self, horizon: float) -> int:
         """Serve queued entries whose deadline falls before ``horizon``.

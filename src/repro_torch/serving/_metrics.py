@@ -8,6 +8,14 @@ them into an immutable :class:`MetricsSnapshot` that benchmarks and
 operators read.  Latencies live in a bounded ring (newest
 :data:`LATENCY_WINDOW` samples), so a long-running engine reports *recent*
 p50/p95 rather than lifetime ones and memory stays O(1).
+
+The port adds seconds and columns that the reference does not count: where
+the scheduler thread's time goes in each dispatch cycle (``linger_s``,
+``stage_s``, ``walk_s``, ``copy_out_s``, ``resolve_s``, each beside a
+profiler span of the same phase, ``engine.<phase>``), how long requests
+waited (``queued_s``, ``blocked_s``), and how much of each walk was padding
+(``columns_real`` of ``columns_walked``).  They are monotone totals, read
+as deltas over a window.
 """
 from __future__ import annotations
 
@@ -35,10 +43,13 @@ class MetricsSnapshot:
     Counter fields are monotone lifetime totals; gauge fields
     (``queue_depth``, ``in_flight``, ``linger_window_ms``) are
     instantaneous; latency quantiles cover the newest
-    :data:`LATENCY_WINDOW` completed requests, measured from queue accept
-    (``submit`` return) to future resolution — i.e. they include
-    queueing/linger time, not just device time.  Conservation: every
-    accepted request ends in exactly one of ``completed``, ``failed``,
+    :data:`LATENCY_WINDOW` completed requests, measured from the request's
+    ``t_submit`` to its future's resolution — i.e. they include
+    queueing/linger time, not just device time.  ``t_submit`` is stamped
+    inside ``submit`` after validation and before the queue insert, which
+    may block on a full queue: a blocked ``submit``'s wait is in its
+    latency (and in ``blocked_s``), its validation is not.  Conservation:
+    every accepted request ends in exactly one of ``completed``, ``failed``,
     ``cancelled`` or ``expired`` (``submitted`` minus those four = queued
     or in flight); ``rejected`` requests were never accepted and appear in
     no other counter.  ``deadline_missed`` is an annotation on
@@ -87,6 +98,19 @@ class MetricsSnapshot:
     queue_depth: int = 0  # entries waiting right now (gauge)
     in_flight: int = 0  # drained but not yet resolved (gauge)
     linger_window_ms: float = float("nan")  # current adaptive batching window
+    linger_s: float = 0.0  # scheduler seconds in the batching window
+    stage_s: float = 0.0  # ... grouping, filling the host stack, copying it
+    #   onto the device
+    walk_s: float = 0.0  # ... enqueueing the LP walk and waiting for the
+    #   device (a preempted walk counts its own segments only: the urgent
+    #   dispatches between them count under their own phases)
+    copy_out_s: float = 0.0  # ... copying each result slab to the host
+    resolve_s: float = 0.0  # ... resolving the futures
+    queued_s: float = 0.0  # summed over dispatched requests: the start of
+    #   their dispatch less their t_submit (includes blocked_s)
+    blocked_s: float = 0.0  # summed over submits: waiting on a full queue
+    columns_real: int = 0  # summed over dispatches: the requests' widths
+    columns_walked: int = 0  # ... batch bucket x width bucket walked
     latency_p50_ms: float = float("nan")  # windowed submit->result median
     latency_p95_ms: float = float("nan")  # windowed tail latency
     latency_mean_ms: float = float("nan")  # windowed mean
@@ -120,21 +144,50 @@ class EngineMetrics:
             epochs_published=0,
             epochs_retired=0,
             patched_points=0,
+            linger_s=0.0,
+            stage_s=0.0,
+            walk_s=0.0,
+            copy_out_s=0.0,
+            resolve_s=0.0,
+            queued_s=0.0,
+            blocked_s=0.0,
+            columns_real=0,
+            columns_walked=0,
         )
         self._latencies_ms: deque[float] = deque(maxlen=latency_window)
 
-    def count(self, event: str, n: int = 1) -> None:
+    def count(self, event: str, n: float = 1) -> None:
+        """Add ``n`` to one counter (events, or seconds for ``*_s``)."""
         with self._lock:
             self._counts[event] += n
 
-    def record_dispatch(self, n_requests: int) -> None:
+    def record_dispatch(self, n_requests: int, *, stage_s: float = 0.0,
+                        walk_s: float = 0.0, queued_s: float = 0.0,
+                        columns_real: int = 0,
+                        columns_walked: int = 0) -> None:
+        """One device dispatch of ``n_requests`` requests, walked and not
+        yet copied out."""
         with self._lock:
-            self._counts["dispatches"] += 1
-            self._counts["batched_requests"] += n_requests
+            c = self._counts
+            c["dispatches"] += 1
+            c["batched_requests"] += n_requests
+            c["stage_s"] += stage_s
+            c["walk_s"] += walk_s
+            c["queued_s"] += queued_s
+            c["columns_real"] += columns_real
+            c["columns_walked"] += columns_walked
 
-    def record_latency(self, seconds: float) -> None:
+    def record_resolved(self, latencies_s, *, deadline_missed: int = 0,
+                        copy_out_s: float = 0.0,
+                        resolve_s: float = 0.0) -> None:
+        """One dispatch's requests answered: their latencies (seconds)."""
         with self._lock:
-            self._latencies_ms.append(seconds * 1e3)
+            c = self._counts
+            c["completed"] += len(latencies_s)
+            c["deadline_missed"] += deadline_missed
+            c["copy_out_s"] += copy_out_s
+            c["resolve_s"] += resolve_s
+            self._latencies_ms.extend(s * 1e3 for s in latencies_s)
 
     def snapshot(
         self,
