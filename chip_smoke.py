@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero):
 
-1. device and build: the card's name and power limit, and the five kernel
+1. device and build: the card's name and power limit, and the six kernel
    sources and K5's L2 probe built at once with ``nvcc`` for ``sm_90a`` from the checkout, with
    the shared headers of ``kernels/csrc`` (``fused_lp/csrc/folded_lp.cu``:
    K1 the folded exact LP step, K2 ``P @ Y``, K3 the per-batch-recompute
@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
    ``grf/csrc/grf_feature.cu``: K5 the GRF walker-mean feature product;
    ``flash_attention/csrc/flash_attention_tf32x3.cu``: K6's float32 route,
    3xTF32 on the tensor cores; ``flash_attention/csrc/flash_attention_sm90.cu``:
-   K6's bfloat16 route on the tensor cores; and ``tools/l2_gather_probe.cu``,
+   K6's bfloat16 route on the tensor cores;
+   ``block_combine/csrc/block_combine.cu``: the VDT walk's block combine; and
+   ``tools/l2_gather_probe.cu``,
    K5's L2 yardstick, no kernel of the port), with their ``-Xptxas -v``
    lines;
 2. K1 against its plain-torch version on the card at small shapes: one
@@ -39,10 +41,22 @@ Phases (any failure exits non-zero):
 3. the main path, at the scale of the paper's SecStr benchmark
    (``secstr_like(83_679, 315, seed=3)``, ``|B| = 4N``): ``fit`` on the card,
    VDT label propagation (one request and a batch of 8 with per-request
-   alpha), and the exact backend through K1 for 10 iterations each;
+   alpha), and the exact backend through K1 for 10 iterations each; every
+   VDT iteration one launch of the block combine;
 4. checks after the main path: VDT results against the same calls on a CPU
    copy of the fitted model, the exact backend's first 2 iterations against
    the plain version on the card, and K1's time per launch beside its bound;
+4b. ``[block combine]``, the VDT walk's combine over the CSR of the active
+   blocks (``kernels/block_combine``): against its plain version within the
+   precision gate (float64; 2 x the plain float32 version's error) and two
+   launches bit for bit at K = 1, 3, 8, 32, 128, 256, on a synthetic
+   partition with a row of 700 blocks, the SecStr model of phase 3 and the
+   benchmark's alpha model (``alpha_like(2**18, 500)``, fitted here); timed
+   at K = 128 and 256 beside its byte bound, its plain version and the
+   slot-list ``index_select`` + ``index_add_`` it replaced, and one walk
+   iteration with and without it; a walk resumed after 3 of 10 iterations
+   equal to the monolithic one bit for bit; one launch an iteration through
+   ``PropagateEngine``;
 5. the GRF path at the same scale: the paper's k = 4 kNN graph
    (``core.baselines.build_knn_graph``) built on the card and walked by
    ``grf_label_propagate`` for 50 iterations with 64 and 400 walkers a point
@@ -60,8 +74,8 @@ Phases (any failure exits non-zero):
    fitted SecStr model of phase 3: (a) 6 requests of widths 1-3 coalesced
    into one dispatch, equal to a direct batched ``label_propagate`` on the
    engine's padded stack (bit for bit through K1; for ``vdt`` bit for bit
-   only if two direct calls on the card agree, as ``index_add_`` reduces with
-   atomics) and within rtol=1e-4, atol=1e-5 of each request's solo call;
+   when two direct calls on the card agree, as they do through the block
+   combine) and within rtol=1e-4, atol=1e-5 of each request's solo call;
    (b) under ``edf`` with ``segment_iters=5``, an urgent request injected at
    the first segment boundary of a 50-iteration exact walk is served before
    the walk ends, and the walk equals the monolithic scan bit for bit; (c)
@@ -353,6 +367,12 @@ K6_BF16_PLAIN_TOL, K6_BLOCK_RMS = 1e-2, 1e-2
 # float32 version's, max and RMS; K1's 1 / (2 sigma^2) on Gaussian d = 315
 GATE_SEED, GATE_N_K1, GATE_RATIO, GATE_INV_TSS = 15, 16_384, 2.0, 0.1
 TC_ROUTE = "tf32x3"          # K1-K4's tensor-core route
+# the VDT walk's block combine (kernels/block_combine): the folded widths of
+# its gate, the cells' widths at which it is timed (batch 32 x width 8 and
+# 16 x 8), and the benchmark's alpha configuration (alpha_like's n, d and
+# seed; refine_batch), fitted at |B| = 4N with 3 sigma iterations
+BC_WIDTHS, BC_TIMED, BC_REPS = (1, 3, 8, 32, 128, 256), (128, 256), 20
+BC_ALPHA = (2 ** 18, 500, 4, 2_048)
 K6_F32_ROUTE = "sm90_tf32x3"  # K6's float32 route: 3xTF32 on the tensor cores
 K6_ROUTES = {"float32": K6_F32_ROUTE, "bfloat16": "sm90_bf16"}
 K6_GATE_SEED = 16
@@ -547,6 +567,7 @@ def close(got, want, what: str, rtol: float = RTOL,
 
 def counters():
     """The launch counters of every kernel wrapper, by kernel."""
+    from repro_torch.kernels.block_combine import block_combine
     from repro_torch.kernels.fused_lp import folded_step, matvec_step, \
         perbatch_step
     from repro_torch.kernels.flash_attention import flash_attention
@@ -555,7 +576,7 @@ def counters():
 
     return {"K1": folded_step, "K2": matvec_step, "K3": perbatch_step,
             "K4": pairwise_sq_dists, "K5": grf_feature_matvec,
-            "K6": flash_attention}
+            "K6": flash_attention, "block combine": block_combine}
 
 
 def reset_counts() -> None:
@@ -653,6 +674,8 @@ def graph_ms(fn, reps: int) -> float:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.block_combine.ops import \
+        kernel_library as lib_combine
     from repro_torch.kernels.flash_attention.ops import \
         sm90_library as lib_k6_sm90
     from repro_torch.kernels.flash_attention.ops import \
@@ -667,11 +690,12 @@ def phase_build():
     print(smi.stdout.strip().splitlines()[0])
     t0 = time.perf_counter()
     names = ("K1-K3", "K4", "K5", f"K6 {K6_F32_ROUTE}", "K6 sm90_bf16",
-             "L2 yardstick")
+             "block combine", "L2 yardstick")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(lambda f: f(), (lib_k123, lib_k4, lib_k5,
                                                lib_k6, lib_k6_sm90,
+                                               lib_combine,
                                                l2_probe_library)))
     print(f"[build] {time.perf_counter() - t0:.2f} s for all sources")
     for name, lib in zip(names, built):
@@ -959,6 +983,190 @@ def phase_after(data, out) -> dict:
         rows.append(dict(k=k, ms=ms, ms2=ms2, plain_ms=plain_ms,
                          bound_ms=bound_ms, by=by))
     return dict(max_abs_err=max(errs), rows=rows)
+
+
+def bc_synthetic(device) -> tuple:
+    """A partition of 4,000 slots over an 11-level heap: one node with 700
+    blocks, nodes of the upper half with a few, a fifth of the slots
+    inactive, capacity padding at node 0; ``(L, a, b, active, q)``."""
+    import torch
+    from repro_torch.core.matvec import prepare_q
+
+    rng = np.random.RandomState(33)
+    L, cap, used = 10, 4_000, 3_000
+    n_nodes = (2 << L) - 1
+    a, b = np.zeros(cap, np.int64), np.zeros(cap, np.int64)
+    a[:used] = rng.randint(1, n_nodes // 2, used)
+    a[rng.choice(used, 700, replace=False)] = 7
+    b[:used] = rng.randint(0, n_nodes, used)
+    active = np.zeros(cap, bool)
+    active[:used] = rng.rand(used) < 0.8
+    log_q = np.log(rng.rand(cap) + 0.01).astype(np.float32)
+    a, b, active, log_q = (torch.as_tensor(v, device=device)
+                           for v in (a, b, active, log_q))
+    return L, a, b, active, prepare_q(active, log_q)
+
+
+def bc_gate(t, csr, what: str) -> dict:
+    """The block combine against its plain version in float32 and float64
+    (the gate), and two launches bit for bit."""
+    import torch
+    from repro_torch.kernels.block_combine import (block_combine,
+                                                   block_combine_plain)
+
+    got = block_combine(t, csr)
+    again = block_combine(t, csr)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{what}: two launches differ")
+    ref = block_combine_plain(t.double(), csr.row_ptr, csr.b, csr.q.double())
+    return gate_check(what, got, block_combine_plain(t, csr.row_ptr, csr.b,
+                                                     csr.q), ref)
+
+
+def bc_model(name: str, model) -> dict:
+    """One fitted model's CSR: the gate at ``BC_WIDTHS``, then the kernel,
+    its plain version and the slot-list combine it replaced (``index_select``,
+    the product by q, ``index_add_`` into zeros over every capacity slot)
+    timed in turns at ``BC_TIMED``, beside its byte bound and one walk
+    iteration with and without it."""
+    import torch
+    from repro_torch.core.label_prop import lp_scan_leaforder_resume
+    from repro_torch.core.matvec import collect_up
+    from repro_torch.kernels.block_combine import (block_combine,
+                                                   block_combine_plain)
+    from repro_torch.launch.roofline import HW
+
+    csr, bp, tree = model._block_csr(), model.bp, model.tree
+    a, b, _, q, mask = model._dispatch_buffers()
+    rows = csr.row_ptr.diff()
+    print(f"  {name}: N={tree.n_points}, {bp.cap} capacity slots, {bp.n} "
+          f"used, {bp.n_active} active; the CSR walks {csr.n_blocks} blocks "
+          f"in {csr.item_row.shape[0]} items over {csr.n_nodes} nodes "
+          f"({int((rows > 0).sum())} with blocks, the largest "
+          f"{int(rows.max())}, {csr.fin_row.shape[0]} finished from "
+          f"{csr.n_partials} chunks)")
+    check(csr.n_blocks == bp.n_active, f"{name}: CSR keeps {csr.n_blocks} "
+                                       f"blocks of {bp.n_active} active")
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def node_sums(k):
+        y = torch.randn((tree.n_leaves, k), generator=g, device="cuda")
+        return collect_up(y * mask, tree.L)
+
+    gate = {k: bc_gate(node_sums(k), csr, f"{name} K={k}") for k in BC_WIDTHS}
+    out = dict(cap=bp.cap, used=bp.n, active=bp.n_active,
+               walked=csr.n_blocks, max_row=int(rows.max()), gate=gate,
+               rows=[])
+    for k in BC_TIMED:
+        t = node_sums(k)
+        y0 = (torch.rand((tree.n_leaves, k), generator=g, device="cuda")
+              > 0.9).float() * mask
+        al = torch.full((k,), 0.05, device="cuda")
+
+        def library():
+            return torch.zeros_like(t).index_add_(
+                0, a, q[:, None] * t.index_select(0, b))
+
+        kernel_ms = [cuda_ms(lambda: block_combine(t, csr), BC_REPS)]
+        library_ms = [cuda_ms(library, BC_REPS)]
+        kernel_ms.append(cuda_ms(lambda: block_combine(t, csr), BC_REPS))
+        library_ms.append(cuda_ms(library, BC_REPS))
+        plain_ms = cuda_ms(lambda: block_combine_plain(
+            t, csr.row_ptr, csr.b, csr.q), 3)
+        walk_ms = cuda_ms(lambda: lp_scan_leaforder_resume(
+            y0, y0, mask, a, b, q, al, tree.L, 1, csr), BC_REPS)
+        walk_was_ms = cuda_ms(lambda: lp_scan_leaforder_resume(
+            y0, y0, mask, a, b, q, al, tree.L, 1), BC_REPS)
+        # the active blocks' rows of t and their b and q read once, c_node
+        # written once
+        nbytes = csr.n_blocks * (4.0 * k + 8.0) + csr.n_nodes * 4.0 * k
+        bound_ms = nbytes / HW.HBM_BW * 1e3
+        print(f"  {name} K={k}: block combine {kernel_ms[0]:.4f} / "
+              f"{kernel_ms[1]:.4f} ms per launch, bound {bound_ms:.4f} ms "
+              f"(bytes, {nbytes / 1e9:.3f} GB), {bound_ms / kernel_ms[1]:.3f}"
+              f" of it; the slot-list index_select + index_add_ "
+              f"{library_ms[0]:.4f} / {library_ms[1]:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; one walk iteration {walk_ms:.4f} ms, "
+              f"{walk_was_ms:.4f} ms on the slot list")
+        out["rows"].append(dict(k=k, ms=kernel_ms, library_ms=library_ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
+                                walk_ms=walk_ms, walk_was_ms=walk_was_ms))
+    return out
+
+
+def phase_block_combine(vdt=None) -> dict:
+    """The VDT walk's block combine on the card: the kernel against its
+    plain version within the precision gate and two launches bit for bit,
+    on a synthetic partition with a row of 700 blocks and on the SecStr
+    model (``vdt``, fitted here when not given) and the benchmark's alpha
+    model; times at the cells' widths; a segmented walk equal to the
+    monolithic one bit for bit; one launch an iteration through
+    ``PropagateEngine``."""
+    import torch
+    from repro_torch import VariationalDualTree
+    from repro_torch.data.synthetic import alpha_like, secstr_like
+    from repro_torch.kernels.block_combine import block_combine, block_csr
+    from repro_torch.core.matvec import collect_up
+
+    print(f"[block combine] kernel vs plain within {GATE_RATIO} x the plain "
+          f"float32 version's error against float64, two launches bit for "
+          f"bit")
+    L, a, b, active, q = bc_synthetic("cuda")
+    csr = block_csr(a, b, q, active, (2 << L) - 1)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = {"synthetic": {k: bc_gate(collect_up(torch.randn(
+        (1 << L, k), generator=g, device="cuda"), L), csr,
+        f"synthetic K={k}") for k in BC_WIDTHS}}
+    models = {}
+    for name, (n, d, seed, batch) in (("secstr", (N_SECSTR, D_SECSTR, 3, 512)),
+                                      ("alpha", BC_ALPHA)):
+        if name == "secstr" and vdt is not None:
+            models[name] = vdt
+            continue
+        x = (secstr_like if name == "secstr" else alpha_like)(n, d, seed).x
+        t0 = time.perf_counter()
+        models[name] = VariationalDualTree.fit(
+            x, max_blocks=4 * n, refine_batch=batch, sigma_iters=3)
+        torch.cuda.synchronize()
+        print(f"  {name}: fitted N={n} d={d} in "
+              f"{time.perf_counter() - t0:.1f} s")
+    for name, model in models.items():
+        out[name] = bc_model(name, model)
+    failed = [f"{m} K={k}" for m, r in out.items()
+              for k, v in (r if m == "synthetic" else r["gate"]).items()
+              if not v["ok"]]
+    check(not failed, f"block combine gate failed for {failed}")
+    del models["alpha"]
+
+    model = models["secstr"]
+    y0 = torch.as_tensor(lp_requests(model.tree.n_points, 1, (8,), 31,
+                                     1)[0].y0, device="cuda")
+    mono = model.label_propagate(y0, alpha=0.05, n_iters=10)
+    seg = model.label_propagate_resume(
+        model.label_propagate(y0, alpha=0.05, n_iters=3), y0, alpha=0.05,
+        n_iters=7)
+    check(torch.equal(mono, seg), "a resumed vdt walk differs from the "
+                                  "monolithic one")
+    eng = lp_engine_class()(model, start=False, max_batch=4, keep=True)
+    futs = [eng.submit(r) for r in lp_requests(model.tree.n_points, 3,
+                                               (1, 2), 32, 5)]
+    before = block_combine.launches
+    eng.flush()
+    launches = block_combine.launches - before
+    stack, alphas, got, n_iters, _ = eng.scans[0]
+    direct = model.label_propagate(stack, alpha=alphas, n_iters=n_iters,
+                                   batched=True)
+    check(len(eng.scans) == 1 and launches == n_iters,
+          f"engine: {launches} block combine launches for "
+          f"{len(eng.scans)} dispatches of {n_iters} iterations")
+    check(torch.equal(got, direct), "vdt engine differs from the direct call")
+    check(all(f.done() for f in futs), "engine: a request was not answered")
+    print(f"  a walk resumed after 3 of 10 iterations == monolithic bit for "
+          f"bit; one engine dispatch of {n_iters} iterations: {launches} "
+          f"launches, == the direct call bit for bit")
+    out["engine_launches"] = launches
+    print(f"[block combine] summary {json.dumps(out)}")
+    return out
 
 
 def phase_knn(data, sigma: float):
@@ -5406,7 +5614,11 @@ def main() -> int:
           f"main path launched K1 {main_counts['K1']} times, expected "
           f"{2 * EXACT_ITERS}")
     check_tc_route(main_counts, ("K1",))
+    check(main_counts["block combine"] == 2 * VDT_ITERS,
+          f"main path launched the block combine "
+          f"{main_counts['block combine']} times, expected {2 * VDT_ITERS}")
     after = phase_after(data, out)
+    combine = phase_block_combine(out["vdt"])
 
     knn, graph = phase_knn(data, float(out["vdt"].sigma))
     reset_counts()
@@ -5609,6 +5821,19 @@ def main() -> int:
             library_ms2=r["lib_ms2"], bound_ms=r["bound_ms"],
             l2_gb=r["l2_gb"], l2_gb_per_s=r["l2_gb_per_s"])
             for r in k5["rows"]}))
+    # the walk's block combine replaces no Pallas kernel: timed at SecStr's
+    # and alpha's models, the slot-list index_add_ it replaced as library
+    combine_rows = {f"{m} K={r['k']}": r for m in ("secstr", "alpha")
+                    for r in combine[m]["rows"]}
+    top = combine_rows["secstr K=256"]
+    kernels.append(dict(
+        name="VDT block combine", route="cuda",
+        source="src/repro_torch/kernels/block_combine/csrc/block_combine.cu",
+        replaces=None, launches=main_counts["block combine"],
+        ms=top["ms"][1], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by="bytes", library_ms=top["library_ms"][1],
+        shape="SecStr model, K=256", by_shape=combine_rows,
+        lp_engine_launches=combine["engine_launches"]))
     # K6: one entry per route, each timed at smollm-360m's shape in its type;
     # launches are the bf16 prefill's and the f32 twin's
     k6_dir = "src/repro_torch/kernels/flash_attention/csrc/"

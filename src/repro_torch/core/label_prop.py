@@ -27,6 +27,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.matvec import mpt_matvec_leaforder
+from repro_torch.kernels.block_combine import BlockCsr
 
 __all__ = ["AUTO_EXACT_MAX_N", "AUTO_GRF_MAX_DENSITY", "AUTO_GRF_MIN_RTOL",
            "CONCRETE_BACKENDS", "ccr", "label_propagate", "lp_scan_fused", "lp_scan_fused_resume",
@@ -110,16 +111,19 @@ def lp_scan_leaforder_resume(y_leaf: torch.Tensor, y0_leaf: torch.Tensor,
                              leaf_mask: torch.Tensor, a: torch.Tensor,
                              b: torch.Tensor, q: torch.Tensor,
                              alpha: torch.Tensor, L: int,
-                             n_iters: int) -> torch.Tensor:
+                             n_iters: int,
+                             csr: BlockCsr | None = None) -> torch.Tensor:
     """``n_iters`` VDT eq.-15 steps in leaf order from the carry ``y_leaf``.
 
     Ghost leaves receive meaningless DistributeDown path sums, so the matvec
     term is re-masked by ``leaf_mask`` (Np, 1) every iteration; ghost rows
-    of the seed are zero, so they stay zero.
+    of the seed are zero, so they stay zero.  ``csr`` (the blocks'
+    ``block_csr``) routes each combine through the block-combine kernel on
+    the card (:func:`~repro_torch.core.matvec.mpt_matvec_leaforder`).
     """
     y = y_leaf
     for _ in range(int(n_iters)):
-        y = leaf_mask * (alpha * mpt_matvec_leaforder(y, a, b, q, L)) \
+        y = leaf_mask * (alpha * mpt_matvec_leaforder(y, a, b, q, L, csr)) \
             + (1.0 - alpha) * y0_leaf
     return y
 
@@ -127,15 +131,16 @@ def lp_scan_leaforder_resume(y_leaf: torch.Tensor, y0_leaf: torch.Tensor,
 def lp_scan_leaforder(y0_leaf: torch.Tensor, leaf_mask: torch.Tensor,
                       a: torch.Tensor, b: torch.Tensor, q: torch.Tensor,
                       alpha: torch.Tensor, L: int,
-                      n_iters: int) -> torch.Tensor:
+                      n_iters: int,
+                      csr: BlockCsr | None = None) -> torch.Tensor:
     """Eq. 15 for ``n_iters`` steps entirely in leaf order; returns (Np, K)."""
     return lp_scan_leaforder_resume(y0_leaf, y0_leaf, leaf_mask, a, b, q,
-                                    alpha, L, n_iters)
+                                    alpha, L, n_iters, csr)
 
 
 def lp_scan_leaforder_segmented(y0_leaf, leaf_mask, a, b, q, alpha, L: int,
-                                n_iters: int,
-                                segment_iters: int) -> torch.Tensor:
+                                n_iters: int, segment_iters: int,
+                                csr: BlockCsr | None = None) -> torch.Tensor:
     """Eq. 15 as ``ceil(n_iters / segment_iters)`` resumed segments."""
     if segment_iters < 1:
         raise ValueError(f"segment_iters must be >= 1, got {segment_iters}")
@@ -143,7 +148,7 @@ def lp_scan_leaforder_segmented(y0_leaf, leaf_mask, a, b, q, alpha, L: int,
     while done < n_iters:
         k = min(int(segment_iters), int(n_iters) - done)
         y = lp_scan_leaforder_resume(y, y0_leaf, leaf_mask, a, b, q, alpha,
-                                     L, k)
+                                     L, k, csr)
         done += k
     return y
 

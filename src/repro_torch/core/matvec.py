@@ -14,15 +14,18 @@ trailing channel axis, so leading batch dims ride along, and a stacked
 ``(batch, N, C)`` right-hand side folds into ``(N, batch * C)`` for one
 pass (``fold_batch``/``unfold_batch``).
 
-The reference's ``segment_sum`` becomes ``index_add_``.  On the CPU it adds
-in block order and is bit-stable; on a CUDA device it reduces with atomics,
-so the VDT path there is stable within tolerance, not bit for bit.
+The reference's ``segment_sum`` becomes ``index_add_`` over the slot list on
+the CPU, which adds in block order and is bit-stable.  On a CUDA device, with
+the fitted tree's CSR of active blocks (``kernels/block_combine``), the
+combine is one hand-written kernel that sums each node's blocks in a fixed
+order, with no atomics: the same bits from call to call there too.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.tree import PartitionTree
+from repro_torch.kernels.block_combine import BlockCsr, block_combine
 
 __all__ = ["collect_up", "fold_batch", "mpt_matvec", "mpt_matvec_batched",
            "mpt_matvec_leaforder", "prepare_q", "unfold_batch"]
@@ -64,27 +67,33 @@ def _distribute_down(c_node: torch.Tensor, L: int) -> torch.Tensor:
 
 
 def mpt_matvec_leaforder(y_leaf: torch.Tensor, a: torch.Tensor,
-                         b: torch.Tensor, q: torch.Tensor,
-                         L: int) -> torch.Tensor:
+                         b: torch.Tensor, q: torch.Tensor, L: int,
+                         csr: BlockCsr | None = None) -> torch.Tensor:
     """(QY) in leaf order; any leading batch dims ride along level-major.
 
     ``y_leaf`` (..., Np, C) holds values in leaf order (ghosts 0); ``a``,
     ``b`` are int64 block node ids and ``q`` the block weights (0 where
-    inactive).
+    inactive).  ``csr``, the same blocks as a ``block_csr``, routes the
+    combine through the block-combine kernel on a CUDA ``y_leaf``; the CPU
+    adds over the slot list.
     """
     t = collect_up(y_leaf, L)                        # (..., n_nodes, C)
-    c_block = q[:, None] * t.index_select(-2, b)     # (..., cap, C)
-    c_node = torch.zeros_like(t).index_add_(-2, a, c_block)
+    if csr is not None and t.is_cuda:
+        c_node = block_combine(t, csr)
+    else:
+        c_block = q[:, None] * t.index_select(-2, b)     # (..., cap, C)
+        c_node = torch.zeros_like(t).index_add_(-2, a, c_block)
     return _distribute_down(c_node, L)
 
 
 def mpt_matvec(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
                active: torch.Tensor, log_q: torch.Tensor,
-               y: torch.Tensor) -> torch.Tensor:
-    """(QY) in original row order for (N,), (N, C) or (batch, N, C) ``y``."""
+               y: torch.Tensor, csr: BlockCsr | None = None) -> torch.Tensor:
+    """(QY) in original row order for (N,), (N, C) or (batch, N, C) ``y``;
+    ``csr`` as in :func:`mpt_matvec_leaforder`."""
     if y.ndim == 3:
         batch, _, c = y.shape
-        out = mpt_matvec(tree, a, b, active, log_q, fold_batch(y))
+        out = mpt_matvec(tree, a, b, active, log_q, fold_batch(y), csr)
         return unfold_batch(out, batch, c)
     squeeze = y.ndim == 1
     if squeeze:
@@ -93,15 +102,16 @@ def mpt_matvec(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
     y_leaf = torch.zeros((tree.n_leaves, y.shape[1]), dtype=y.dtype,
                          device=y.device)
     y_leaf[tree.slot_of] = y
-    out = mpt_matvec_leaforder(y_leaf, a, b, q, tree.L)[tree.slot_of]
+    out = mpt_matvec_leaforder(y_leaf, a, b, q, tree.L, csr)[tree.slot_of]
     return out[:, 0] if squeeze else out
 
 
 def mpt_matvec_batched(tree: PartitionTree, a: torch.Tensor, b: torch.Tensor,
                        active: torch.Tensor, log_q: torch.Tensor,
-                       ys: torch.Tensor) -> torch.Tensor:
+                       ys: torch.Tensor,
+                       csr: BlockCsr | None = None) -> torch.Tensor:
     """Explicit batched multi-RHS (Q @ Y_b for every b) in one pass."""
     if ys.ndim != 3:
         raise ValueError(
             f"mpt_matvec_batched wants (batch, N, C), got {tuple(ys.shape)}")
-    return mpt_matvec(tree, a, b, active, log_q, ys)
+    return mpt_matvec(tree, a, b, active, log_q, ys, csr)

@@ -41,6 +41,7 @@ from repro_torch.core import sigma as sigma_mod
 from repro_torch.core.label_prop import (lp_scan_fused_resume,
                                          lp_scan_leaforder_resume)
 from repro_torch.core.tree import PartitionTree, build_tree
+from repro_torch.kernels.block_combine import BlockCsr, block_csr
 
 __all__ = ["VariationalDualTree", "VdtStats"]
 
@@ -73,8 +74,8 @@ class VariationalDualTree:
     # the Bregman divergence this model was fitted under, bound to `tree`;
     # None means the default Gaussian kernel, bound lazily
     divergence: Optional[div_mod.BoundDivergence] = None
-    # (a, b, active, q, leaf_mask) on the device, built lazily and reused
-    # across calls; q never changes between refinements
+    # (a, b, active, q, leaf_mask, block_csr) on the device, built lazily
+    # and reused across calls; q never changes between refinements
     _serve_cache: Optional[tuple] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
     # points in original row order (the exact backend reads them)
@@ -195,7 +196,7 @@ class VariationalDualTree:
 
         ``leaf_mask`` (Np, 1) is 1.0 exactly at leaf slots holding a real
         row; ``q`` is ``exp(log_q)`` from :func:`~matvec.prepare_q`.
-        Invalidated by :meth:`refine`.
+        Invalidated by :meth:`refine`, with :meth:`_block_csr`.
         """
         if self._serve_cache is None:
             a, b, active = blocks_mod.device_blocks(self.bp, self.device)
@@ -203,8 +204,16 @@ class VariationalDualTree:
             mask = torch.zeros((self.tree.n_leaves, 1), dtype=torch.float32,
                                device=self.device)
             mask[self.tree.slot_of, 0] = 1.0
-            self._serve_cache = (a, b, active, q, mask)
-        return self._serve_cache
+            csr = block_csr(a, b, q, active, self.tree.n_nodes)
+            self._serve_cache = (a, b, active, q, mask, csr)
+        return self._serve_cache[:5]
+
+    def _block_csr(self) -> BlockCsr:
+        """The active blocks as the block-combine kernel's CSR, sorted by
+        data node (``kernels/block_combine``); cached with
+        :meth:`_dispatch_buffers`.  The walk on the card combines over it."""
+        self._dispatch_buffers()
+        return self._serve_cache[5]
 
     @property
     def x_rows(self) -> torch.Tensor:
@@ -220,14 +229,16 @@ class VariationalDualTree:
         """Q @ y in O(|B| + N) (Algorithm 1); y is (N,), (N, C) or (batch, N, C)."""
         a, b, active, _, _ = self._dispatch_buffers()
         return matvec_mod.mpt_matvec(self.tree, a, b, active,
-                                     self.qstate.log_q, self._as_labels(y))
+                                     self.qstate.log_q, self._as_labels(y),
+                                     self._block_csr())
 
     def matvec_batched(self, ys) -> torch.Tensor:
         """Explicit batched multi-RHS: (batch, N, C) -> (batch, N, C)."""
         a, b, active, _, _ = self._dispatch_buffers()
         return matvec_mod.mpt_matvec_batched(self.tree, a, b, active,
                                              self.qstate.log_q,
-                                             self._as_labels(ys))
+                                             self._as_labels(ys),
+                                             self._block_csr())
 
     def _fold_request_alpha(self, alpha, batch: int, c: int) -> torch.Tensor:
         alpha = torch.as_tensor(alpha, dtype=torch.float32, device=self.device)
@@ -356,7 +367,7 @@ class VariationalDualTree:
         # in any carry, so scattering the carry reproduces the walk's state
         out_leaf = lp_scan_leaforder_resume(
             self._to_leaves(y), self._to_leaves(y0), mask, a, b, q, alpha,
-            self.tree.L, int(n_iters))
+            self.tree.L, int(n_iters), self._block_csr())
         out = out_leaf[self.tree.slot_of]
         return out[:, 0] if squeeze else out
 
@@ -389,7 +400,7 @@ class VariationalDualTree:
         self.qstate, self.sigma = refine_mod.refine_to_budget(
             self.bp, self.tree, self.sigma, max_blocks, batch=batch,
             divergence=self.bound_divergence, stale=stale)
-        self._serve_cache = None  # a/b/q/active all changed
+        self._serve_cache = None  # a/b/q/active and the CSR all changed
         self._stream = None
         self.stats.n_blocks = self.bp.n_active
         self.stats.bound = float(self.qstate.bound)

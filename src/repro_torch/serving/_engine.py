@@ -1022,9 +1022,9 @@ class PropagateEngine(Engine):
         an outer (non-nested) dispatch.  Each segment resumes from the
         previous carry via ``label_propagate_resume`` — bit-identical to
         the monolithic scan (eq. 15 is a pure fixed-point iteration, and
-        neither K1 nor the VDT walk on the CPU reduces with atomics; the
-        VDT walk on the card does, through ``index_add_``, so there the
-        segments hold it within tolerance).  After each segment the
+        neither K1 nor the VDT walk reduces with atomics: on the card the
+        walk's block combine is a kernel that sums each node's blocks in a
+        fixed order, ``kernels/block_combine``).  After each segment the
         measured per-iteration device time feeds an EWMA, and if anything
         queued would expire before the estimated completion of the
         remaining iterations, the walk yields the device to

@@ -33,7 +33,8 @@ Sharding is invisible in the output
   then slices into the shard's own subtree.  Every float add happens in the
   same order as the single-device walk, so on the CPU the result is the
   single engine's bit for bit; on the card ``index_add_`` reduces with
-  atomics, in the single engine as here, so there the two agree within
+  atomics here, while the single engine sums each node's blocks in a fixed
+  order (``kernels/block_combine``), so there the two agree within
   tolerance.
 * **Exact backend** — rows of the streamed transition matrix are
   independent, so each shard runs K1 (``kernels/fused_lp/ops.py::

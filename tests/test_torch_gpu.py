@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.block_combine import (block_combine,
+                                               block_combine_plain, block_csr)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  flash_attention_ref)
@@ -605,23 +607,24 @@ def _capturing_engine(vdt, **kw):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("backend", ["exact", "grf"])
+@pytest.mark.parametrize("backend", ["exact", "grf", "vdt"])
 def test_cuda_engine_equals_direct_call_bit_for_bit(card_vdt, backend):
-    """K1 (exact) and K5 (grf) have no atomics: the engine's answers are a
-    direct batched call on the same padded stack, bit for bit."""
+    """K1 (exact), K5 (grf) and the block combine (vdt) have no atomics: the
+    engine's answers are a direct batched call on the same padded stack, bit
+    for bit, one launch an iteration."""
     extra = dict(n_walkers=16) if backend == "grf" else {}
     eng = _capturing_engine(card_vdt, max_batch=8, backend=backend,
                             n_walkers=8, grf_seed=3)
     futs = [eng.submit(r) for r in
             _engine_requests(card_vdt.tree.n_points, 1, **extra)]
-    launches = (folded_step if backend == "exact"
-                else grf_feature_matvec).launches
+    kernel = {"exact": folded_step, "grf": grf_feature_matvec,
+              "vdt": block_combine}[backend]
+    launches = kernel.launches
     eng.flush()
     assert len(eng.scans) == 1
     stack, alphas, out, n_iters, n_walkers = eng.scans[0]
     assert stack.is_cuda and out.is_cuda
-    assert (folded_step if backend == "exact"
-            else grf_feature_matvec).launches - launches == n_iters
+    assert kernel.launches - launches == n_iters
     kw = dict(n_walkers=n_walkers, seed=3) if backend == "grf" else {}
     direct = card_vdt.label_propagate(stack, alpha=alphas, n_iters=n_iters,
                                       batched=True, backend=backend, **kw)
@@ -647,6 +650,87 @@ def test_cuda_segmented_edf_exact_equals_monolithic(card_vdt):
     mono.flush()
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.result(timeout=0), w.result(timeout=0))
+
+
+@pytest.mark.gpu
+def test_cuda_segmented_edf_vdt_equals_monolithic(card_vdt):
+    """The block combine sums in a fixed order: a vdt walk resumed at
+    segment boundaries has the monolithic walk's bits on the card too."""
+    from repro_torch.serving import PropagateEngine
+
+    reqs = _engine_requests(card_vdt.tree.n_points, 7, count=3, widths=(2,))
+    seg = PropagateEngine(card_vdt, start=False, max_batch=4, policy="edf",
+                          segment_iters=3)
+    mono = PropagateEngine(card_vdt, start=False, max_batch=4)
+    got = [seg.submit(r) for r in reqs]
+    want = [mono.submit(r) for r in reqs]
+    seg.flush()
+    mono.flush()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.result(timeout=0), w.result(timeout=0))
+
+
+def _skewed_partition(device):
+    """Slots over an 11-level heap: one node with 700 blocks, others with a
+    few, a fifth inactive, capacity padding at node 0; ``(L, csr)``."""
+    from repro_torch.core.matvec import prepare_q
+
+    rng = np.random.RandomState(33)
+    L, cap, used = 10, 4_000, 3_000
+    n_nodes = (2 << L) - 1
+    a, b = np.zeros(cap, np.int64), np.zeros(cap, np.int64)
+    a[:used] = rng.randint(1, n_nodes // 2, used)
+    a[rng.choice(used, 700, replace=False)] = 7
+    b[:used] = rng.randint(0, n_nodes, used)
+    active = np.zeros(cap, bool)
+    active[:used] = rng.rand(used) < 0.8
+    log_q = np.log(rng.rand(cap) + 0.01).astype(np.float32)
+    a, b, active, log_q = (torch.as_tensor(v, device=device)
+                           for v in (a, b, active, log_q))
+    return L, block_csr(a, b, prepare_q(active, log_q), active, n_nodes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 5, 8, 32, 128, 256, 300])
+@pytest.mark.parametrize("partition", ["skewed", "fitted"])
+def test_cuda_block_combine_matches_plain_within_the_gate(request, partition,
+                                                           k):
+    """The block combine against float64: no worse than 2 x the plain
+    float32 version; two launches bit for bit, each counted."""
+    from repro_torch.core.matvec import collect_up
+
+    _card()
+    if partition == "fitted":
+        vdt = request.getfixturevalue("card_vdt")
+        L, csr = vdt.tree.L, vdt._block_csr()
+    else:
+        L, csr = _skewed_partition("cuda")
+    g = torch.Generator(device="cuda").manual_seed(k)
+    t = collect_up(torch.randn((1 << L, k), generator=g, device="cuda"), L)
+    before = block_combine.launches
+    got = block_combine(t, csr)
+    again = block_combine(t, csr)
+    torch.cuda.synchronize()
+    assert block_combine.launches == before + 2
+    assert torch.equal(got, again)
+    want = block_combine_plain(t.double(), csr.row_ptr, csr.b,
+                               csr.q.double())
+    _assert_gate(got, block_combine_plain(t, csr.row_ptr, csr.b, csr.q), want)
+
+
+@pytest.mark.gpu
+def test_cuda_block_combine_folds_leading_dims():
+    """A (batch, n_nodes, C) input is one launch of batch x C columns."""
+    from repro_torch.core.matvec import collect_up
+
+    _card()
+    L, csr = _skewed_partition("cuda")
+    t = collect_up(torch.randn((4, 1 << L, 3), device="cuda"), L)
+    before = block_combine.launches
+    got = block_combine(t, csr)
+    assert block_combine.launches == before + 1
+    torch.testing.assert_close(got, torch.stack(
+        [block_combine(t[i], csr) for i in range(4)]), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.gpu
