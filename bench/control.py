@@ -59,7 +59,7 @@ def fit_readings(layout, workload: str, seed: int, device,
     out = {"workload": workload, "seed": seed, "fit_s": fit_s,
            "sigma": fitted["sigma"],
            "program": ref.checks(x, fitted, cell.config)["sigma_err"],
-           "control": ref.control_sigma_err(x, fitted)}
+           "control": ref.control_sigma_err(x, fitted, cell.config)}
     if no_refit:
         with no_sigma_refit():
             vdt, _ = harness.fit_model(cell.config, x, device)

@@ -13,6 +13,7 @@ import torch
 
 from bench import compare, devtrace
 from bench.layout import Cell, Layout
+from bench.reference import bregman
 from bench.seeds import subseed
 
 JAX_NAMES = ("jax", "jaxlib", "flax", "repro")
@@ -32,7 +33,7 @@ class Run:
     n: int
     d: int
     n_blocks: int              # active blocks of the fitted model
-    integer_points: bool       # every coordinate a small integer (int8-exact)
+    integer_points: bool       # int8-exact squared distances (small integers)
     records: list
     before: object             # engine MetricsSnapshot at the window's start
     after: object              # ... once every answer of the window is in
@@ -46,11 +47,14 @@ def foreign_modules() -> list:
 
 def points(layout: Layout, config: dict, seed: int, device) -> torch.Tensor:
     """The configuration's one data set (drawn from its own ``seed``, as a
-    real data set is one), its rows in an order drawn from the run's seed."""
+    real data set is one), its rows in an order drawn from the run's seed.
+    Raises ``ValueError`` if the references cannot check the configuration's
+    divergence on it (``reference/bregman.py::require``)."""
     data = dict(config["data"])
     make = layout.module("data", data.pop("generator")).make
     base = torch.Generator(device=device).manual_seed(int(data.pop("seed")))
     x = make(base, device, **data)
+    bregman.require(config, x)
     order = torch.Generator(device=device).manual_seed(subseed(seed, "rows"))
     return x[torch.randperm(x.shape[0], generator=order, device=device)]
 
@@ -98,11 +102,11 @@ def _check(layout: Layout, cell: Cell, x: torch.Tensor, fitted: dict,
     answers' largest error, and requests that failed or never came.  With
     ``control``, also ``control``: the answers' and sigma's errors of the
     reference in its control precision put in the program's place."""
-    mix = cell.mix
+    mix, cfg = cell.mix, cell.config
     ref = layout.module("reference", mix["backend"])
-    out = dict(ref.checks(x, fitted, cell.config))
+    out = dict(ref.checks(x, fitted, cfg))
     if control:
-        out["control"] = {"sigma_err": ref.control_sigma_err(x, fitted)}
+        out["control"] = {"sigma_err": ref.control_sigma_err(x, fitted, cfg)}
     samples = [r for r in records if r.ok and r.answer is not None]
     out["failed"] = float(sum(not r.ok for r in records))
     if not samples:
@@ -114,8 +118,8 @@ def _check(layout: Layout, cell: Cell, x: torch.Tensor, fitted: dict,
     alpha = torch.tensor([r.spec.alpha for r in samples
                           for _ in range(r.spec.width)], dtype=torch.float64,
                          device=dev)
-    want = ref.answers(x, fitted, y0, alpha, int(mix["n_iters"]))
-    lows = (ref.answers(x, fitted, y0, alpha, int(mix["n_iters"]),
+    want = ref.answers(x, fitted, cfg, y0, alpha, int(mix["n_iters"]))
+    lows = (ref.answers(x, fitted, cfg, y0, alpha, int(mix["n_iters"]),
                         precision=ref.CONTROL) if control else None)
     worst = low = 0.0
     lo = 0
@@ -151,7 +155,10 @@ def run_cell(layout: Layout, workload: str, seed: int, seconds: float,
     cfg, mix = cell.config, cell.mix
     x = points(layout, cfg, seed, device)
     n, d = x.shape
-    integer_points = bool(torch.equal(x, x.round())
+    # int8 prices a distance only where its cross term is a product of the
+    # small integers themselves: a Bregman cross term takes log x or 1 / x
+    integer_points = bool(cfg["fit"]["divergence"] == "sqeuclidean"
+                          and torch.equal(x, x.round())
                           and float(x.abs().max()) <= 127)
 
     vdt, fit_s = fit_model(cfg, x, device)

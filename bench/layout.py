@@ -37,9 +37,9 @@ class Layout:
 
     def module(self, kind: str, name: str) -> ModuleType:
         """``bench/<kind>/<name>.py``, loaded once per process.  A metric
-        split by the end-to-end metric it moves (``engine.occupancy.rate``,
-        ``engine.occupancy.tail``) is read by its stem's reader
-        (``engine.occupancy.py``) unless it has one of its own."""
+        split by the end-to-end metric it moves (``engine.occupancy.rate``)
+        is read by its stem's reader (``engine.occupancy.py``) unless it
+        has one of its own."""
         path = self.bench / kind / f"{name}.py"
         if kind == "metrics" and not path.exists() and "." in name:
             path = self.bench / kind / f"{name.rsplit('.', 1)[0]}.py"

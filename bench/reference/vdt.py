@@ -10,7 +10,13 @@ the fit's three choices, the leaf order of the points (``leaf_of``), the
 active blocks (``a``, ``b``) and the bandwidth ``sigma``, checks each of
 them by itself (:func:`checks`: sigma against eq. 12 at the reference's own
 q), and works out everything else again from the points: node statistics,
-block distances, q and the walk.
+block divergences, q and the walk.
+
+The block divergences are the configuration's (``bregman.py``): under
+``sqeuclidean`` the summed squared distances of eq. 9, and under ``kl`` and
+``itakura_saito`` the Bregman factorisation of the same sum over node sums
+of phi(x), grad phi(x) and <grad phi(x), x>.  q, eq. 12 and the walk take
+whichever D the divergence gives.
 
 Layout: a heap over ``2^L`` leaf slots, node k's children at 2k+1 and 2k+2,
 level l at ids [2^l - 1, 2^(l+1) - 1), leaves at level L; ``leaf_of[s]`` is
@@ -20,6 +26,8 @@ Q's entries of rows in subtree A and columns in subtree B.
 from __future__ import annotations
 
 import torch
+
+from bench.reference import bregman
 
 CONTROL = "bfloat16"    # the carriers a memory-bound walk would tempt
 _BLOCK_CHUNK = 1 << 17
@@ -82,46 +90,92 @@ def checks(x: torch.Tensor, fitted: dict, config: dict) -> dict:
     return {"order_defects": float(order),
             "partition_defects": float(bad.sum()),
             "blocks_short": float(max(0, want - int(fitted["n_active"]))),
-            "sigma_err": sigma_err(x, fitted)}
+            "sigma_err": sigma_err(x, fitted, config)}
 
 
-def block_q(x: torch.Tensor, fitted: dict) -> torch.Tensor:
+def block_q(x: torch.Tensor, fitted: dict, config: dict) -> torch.Tensor:
     """q_AB of every followed block at the fit's sigma (:func:`block_terms`)."""
-    return block_terms(x, fitted, float(fitted["sigma"]))[0]
+    return block_terms(x, fitted, config, float(fitted["sigma"]))[0]
 
 
-def sigma_star(q: torch.Tensor, d2: torch.Tensor, n: int, d: int,
+def sigma_star(q: torch.Tensor, dab: torch.Tensor, n: int, d: int,
                dtype: torch.dtype = torch.float64) -> float:
     """Eq. 12, the bandwidth that maximises the bound at fixed q:
-    sigma*^2 = sum_AB q_AB D2_AB / (d N), computed in ``dtype``."""
-    num = (q.to(dtype) * d2.to(dtype)).sum()
+    sigma*^2 = sum_AB q_AB D_AB / (d N), computed in ``dtype``."""
+    num = (q.to(dtype) * dab.to(dtype)).sum()
     return float(torch.sqrt(num / (d * n)).to(torch.float64))
 
 
-def sigma_err(x: torch.Tensor, fitted: dict, sigma: float | None = None,
+def sigma_err(x: torch.Tensor, fitted: dict, config: dict,
+              sigma: float | None = None,
               dtype: torch.dtype = torch.float64) -> float:
     """|s - sigma*(q(s))| / s for the bandwidth s (the fit's by default):
     q worked out at s in float64, eq. 12 in ``dtype``.  The fit ends on eq.
     12 (each refinement round refits sigma), so a sound fit reads near 0."""
     s = float(fitted["sigma"]) if sigma is None else float(sigma)
-    q, d2 = block_terms(x, fitted, s)
-    return abs(s - sigma_star(q, d2, x.shape[0], x.shape[1], dtype)) / s
+    q, dab = block_terms(x, fitted, config, s)
+    return abs(s - sigma_star(q, dab, x.shape[0], x.shape[1], dtype)) / s
 
 
-def control_sigma_err(x: torch.Tensor, fitted: dict) -> float:
+def control_sigma_err(x: torch.Tensor, fitted: dict, config: dict) -> float:
     """``sigma_err`` of the control put in the program's place: the fit's
     last refit (eq. 12 at q of the fit's sigma) computed in bfloat16."""
-    q, d2 = block_terms(x, fitted, float(fitted["sigma"]))
-    return sigma_err(x, fitted, sigma_star(q, d2, x.shape[0], x.shape[1],
-                                           torch.bfloat16))
+    q, dab = block_terms(x, fitted, config, float(fitted["sigma"]))
+    return sigma_err(x, fitted, config,
+                     sigma_star(q, dab, x.shape[0], x.shape[1],
+                                torch.bfloat16))
 
 
-def block_terms(x: torch.Tensor, fitted: dict, sigma: float):
-    """``(q, D2)`` of every followed block, in float64, from the points:
-    q_AB at the bandwidth ``sigma`` and the summed squared distances D2_AB.
+def block_div(x: torch.Tensor, fitted: dict, config: dict) -> torch.Tensor:
+    """D_AB = sum over i in A (rows), j in B (columns) of d(x_i, x_j) for
+    every followed block, in float64, under the configuration's divergence.
 
-    z_A = sum_B W_B e^{G_AB} with G_AB = -D2_AB / (2 s^2 W_A W_B) and D2_AB
-    the summed squared distances between A's and B's points; bottom up
+    ``sqeuclidean`` is eq. 9 from the node sums W, S1 = sum x and S2 =
+    sum |x|^2: D_AB = W_B S2_A + W_A S2_B - 2 <S1_A, S1_B>.  A Bregman
+    divergence sums d(x_i, x_j) = phi(x_i) - phi(x_j) - <grad phi(x_j), x_i>
+    + <grad phi(x_j), x_j> the same way, from the node sums Sphi, Sg and Sgx
+    of phi(x), grad phi(x) and <grad phi(x), x>: D_AB = W_B Sphi_A - W_A
+    Sphi_B - <S1_A, Sg_B> + W_A Sgx_B, clamped at 0 as a sum of divergences
+    is.  Ghost slots take a real point's terms, weighted 0.
+    """
+    div = bregman.name(config)
+    n = x.shape[0]
+    leaf_of, a, b, L = fitted["leaf_of"], fitted["a"], fitted["b"], fitted["L"]
+    f64 = torch.float64
+    w_leaf = (leaf_of < n).to(f64)
+    W = _up(w_leaf, L)
+    d = torch.empty(a.shape[0], dtype=f64, device=x.device)
+    if div == "sqeuclidean":
+        x_leaf = x.to(f64)[leaf_of.clamp_max(n - 1)] * w_leaf[:, None]
+        S1 = _up(x_leaf, L)
+        S2 = _up((x_leaf * x_leaf).sum(1), L)
+        del x_leaf
+        for lo in range(0, a.shape[0], _BLOCK_CHUNK):
+            aa, bb = a[lo:lo + _BLOCK_CHUNK], b[lo:lo + _BLOCK_CHUNK]
+            d[lo:lo + _BLOCK_CHUNK] = (W[bb] * S2[aa] + W[aa] * S2[bb]
+                                       - 2.0 * (S1[aa] * S1[bb]).sum(1))
+        return d
+    x_leaf = x.to(f64)[leaf_of.clamp_max(n - 1)]
+    phi, g, gx = bregman.point_terms(div, x_leaf)
+    S1 = _up(x_leaf * w_leaf[:, None], L)
+    del x_leaf
+    Sg = _up(g * w_leaf[:, None], L)
+    del g
+    Sphi, Sgx = _up(phi * w_leaf, L), _up(gx * w_leaf, L)
+    for lo in range(0, a.shape[0], _BLOCK_CHUNK):
+        aa, bb = a[lo:lo + _BLOCK_CHUNK], b[lo:lo + _BLOCK_CHUNK]
+        d[lo:lo + _BLOCK_CHUNK] = (W[bb] * Sphi[aa] - W[aa] * Sphi[bb]
+                                   - (S1[aa] * Sg[bb]).sum(1)
+                                   + W[aa] * Sgx[bb])
+    return d.clamp_min_(0.0)
+
+
+def block_terms(x: torch.Tensor, fitted: dict, config: dict, sigma: float):
+    """``(q, D)`` of every followed block, in float64, from the points: q_AB
+    at the bandwidth ``sigma`` and the summed divergences D_AB
+    (:func:`block_div`).
+
+    z_A = sum_B W_B e^{G_AB} with G_AB = -D_AB / (2 s^2 W_A W_B); bottom up
     Zt_A = z_A + exp((W_l log Zt_l + W_r log Zt_r) / W_A); top down the mass
     R (R_root = 1, R_child = R_A exp(Wbar_A) / Zt_A) and v_A = R_A z_A /
     Zt_A; then q_AB = v_A e^{G_AB} / z_A.
@@ -129,20 +183,9 @@ def block_terms(x: torch.Tensor, fitted: dict, sigma: float):
     n = x.shape[0]
     leaf_of, a, b, L = fitted["leaf_of"], fitted["a"], fitted["b"], fitted["L"]
     f64 = torch.float64
-    real = leaf_of < n
-    w_leaf = real.to(f64)
-    x_leaf = x.to(f64)[leaf_of.clamp_max(n - 1)] * w_leaf[:, None]
-    W = _up(w_leaf, L)
-    S1 = _up(x_leaf, L)
-    S2 = _up((x_leaf * x_leaf).sum(1), L)
-    del x_leaf
-    d2 = torch.empty(a.shape[0], dtype=f64, device=x.device)
-    for lo in range(0, a.shape[0], _BLOCK_CHUNK):
-        aa, bb = a[lo:lo + _BLOCK_CHUNK], b[lo:lo + _BLOCK_CHUNK]
-        d2[lo:lo + _BLOCK_CHUNK] = (W[bb] * S2[aa] + W[aa] * S2[bb]
-                                    - 2.0 * (S1[aa] * S1[bb]).sum(1))
-    del S1, S2
-    g = -d2 / (2.0 * sigma * sigma * W[a] * W[b])
+    W = _up((leaf_of < n).to(f64), L)
+    dab = block_div(x, fitted, config)
+    g = -dab / (2.0 * sigma * sigma * W[a] * W[b])
     n_nodes = W.shape[0]
     neg_inf = float("-inf")
     v = torch.log(W[b]) + g
@@ -179,7 +222,7 @@ def block_terms(x: torch.Tensor, fitted: dict, sigma: float):
     ok = torch.isfinite(log_r) & torch.isfinite(log_z)
     log_v = torch.where(ok, log_r + log_z - log_zt, neg_inf)
     log_q = log_v[a] + g - log_z[a]
-    return torch.where(torch.isfinite(log_q), torch.exp(log_q), 0.0), d2
+    return torch.where(torch.isfinite(log_q), torch.exp(log_q), 0.0), dab
 
 
 def _walk(q, a, b, slot, real, L, y0, alpha, n_iters, dtype):
@@ -197,7 +240,7 @@ def _walk(q, a, b, slot, real, L, y0, alpha, n_iters, dtype):
     return y[slot]
 
 
-def answers(x: torch.Tensor, fitted: dict, y0: torch.Tensor,
+def answers(x: torch.Tensor, fitted: dict, config: dict, y0: torch.Tensor,
             alpha: torch.Tensor, n_iters: int,
             precision: str = "float64") -> torch.Tensor:
     """The eq.-15 walk ``Y <- alpha (Q Y) + (1 - alpha) Y0`` from ``y0``
@@ -205,7 +248,7 @@ def answers(x: torch.Tensor, fitted: dict, y0: torch.Tensor,
     (``"float64"``, or :data:`CONTROL` with q and the labels carried in it)."""
     dtype = {"float64": torch.float64, "bfloat16": torch.bfloat16}[precision]
     n = x.shape[0]
-    q = block_q(x, fitted)
+    q = block_q(x, fitted, config)
     slot = _slots(fitted["leaf_of"], n)
     real = fitted["leaf_of"] < n
     out = torch.empty(y0.shape, dtype=torch.float64, device=x.device)

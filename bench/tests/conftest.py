@@ -1,6 +1,8 @@
 """A throw-away benchmark in a temporary directory: the real ``bench/``
-copied beside a tiny configuration, tiny mixes and one extra metric, so that
-the CPU tests drive whole runs at a size a test run holds."""
+copied beside tiny configurations (squared Euclidean on SecStr-like points;
+``kl`` and ``itakura_saito`` on the same points made positive), tiny mixes
+and one extra metric, so that the CPU tests drive whole runs at a size a
+test run holds."""
 from __future__ import annotations
 
 import json
@@ -19,20 +21,39 @@ def read(run):
     return len(run.records)
 '''
 
+POSITIVE_GENERATOR = '''"""SecStr-like 0/1 points plus ``shift``: every coordinate > 0, as the
+``kl`` and ``itakura_saito`` divergences need (a throw-away generator)."""
+import torch
+
+
+def make(gen, device, n, d, p_on=(0.08, 0.12), shift=0.1):
+    labels = torch.randint(0, 2, (n,), generator=gen, device=device)
+    p = torch.tensor(p_on, dtype=torch.float32, device=device)[labels]
+    u = torch.rand((n, d), generator=gen, device=device)
+    return (u < p[:, None]).to(torch.float32) + shift
+'''
+
+# configuration -> (divergence, data generator); each runs both tiny mixes
+TINY_CONFIGS = {"tiny": ("sqeuclidean", "secstr_like"),
+                "tiny_kl": ("kl", "secstr_shifted"),
+                "tiny_is": ("itakura_saito", "secstr_shifted")}
+
 
 def build_tiny(root: Path) -> dict:
     """Write the throw-away benchmark under ``root``; returns its spec."""
     shutil.copytree(REPO / "bench", root / "bench",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
-    cfg = json.loads((REPO / "bench/configs/secstr.json").read_text())
-    cfg["name"] = "tiny"
-    cfg["data"].update(n=TINY_N, d=TINY_D)
-    cfg["fit"]["refine_batch"] = 256
-    (root / "bench/configs/tiny.json").write_text(json.dumps(cfg))
-    spec["configs"].append({"name": "tiny", "source": "a test",
-                            "file": "bench/configs/tiny.json",
-                            "reduced": ["n", "d"], "why": "CPU tests"})
+    (root / "bench/data/secstr_shifted.py").write_text(POSITIVE_GENERATOR)
+    for name, (divergence, generator) in TINY_CONFIGS.items():
+        cfg = json.loads((REPO / "bench/configs/secstr.json").read_text())
+        cfg["name"] = name
+        cfg["data"].update(generator=generator, n=TINY_N, d=TINY_D)
+        cfg["fit"].update(refine_batch=256, divergence=divergence)
+        (root / f"bench/configs/{name}.json").write_text(json.dumps(cfg))
+        spec["configs"].append({"name": name, "source": "a test",
+                                "file": f"bench/configs/{name}.json",
+                                "reduced": ["n", "d"], "why": "CPU tests"})
     (root / "bench/metrics/tiny.sent.py").write_text(EXTRA_METRIC)
     spec["per_layer"].append({"name": "tiny.sent", "unit": "requests",
                               "better": "higher", "source": "host_clock",
@@ -47,15 +68,17 @@ def build_tiny(root: Path) -> dict:
         mix["engine"]["max_batch"] = 4
         (root / f"bench/traffic/tiny_{backend}.json").write_text(
             json.dumps(mix))
-        name = f"tiny.{backend}"
-        spec["workloads"].append({"name": name, "config": "tiny",
-                                  "traffic": f"tiny_{backend}", "chips": 1,
-                                  "why": "CPU tests"})
-        shutil.copy(REPO / f"bench/limits/{cell}.json",
-                    root / f"bench/limits/{name}.json")
-        for m in spec["end_to_end"] + spec["per_layer"]:
-            if m["name"] == "tiny.sent" or cell in m.get("workloads", [name]):
-                m.setdefault("workloads", []).append(name)
+        for config in TINY_CONFIGS:
+            name = f"{config}.{backend}"
+            spec["workloads"].append({"name": name, "config": config,
+                                      "traffic": f"tiny_{backend}",
+                                      "chips": 1, "why": "CPU tests"})
+            shutil.copy(REPO / f"bench/limits/{cell}.json",
+                        root / f"bench/limits/{name}.json")
+            for m in spec["end_to_end"] + spec["per_layer"]:
+                if m["name"] == "tiny.sent" or cell in m.get("workloads",
+                                                             [name]):
+                    m.setdefault("workloads", []).append(name)
     (root / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))
     return spec
 

@@ -94,16 +94,16 @@ def test_cells_report_their_metrics():
     got = {w["name"]: layout.cell(w["name"]) for w in SPEC["workloads"]}
     e2e = {k: {m["name"] for m in c.end_to_end} for k, c in got.items()}
     lay = {k: {m["name"] for m in c.per_layer} for k, c in got.items()}
-    assert e2e["secstr.vdt_r55"] == {"lp_p95_ms", "setup_s"}
-    assert e2e["alpha.vdt_r40"] == e2e["secstr.exact_r20"] == {
-        "lp_requests_per_s", "setup_s"}
+    assert e2e["secstr.vdt_r55"] == e2e["alpha.vdt_r40"] == e2e[
+        "secstr.exact_r20"] == {"lp_requests_per_s", "setup_s"}
     fit = {"fit.total_s", "fit.refine_s"}
-    vdt = {"engine.occupancy", "vdt.iter_device_ms", "vdt.launches_per_iter",
-           "device.idle_share", "serve_mfu"}
-    assert lay["secstr.vdt_r55"] == fit | {f"{m}.tail" for m in vdt}
+    both = {"engine.occupancy", "engine.queue_wait_ms", "engine.serial_ms",
+            "lp.column_fill", "device.idle_share", "serve_mfu"}
+    vdt = both | {"vdt.iter_device_ms", "vdt.launches_per_iter"}
+    assert lay["secstr.vdt_r55"] == fit | {f"{m}.rate" for m in vdt} | {
+        "engine.latency_p95_ms"}
     assert lay["alpha.vdt_r40"] == fit | {f"{m}.rate" for m in vdt}
-    assert lay["secstr.exact_r20"] == fit | {
-        "engine.occupancy.rate", "device.idle_share.rate", "serve_mfu.rate",
+    assert lay["secstr.exact_r20"] == fit | {f"{m}.rate" for m in both} | {
         "k1_roofline"}
     for cell in got.values():
         moved = {m["name"] for m in cell.end_to_end}

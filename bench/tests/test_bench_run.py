@@ -37,13 +37,12 @@ def test_result_keys(tiny_runs, workload, trace):
     for m in result["metrics"].values():
         assert set(m) == {"value", "unit"}
     names = set(result["metrics"])
-    moves = "tail" if workload == "tiny.vdt" else "rate"
     if not trace:
-        assert names == {"setup_s", "lp_p95_ms" if moves == "tail"
-                         else "lp_requests_per_s"}
+        assert names == {"setup_s", "lp_requests_per_s"}
     else:
-        assert {f"engine.occupancy.{moves}", "fit.total_s",
+        assert {"engine.occupancy.rate", "fit.total_s",
                 "fit.refine_s"} <= names
+        assert ("engine.latency_p95_ms" in names) == (workload == "tiny.vdt")
 
 
 def test_foreign_modules_compares_whole_names(monkeypatch):

@@ -66,25 +66,22 @@ def test_readers_return_none_on_an_idle_window(stem):
 
 def test_new_metrics_are_declared_for_the_three_cells():
     spec = {m["name"]: m for m in LAYOUT.spec["per_layer"]}
+    cells = ["secstr.vdt_r55", "alpha.vdt_r40", "secstr.exact_r20"]
     for stem in NEW:
-        assert spec[f"{stem}.tail"]["workloads"] == ["secstr.vdt_r55"]
-        assert spec[f"{stem}.tail"]["moves"] == "lp_p95_ms"
-        assert spec[f"{stem}.rate"]["workloads"] == ["alpha.vdt_r40",
-                                                    "secstr.exact_r20"]
+        assert f"{stem}.tail" not in spec
+        assert spec[f"{stem}.rate"]["workloads"] == cells
         assert spec[f"{stem}.rate"]["moves"] == "lp_requests_per_s"
-    for w in ("secstr.vdt_r55", "alpha.vdt_r40", "secstr.exact_r20"):
+    for w in cells:
         names = {m["name"] for m in LAYOUT.cell(w).per_layer}
-        suffix = "tail" if w == "secstr.vdt_r55" else "rate"
-        assert {f"{stem}.{suffix}" for stem in NEW} <= names
+        assert {f"{stem}.rate" for stem in NEW} <= names
 
 
 @pytest.mark.parametrize("workload", ["tiny.vdt", "tiny.exact"])
 def test_a_traced_tiny_run_reads_every_new_metric(tiny_runs, workload):
     result, _ = tiny_runs[(workload, True)]
-    suffix = "tail" if workload == "tiny.vdt" else "rate"
     got = result["metrics"]
     for stem in NEW:
-        assert f"{stem}.{suffix}" in got, stem
-    assert 0.0 < got[f"lp.column_fill.{suffix}"]["value"] <= 100.0
-    assert got[f"engine.serial_ms.{suffix}"]["value"] > 0.0
-    assert got[f"engine.queue_wait_ms.{suffix}"]["value"] > 0.0
+        assert f"{stem}.rate" in got, stem
+    assert 0.0 < got["lp.column_fill.rate"]["value"] <= 100.0
+    assert got["engine.serial_ms.rate"]["value"] > 0.0
+    assert got["engine.queue_wait_ms.rate"]["value"] > 0.0

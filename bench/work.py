@@ -11,8 +11,10 @@ an implementation fuses, reorders or keeps something:
   call, whatever an implementation reads again;
 * FLOPs are priced at the fastest rate that computes them exactly enough:
   TF32 on the tensor cores (no float32-accurate product on this card is
-  faster), and int8 where the points are small integers (SecStr's 0/1
-  features give exact distances on the int8 tensor cores);
+  faster), and int8 where the points are small integers under the squared
+  Euclidean distance (SecStr's 0/1 features give exact distances on the
+  int8 tensor cores); a ``kl`` or ``itakura_saito`` cross term multiplies
+  x by log x or 1 / x, which no int8 product computes, so it takes TF32;
 * a walk over the exact matrix (eq. 3) must, every iteration, either compute
   the N^2 distances from the points or read them back, at one byte a pair at
   the least; :func:`exact_pairs_seconds` prices the cheapest mix of the two.
